@@ -5,19 +5,30 @@
 
 Phases, each printed with its elapsed seconds:
 
-1. env     torch/CUDA versions and the card's name and power limit.
-2. build   one nvcc call over ``pram_tpu_torch/csrc/*.cu`` (cached by hash).
-3. setup   SegNetViT (descriptor_dim 128, nc113, 15 layers) in bf16 from
-           ``weights/segnetvit_synthetic.msgpack``, the synthetic scene of
-           bench.py's recall guard and 32 rendered queries of 512 keypoints.
-4. kernels each kernel against its plain version on the card at the slice's
-           shapes, with its time, the plain version's, a library call's where
-           one exists, and its bound.
-5. slice   the main path on the card: recognition -> mutual-NN matching ->
-           RANSAC PnP (seg_k=1, 128 hypotheses, gn_iters=5, lo_rounds=1),
-           with every kernel's launch count reset just before and read just
-           after; then the same batch on the CPU through the plain versions
-           with the same RANSAC triplets, and the two are compared.
+1. env          torch/CUDA versions and the card's name and power limit.
+2. build        one nvcc call over ``pram_tpu_torch/csrc/*.cu`` (cached by hash).
+3. setup        SegNetViT (descriptor_dim 128, nc113, 15 layers) and GML (9
+                layers, d=256) in bf16 from ``weights/segnetvit_synthetic.msgpack``
+                and ``weights/gml_synthetic.msgpack``, the synthetic scene of
+                bench.py's recall guard and 32 rendered queries of 512 keypoints.
+4. kernels      the first slice's kernels (self-attention and residual MLP at
+                SegNetViT's shapes, RANSAC scoring and GN polish at the PnP
+                shapes) against their plain versions on the card.
+5. slice        the first slice on the card: recognition -> mutual-NN matching
+                -> RANSAC PnP (seg_k=1, 128 hypotheses, gn_iters=5,
+                lo_rounds=1, no refinement), with every kernel's launch count
+                reset just before and read just after; then the same batch on
+                the CPU through the plain versions, compared.
+6. gml kernels  the second slice's kernels against their plain versions at
+                GML's shapes, on the matcher inputs of phase 5's batch:
+                self-attention with splits (512, 1024), cross-attention,
+                the residual MLP over 1536 tokens, Sinkhorn over [512, 1024]
+                and the refinement NN over 2048 points.
+7. gml slice    the second slice, bench.py's GML recall guard without the
+                extractor: recognition -> GML matching -> RANSAC PnP ->
+                projection refinement -> RANSAC PnP, counted the same way
+                (every kernel, 1 to 7, must have launched), timed, and
+                compared with the same batch on the CPU.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Any failed
@@ -52,7 +63,19 @@ MLP_TOL = 0.02
 SCORE_MAX_DIFF = 2  # points at the gate edge flip with f32 summation/FMA order
 POLISH_POSE_ATOL = 2e-3  # R entries and t (scene units) after 20 GN steps in f32
 POLISH_COUNT_DIFF = 2
-# card vs CPU on the slice: same consensus, so poses agree far inside 5 cm / 5 deg
+# Sinkhorn: plan entries (<= 1) of the real block within 1e-4; the dustbin row
+# and column within 0.3%: their scaling factors sit near a degenerate fixed
+# point that amplifies f32 summation order (pram_tpu/ops/sinkhorn_pallas.py)
+SINKHORN_ATOL = 1e-4
+SINKHORN_DUSTBIN_RTOL = 3e-3
+# refinement NN: f32 similarity sums in another order flip near-ties of the
+# nearest point and of the 0.995 ratio test, so indices and keep flags are
+# held by agreement rate. d1 = sqrt(2 - 2 sim + 1e-6) has slope -1/d1 in sim,
+# and a rendered keypoint carries its map point's exact descriptor, so d1 is
+# ~1e-3 there and the sums' ~1e-7 noise in sim moves it by ~1e-4: d1 within 1e-3
+REFINE_AGREE = 0.99
+REFINE_D1_ATOL = 1e-3
+# card vs CPU on a slice: same consensus, so poses agree far inside 5 cm / 5 deg
 SLICE_T_TOL, SLICE_R_TOL_DEG = 0.005, 0.1
 
 
@@ -99,6 +122,16 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def check_scaled(name: str, got, ref, tol: float) -> float:
+    """Require |got - ref| <= tol * max|ref|; returns the max abs error."""
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    log(f"{name}: max abs err {err:.3e}, relative to max|ref| {scale:.3e}: "
+        f"{err / scale:.2e} (tol {tol})")
+    require(err <= tol * scale, f"{name} kernel disagrees with its plain version")
+    return err
+
+
 def main() -> int:
     import torch
 
@@ -113,15 +146,35 @@ def main() -> int:
     import numpy as np
 
     from pram_tpu_torch import _build
-    from pram_tpu_torch.engine.localizer import LocConfig, Localizer
-    from pram_tpu_torch.engine.matching import make_nn_match_fn
+    from pram_tpu_torch.engine.localizer import (
+        LocConfig,
+        Localizer,
+        gather_refine_set,
+        project_refine_set,
+        rank_candidates,
+    )
+    from pram_tpu_torch.engine.matching import make_gml_match_fn, make_nn_match_fn
     from pram_tpu_torch.geometry.camera import Camera, project
     from pram_tpu_torch.geometry.rotations import compute_pose_error, so3_exp
     from pram_tpu_torch.maps.device import to_device
     from pram_tpu_torch.maps.synthetic import make_synthetic_scene
-    from pram_tpu_torch.models.convert import load_segnetvit
+    from pram_tpu_torch.models.convert import load_gml, load_segnetvit
+    from pram_tpu_torch.models.gml import GMLConfig
     from pram_tpu_torch.models.segnetvit import SegNetViTConfig
-    from pram_tpu_torch.ops import attention, mlp, pnp
+    from pram_tpu_torch.ops import attention, cross_attention, mlp, pnp, refine, sinkhorn
+
+    counters = (
+        attention.LAUNCHES, mlp.LAUNCHES, pnp.LAUNCHES, cross_attention.LAUNCHES,
+        sinkhorn.LAUNCHES, refine.LAUNCHES,
+    )
+
+    def reset_counts():
+        for c in counters:
+            for k in c:
+                c[k] = 0
+
+    def read_counts():
+        return {k: v for c in counters for k, v in c.items()}
 
     # ---- 1. env
     t = time.perf_counter()
@@ -162,19 +215,19 @@ def main() -> int:
     n_class = scene.map.n_class
     rec_cfg = SegNetViTConfig(descriptor_dim=128, n_class=113)
     weights = str(root / "weights" / "segnetvit_synthetic.msgpack")
+    gml_weights = str(root / "weights" / "gml_synthetic.msgpack")
     model = load_segnetvit(weights, rec_cfg, device=dev, dtype=bf16)
-    loc_cfg = LocConfig(
-        seg_k=1, min_inliers=32, threshold=8.0, num_hypotheses=128,
-        do_refinement=False, gn_iters=5, lo_rounds=1,
-    )
+    gml = load_gml(gml_weights, GMLConfig(), device=dev, dtype=bf16)
+    loc_kw = dict(seg_k=1, min_inliers=32, threshold=8.0, num_hypotheses=128, gn_iters=5, lo_rounds=1)
+    loc_cfg = LocConfig(do_refinement=False, **loc_kw)
+    gml_cfg = LocConfig(do_refinement=True, **loc_kw)
     cam_params = torch.tensor([500.0, 500.0, width / 2, height / 2, 0, 0, 0, 0]).repeat(batch, 1)
     cam_size = torch.tensor([float(width), float(height)]).repeat(batch, 1)
     log(f"scene: {scene.map.num_points} points, {scene.map.num_frames} frames, n_class {n_class}")
     phase("setup", t)
 
-    def make_localizer(device):
-        dmap = to_device(scene.map, device, desc_dtype=bf16)
-        return Localizer(dmap, make_nn_match_fn(), loc_cfg)
+    def make_localizer(device, match_fn, cfg):
+        return Localizer(to_device(scene.map, device, desc_dtype=bf16), match_fn, cfg)
 
     def sync(device):
         if device != "cpu":
@@ -202,12 +255,32 @@ def main() -> int:
         ok = res.success.cpu() & (t_err < 0.05) & (q_err < 5.0)
         return float(ok.float().mean()), q_err, t_err
 
-    # ---- 4. kernels vs plain versions at the slice's shapes
+    def compare_with_cpu(name, res_gpu, res_cpu, recall_gpu, logits_gpu=None, logits_cpu=None):
+        """The card's result against the CPU's plain run of the same batch."""
+        recall_cpu, _, _ = recall_of(res_cpu)
+        both = res_gpu.success.cpu() & res_cpu.success
+        dq, dt = compute_pose_error(res_gpu.qvec.cpu(), res_gpu.tvec.cpu(), res_cpu.qvec, res_cpu.tvec)
+        msg = ""
+        if logits_gpu is not None:
+            logit_err = (logits_gpu.cpu() - logits_cpu).abs().max().item()
+            top1 = (logits_gpu.cpu().argmax(-1) == logits_cpu.argmax(-1))[mask].float().mean().item()
+            msg = f"logits max abs diff {logit_err:.4f}, top-1 agreement {top1:.4f}, "
+        log(f"{name} card vs CPU: {msg}success card {int(res_gpu.success.sum())}/{batch} "
+            f"cpu {int(res_cpu.success.sum())}/{batch}, pose diff on {int(both.sum())} localized: "
+            f"max {dq[both].max().item():.4f} deg, {dt[both].max().item():.5f} m; "
+            f"recall card {recall_gpu:.4f} cpu {recall_cpu:.4f}")
+        require(bool(torch.equal(res_gpu.success.cpu(), res_cpu.success)), f"{name}: success flags differ card vs CPU")
+        require(bool((dq[both] < SLICE_R_TOL_DEG).all()), f"{name}: rotation differs card vs CPU")
+        require(bool((dt[both] < SLICE_T_TOL).all()), f"{name}: translation differs card vs CPU")
+        require(recall_gpu >= recall_cpu - 1.0 / batch, f"{name}: card recall below CPU recall")
+        return recall_cpu
+
+    # ---- 4. the first slice's kernels vs plain versions at its shapes
     t = time.perf_counter()
-    rows = []
+    rows = {}
     gen = torch.Generator().manual_seed(1)
 
-    # attention + MLP on layer 0's real inputs
+    # attention + MLP on SegNetViT layer 0's real inputs
     with torch.no_grad():
         d = descs.to(dev, bf16)
         m_dev = mask.to(dev)
@@ -218,63 +291,19 @@ def main() -> int:
         scale = blk.head_dim**-0.5
         a_args = (x, blk.qkv.weight, blk.qkv.bias, cos, sin, kb, scale, blk.num_heads)
         msg = attention.self_attention(*a_args)
-        msg_ref = attention.self_attention_plain(*a_args)
-        err = (msg.float() - msg_ref.float()).abs()
-        scale_ref = msg_ref.float().abs().max().item()
-        ok = err.max().item() <= ATTN_TOL * scale_ref
-        log(f"self_attention: max abs err {err.max().item():.3e}, relative to max|ref| "
-            f"{scale_ref:.3e}: {err.max().item() / scale_ref:.2e} (tol {ATTN_TOL})")
-        require(ok, "self_attention kernel disagrees with its plain version")
-        # library yardstick: SDPA on the already projected and rotated q, k, v
-        b_, n_, h_, hd_ = batch, n_kpts, blk.num_heads, blk.head_dim
-        qkv = (x.float() @ blk.qkv.weight.float().T + blk.qkv.bias.float()).to(bf16)
-        qkv = qkv.reshape(b_, n_, h_, hd_, 3).permute(0, 2, 1, 3, 4)
-        enc = (cos[:, None], sin[:, None])
-        q_ = attention.apply_rotary(enc, qkv[..., 0].float()).to(bf16).contiguous()
-        k_ = attention.apply_rotary(enc, qkv[..., 1].float()).to(bf16).contiguous()
-        v_ = qkv[..., 2].contiguous()
-        amask = m_dev[:, None, None, :]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = cuda_ms(torch, lambda: sdpa(q_, k_, v_, attn_mask=amask, scale=scale))
-        tok = batch * n_kpts
-        a_bytes = tok * 256 * 2 * 2 + 768 * 256 * 2 + 768 * 4 + 2 * tok * 64 * 4 + tok * 4
-        a_ops = 2 * tok * 256 * 768 + 2 * 2 * batch * h_ * n_kpts * n_kpts * hd_
-        bnd, by = bound_ms(a_bytes, a_ops, BF16_TENSOR_FLOPS)
-        rows.append(dict(
-            name="self_attention", route="cuda", source="pram_tpu_torch/csrc/attention.cu",
-            replaces="pram_tpu/ops/attention_pallas.py:802",
-            launches=None, max_abs_err=err.max().item(),
-            ms=cuda_ms(torch, lambda: attention.self_attention(*a_args)),
-            plain_ms=cuda_ms(torch, lambda: attention.self_attention_plain(*a_args), iters=5),
-            bound_ms=bnd, bound_by=by, library_ms=lib_ms,
-        ))
-
+        check_scaled("self_attention (SegNetViT)", msg, attention.self_attention_plain(*a_args), ATTN_TOL)
+        log(f"self_attention (SegNetViT, 32 x 512 tokens): "
+            f"{cuda_ms(torch, lambda: attention.self_attention(*a_args)):.4f} ms")
         m_args = (
             x, msg, blk.proj.weight, blk.proj.bias, blk.mlp_0.weight, blk.mlp_0.bias,
             blk.mlp_ln.weight, blk.mlp_ln.bias, blk.mlp_3.weight, blk.mlp_3.bias,
         )
-        y = mlp.residual_mlp(*m_args)
-        y_ref = mlp.residual_mlp_plain(*m_args)
-        err = (y.float() - y_ref.float()).abs()
-        scale_ref = y_ref.float().abs().max().item()
-        ok = err.max().item() <= MLP_TOL * scale_ref
-        log(f"residual_mlp: max abs err {err.max().item():.3e}, relative to max|ref| "
-            f"{scale_ref:.3e}: {err.max().item() / scale_ref:.2e} (tol {MLP_TOL})")
-        require(ok, "residual_mlp kernel disagrees with its plain version")
-        w_elems = 256 * 256 + 512 * 512 + 256 * 512
-        m_bytes = 3 * tok * 256 * 2 + w_elems * 2 + (256 + 512 * 3 + 256) * 4
-        bnd, by = bound_ms(m_bytes, 2 * tok * w_elems, BF16_TENSOR_FLOPS)
-        rows.append(dict(
-            name="residual_mlp", route="cuda", source="pram_tpu_torch/csrc/mlp.cu",
-            replaces="pram_tpu/ops/mlp_pallas.py:175",
-            launches=None, max_abs_err=err.max().item(),
-            ms=cuda_ms(torch, lambda: mlp.residual_mlp(*m_args)),
-            plain_ms=cuda_ms(torch, lambda: mlp.residual_mlp_plain(*m_args), iters=5),
-            bound_ms=bnd, bound_by=by, library_ms=None,
-        ))
+        check_scaled("residual_mlp (SegNetViT)", mlp.residual_mlp(*m_args), mlp.residual_mlp_plain(*m_args), MLP_TOL)
+        log(f"residual_mlp (SegNetViT, 16384 tokens): "
+            f"{cuda_ms(torch, lambda: mlp.residual_mlp(*m_args)):.4f} ms")
 
     # RANSAC scoring and polish: 32 problems x 512 correspondences, 30% outliers,
-    # 512 pose hypotheses around the true pose (the slice's shapes)
+    # 512 pose hypotheses around the true pose (both slices' shapes)
     P, N, K = batch * loc_cfg.seg_k, n_kpts, 4 * loc_cfg.num_hypotheses
     cam = cam_params.repeat_interleave(loc_cfg.seg_k, 0)
     R_gt = so3_exp(torch.randn(P, 3, generator=gen) * 0.2)
@@ -301,14 +330,14 @@ def main() -> int:
     require(diff <= SCORE_MAX_DIFF, "ransac_score kernel disagrees with its plain version")
     s_bytes = P * K * (12 * 4 + 1 + 4) + P * N * (12 + 8 + 1) + P * 8 * 4
     bnd, by = bound_ms(s_bytes, 50.0 * P * K * N, F32_FLOPS)
-    rows.append(dict(
+    rows["ransac_score"] = dict(
         name="ransac_score", route="cuda", source="pram_tpu_torch/csrc/pnp.cu",
         replaces="pram_tpu/ops/pnp_pallas.py:101",
         launches=None, max_abs_err=float(diff),
         ms=cuda_ms(torch, lambda: pnp.ransac_score(*s_args)),
         plain_ms=cuda_ms(torch, lambda: pnp.ransac_score_plain(*s_args), iters=5),
         bound_ms=bnd, bound_by=by, library_ms=None,
-    ))
+    )
 
     R0 = (so3_exp(torch.randn(P, 3, generator=gen) * 0.02) @ R_gt).to(dev).contiguous()
     t0 = (t_gt + torch.randn(P, 3, generator=gen) * 0.05).to(dev).contiguous()
@@ -328,34 +357,39 @@ def main() -> int:
     n_count = 2 * (loc_cfg.lo_rounds + 3) + 1
     g_bytes = P * N * (12 + 8 + 1 + 1) + P * (12 + 12 + 12 + 4) * 4
     bnd, by = bound_ms(g_bytes, float(P * N * (150 * n_gn + 50 * n_count)), F32_FLOPS)
-    rows.append(dict(
+    rows["gn_polish"] = dict(
         name="gn_polish", route="cuda", source="pram_tpu_torch/csrc/pnp.cu",
         replaces="pram_tpu/ops/pnp_pallas.py:378",
         launches=None, max_abs_err=max(dR, dT),
         ms=cuda_ms(torch, lambda: pnp.gn_polish(*g_args, **g_kw)),
         plain_ms=cuda_ms(torch, lambda: pnp.gn_polish_plain(*g_args, **g_kw), iters=5),
         bound_ms=bnd, bound_by=by, library_ms=None,
-    ))
+    )
     phase("kernels", t)
 
-    # ---- 5. slice: the main path, counted
+    # ---- 5. the first slice, counted; its matcher inputs are kept for phase 6
     t = time.perf_counter()
-    counters = (attention.LAUNCHES, mlp.LAUNCHES, pnp.LAUNCHES)
-    for c in counters:
-        for k in c:
-            c[k] = 0
-    loc_gpu = make_localizer(dev)
+    matcher_inputs = []
+    nn_fn = make_nn_match_fn()
+
+    def recording_nn(*args):
+        matcher_inputs.append(args)
+        return nn_fn(*args)
+
+    reset_counts()
+    loc_gpu = make_localizer(dev, recording_nn, loc_cfg)
     with torch.no_grad():
         logits_gpu, res_gpu, _, _ = run_slice(dev, model, loc_gpu)
     torch.cuda.synchronize()
-    launches = {k: v for c in counters for k, v in c.items()}
-    log(f"main-path launches: {launches}")
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched on the main path")
+    launches = read_counts()
+    log(f"first slice launches: {launches}")
+    for name in ("self_attention", "residual_mlp", "ransac_score", "gn_polish"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the first slice")
     require(bool(torch.isfinite(logits_gpu).all()), "non-finite recognition logits")
     require(tuple(res_gpu.qvec.shape) == (batch, 4), "bad pose batch shape")
     require(bool(torch.isfinite(res_gpu.tvec).all()), "non-finite poses")
     recall_gpu, _, _ = recall_of(res_gpu)
+    loc_gpu.match_fn = nn_fn
 
     # queries/s of recognition + localization on the card (host clock,
     # synchronized), median of 5 batches after one warm-up batch
@@ -364,37 +398,240 @@ def main() -> int:
     rec_s = sorted(r for r, _ in timed)[2]
     loc_s = sorted(lo for _, lo in timed)[2]
     batch_s = sorted(r + lo for r, lo in timed)[2]
-    log(f"slice on card: recall@5cm/5deg {recall_gpu:.4f}, batch {batch} in "
+    log(f"first slice on card: recall@5cm/5deg {recall_gpu:.4f}, batch {batch} in "
         f"{batch_s * 1e3:.2f} ms (median of 5; recognition {rec_s * 1e3:.2f} ms, "
         f"localization {loc_s * 1e3:.2f} ms) = {batch / batch_s:.1f} queries/s")
 
-    # the same batch on the CPU, plain versions, same triplets
+    # the same batch on the CPU, plain versions, same RANSAC noise
     model_cpu = load_segnetvit(weights, rec_cfg, device="cpu", dtype=bf16)
     with torch.no_grad():
-        logits_cpu, res_cpu, _, _ = run_slice("cpu", model_cpu, make_localizer("cpu"))
-    recall_cpu, _, _ = recall_of(res_cpu)
-    logit_err = (logits_gpu.cpu() - logits_cpu).abs().max().item()
-    top1_agree = (logits_gpu.cpu().argmax(-1) == logits_cpu.argmax(-1))[mask].float().mean().item()
-    both = res_gpu.success.cpu() & res_cpu.success
-    dq, dt = compute_pose_error(res_gpu.qvec.cpu(), res_gpu.tvec.cpu(), res_cpu.qvec, res_cpu.tvec)
-    log(f"card vs CPU: logits max abs diff {logit_err:.4f}, top-1 agreement {top1_agree:.4f}, "
-        f"success card {int(res_gpu.success.sum())}/{batch} cpu {int(res_cpu.success.sum())}/{batch}, "
-        f"pose diff on {int(both.sum())} localized: max {dq[both].max().item():.4f} deg, "
-        f"{dt[both].max().item():.5f} m; recall cpu {recall_cpu:.4f}")
-    require(bool(torch.equal(res_gpu.success.cpu(), res_cpu.success)), "success flags differ card vs CPU")
-    require(bool((dq[both] < SLICE_R_TOL_DEG).all()), "rotation differs card vs CPU")
-    require(bool((dt[both] < SLICE_T_TOL).all()), "translation differs card vs CPU")
-    require(recall_gpu >= recall_cpu - 1.0 / batch, "card recall below CPU recall")
+        logits_cpu, res_cpu, _, _ = run_slice("cpu", model_cpu, make_localizer("cpu", nn_fn, loc_cfg))
+    compare_with_cpu("first slice", res_gpu, res_cpu, recall_gpu, logits_gpu, logits_cpu)
     phase("slice", t)
 
-    for r in rows:
-        r["launches"] = launches[r["name"]]
+    # ---- 6. the second slice's kernels vs plain versions at GML's shapes
+    t = time.perf_counter()
+    d0, nk0, _, m0, d1, nk1, _, m1 = matcher_inputs[0]
+    n0, n1 = d0.shape[1], d1.shape[1]
+    splits = (n0, n1)
+    tok = batch * (n0 + n1)
+    heads, hd = gml.config.num_heads, gml.config.hidden_dim // gml.config.num_heads
+    gscale = hd**-0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        x = gml.input_proj(torch.cat([d0, d1], 1)).contiguous()
+        cos, sin = gml.poseenc(torch.cat([nk0, nk1], 1))
+        m_cat = torch.cat([m0, m1], 1)
+        kb = attention.mask_to_bias(m_cat, batch, n0 + n1, dev)
+        blk = gml.self_attn[0]
+
+        # kernel 1 with splits
+        a_args = (x, blk.qkv.weight, blk.qkv.bias, cos, sin, kb, gscale, heads)
+        msg = attention.self_attention(*a_args, splits=splits)
+        err = check_scaled("self_attention (GML, splits)", msg,
+                           attention.self_attention_plain(*a_args, splits=splits), ATTN_TOL)
+        # library yardstick: one SDPA call on the projected, rotated q, k, v
+        # with a block-diagonal key mask
+        qkv = (x.float() @ blk.qkv.weight.float().T + blk.qkv.bias.float()).to(bf16)
+        qkv = qkv.reshape(batch, n0 + n1, heads, hd, 3).permute(0, 2, 1, 3, 4)
+        enc = (cos[:, None], sin[:, None])
+        q_ = attention.apply_rotary(enc, qkv[..., 0].float()).to(bf16).contiguous()
+        k_ = attention.apply_rotary(enc, qkv[..., 1].float()).to(bf16).contiguous()
+        v_ = qkv[..., 2].contiguous()
+        side = torch.arange(n0 + n1, device=dev) >= n0
+        amask = (side[:, None] == side[None, :])[None, None] & m_cat[:, None, None, :]
+        lib_ms = cuda_ms(torch, lambda: sdpa(q_, k_, v_, attn_mask=amask, scale=gscale))
+        a_bytes = tok * 256 * 2 * 2 + 768 * 256 * 2 + 768 * 4 + 2 * tok * 64 * 4 + tok * 4
+        a_ops = 2 * tok * 256 * 768 + 2 * 2 * batch * heads * hd * (n0 * n0 + n1 * n1)
+        bnd, by = bound_ms(a_bytes, a_ops, BF16_TENSOR_FLOPS)
+        rows["self_attention"] = dict(
+            name="self_attention", route="cuda", source="pram_tpu_torch/csrc/attention.cu",
+            replaces="pram_tpu/ops/attention_pallas.py:802",
+            launches=None, max_abs_err=err,
+            ms=cuda_ms(torch, lambda: attention.self_attention(*a_args, splits=splits)),
+            plain_ms=cuda_ms(torch, lambda: attention.self_attention_plain(*a_args, splits=splits), iters=5),
+            bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+        )
+
+        # kernel 2 over all 1536 tokens
+        m_args = (
+            x, msg, blk.proj.weight, blk.proj.bias, blk.mlp_0.weight, blk.mlp_0.bias,
+            blk.mlp_ln.weight, blk.mlp_ln.bias, blk.mlp_3.weight, blk.mlp_3.bias,
+        )
+        y = mlp.residual_mlp(*m_args)
+        err = check_scaled("residual_mlp (GML)", y, mlp.residual_mlp_plain(*m_args), MLP_TOL)
+        w_elems = 256 * 256 + 512 * 512 + 256 * 512
+        m_bytes = 3 * tok * 256 * 2 + w_elems * 2 + (256 + 512 * 3 + 256) * 4
+        bnd, by = bound_ms(m_bytes, 2 * tok * w_elems, BF16_TENSOR_FLOPS)
+        rows["residual_mlp"] = dict(
+            name="residual_mlp", route="cuda", source="pram_tpu_torch/csrc/mlp.cu",
+            replaces="pram_tpu/ops/mlp_pallas.py:175",
+            launches=None, max_abs_err=err,
+            ms=cuda_ms(torch, lambda: mlp.residual_mlp(*m_args)),
+            plain_ms=cuda_ms(torch, lambda: mlp.residual_mlp_plain(*m_args), iters=5),
+            bound_ms=bnd, bound_by=by, library_ms=None,
+        )
+
+        # kernel 5 on layer 0's cross-attention input
+        cblk = gml.cross_attn[0]
+        b0 = attention.mask_to_bias(m0, batch, n0, dev)
+        b1 = attention.mask_to_bias(m1, batch, n1, dev)
+        c_args = (y, cblk.to_qk.weight, cblk.to_qk.bias, cblk.to_v.weight, cblk.to_v.bias,
+                  b0, b1, gscale, heads, n0)
+        cmsg = cross_attention.cross_attention(*c_args)
+        err = check_scaled("cross_attention", cmsg, cross_attention.cross_attention_plain(*c_args), ATTN_TOL)
+        # library yardstick: two SDPA calls (one per direction) on the
+        # projected qk and v
+        qk = (y.float() @ cblk.to_qk.weight.float().T + cblk.to_qk.bias.float()).to(bf16)
+        vv = (y.float() @ cblk.to_v.weight.float().T + cblk.to_v.bias.float()).to(bf16)
+        qk = qk.reshape(batch, n0 + n1, heads, hd).transpose(1, 2)
+        vv = vv.reshape(batch, n0 + n1, heads, hd).transpose(1, 2)
+        qk0, qk1 = qk[:, :, :n0].contiguous(), qk[:, :, n0:].contiguous()
+        v0, v1 = vv[:, :, :n0].contiguous(), vv[:, :, n0:].contiguous()
+        mk0, mk1 = m0[:, None, None, :], m1[:, None, None, :]
+
+        def two_sdpa():
+            sdpa(qk0, qk1, v1, attn_mask=mk1, scale=gscale)
+            sdpa(qk1, qk0, v0, attn_mask=mk0, scale=gscale)
+
+        lib_ms = cuda_ms(torch, two_sdpa)
+        c_bytes = 2 * tok * 256 * 2 + 2 * 256 * 256 * 2 + 2 * 256 * 4 + tok * 4
+        c_ops = 2 * tok * 256 * 512 + 3 * 2 * batch * heads * hd * n0 * n1
+        bnd, by = bound_ms(c_bytes, c_ops, BF16_TENSOR_FLOPS)
+        rows["cross_attention"] = dict(
+            name="cross_attention", route="cuda", source="pram_tpu_torch/csrc/cross_attention.cu",
+            replaces="pram_tpu/ops/attention_pallas.py:957",
+            launches=None, max_abs_err=err,
+            ms=cuda_ms(torch, lambda: cross_attention.cross_attention(*c_args)),
+            plain_ms=cuda_ms(torch, lambda: cross_attention.cross_attention_plain(*c_args), iters=5),
+            bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+        )
+
+        # kernel 6 on the trained GML's similarity of this batch
+        out = gml(d0, d1, nk0, nk1, m0, m1)
+        sim = (out["mdesc0"].float() @ out["mdesc1"].float().transpose(1, 2)).contiguous()
+        k_args = (sim, gml.bin_score, gml.config.sinkhorn_iterations, m0, m1)
+        plan = sinkhorn.sinkhorn(*k_args)
+        plan_ref = sinkhorn.sinkhorn_matching(*k_args)
+        err = (plan[:, :n0, :n1] - plan_ref[:, :n0, :n1]).abs().max().item()
+        rel = max(
+            ((a - r).abs() / r.abs().clamp(min=1e-6)).max().item()
+            for a, r in ((plan[:, n0], plan_ref[:, n0]), (plan[:, :, n1], plan_ref[:, :, n1]))
+        )
+        log(f"sinkhorn: real block max abs err {err:.3e} (tol {SINKHORN_ATOL}), dustbin max "
+            f"relative err {rel:.3e} (tol {SINKHORN_DUSTBIN_RTOL})")
+        require(err <= SINKHORN_ATOL and rel <= SINKHORN_DUSTBIN_RTOL,
+                "sinkhorn kernel disagrees with its plain version")
+        plan_elems = batch * (n0 + 1) * (n1 + 1)
+        k_bytes = sim.numel() * 4 + plan_elems * 4 + batch * (n0 + n1 + 2) * 4
+        # softmax ~4 ops an entry, each iteration 4 (row and column multiply-add), the plan 2
+        k_ops = plan_elems * (4 + 4 * gml.config.sinkhorn_iterations + 2)
+        bnd, by = bound_ms(k_bytes, k_ops, F32_FLOPS)
+        rows["sinkhorn"] = dict(
+            name="sinkhorn", route="cuda", source="pram_tpu_torch/csrc/sinkhorn.cu",
+            replaces="pram_tpu/ops/sinkhorn_pallas.py:70",
+            launches=None, max_abs_err=err,
+            ms=cuda_ms(torch, lambda: sinkhorn.sinkhorn(*k_args)),
+            plain_ms=cuda_ms(torch, lambda: sinkhorn.sinkhorn_matching(*k_args), iters=5),
+            bound_ms=bnd, bound_by=by, library_ms=None,
+        )
+
+        # kernel 7 on the refinement inputs of the first slice's poses
+        cam_dev = Camera(cam_params.to(dev), cam_size.to(dev))
+        dmap = loc_gpu.dmap
+        rank = rank_candidates(dmap.seg_vrf_slot, dmap.vrf_frame_idx, logits_gpu, mask.to(dev), gml_cfg)
+        rset = gather_refine_set(dmap, rank.safe_slots[:, 0])
+        ruv, in_img = project_refine_set(cam_dev, rset, res_gpu.R, res_gpu.tvec)
+        r_args = (d.contiguous(), rset.desc.contiguous(), kpts.to(dev).contiguous(), ruv, in_img,
+                  rank.mask.contiguous(), 2.0 * gml_cfg.threshold, gml_cfg.projection_ratio)
+        idx, dd1, keep = refine.refine_nn(*r_args)
+        ridx, rd1, rkeep = refine.refine_nn_plain(*r_args)
+        qm = rank.mask
+        idx_agree = (idx == ridx)[qm].float().mean().item()
+        keep_agree = (keep == rkeep).float().mean().item()
+        err = (dd1 - rd1).abs().max().item()
+        log(f"refine_nn: index agreement {idx_agree:.5f}, keep agreement {keep_agree:.5f} "
+            f"(tol {REFINE_AGREE}), max |d1 diff| {err:.3e} (tol {REFINE_D1_ATOL}); kept "
+            f"{int(keep.sum())} of {int(qm.sum())} valid queries")
+        require(idx_agree >= REFINE_AGREE and keep_agree >= REFINE_AGREE and err <= REFINE_D1_ATOL,
+                "refine_nn kernel disagrees with its plain version")
+        n_pts = rset.desc.shape[1]
+        r_bytes = batch * (n0 * (128 * 2 + 8 + 1) + n_pts * (128 * 2 + 8 + 1) + n0 * (4 + 4 + 1))
+        bnd, by = bound_ms(r_bytes, 2.0 * batch * n0 * n_pts * 128, BF16_TENSOR_FLOPS)
+        rows["refine_nn"] = dict(
+            name="refine_nn", route="cuda", source="pram_tpu_torch/csrc/refine.cu",
+            replaces="pram_tpu/ops/refine_pallas.py:139",
+            launches=None, max_abs_err=err,
+            ms=cuda_ms(torch, lambda: refine.refine_nn(*r_args)),
+            plain_ms=cuda_ms(torch, lambda: refine.refine_nn_plain(*r_args), iters=5),
+            bound_ms=bnd, bound_by=by, library_ms=None,
+        )
+    phase("gml_kernels", t)
+
+    # ---- 7. the second slice: recognition -> GML -> PnP -> refinement, counted
+    t = time.perf_counter()
+    gml_fn = make_gml_match_fn(gml, gml.config.match_threshold)
+    reset_counts()
+    gloc = make_localizer(dev, gml_fn, gml_cfg)
+    with torch.no_grad():
+        _, gres_gpu, _, _ = run_slice(dev, model, gloc)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"GML slice launches: {launches}")
+    for name, count in launches.items():
+        require(count > 0, f"kernel {name} was not launched on the GML slice")
+    require(tuple(gres_gpu.qvec.shape) == (batch, 4), "bad pose batch shape")
+    require(bool(torch.isfinite(gres_gpu.tvec).all()), "non-finite poses")
+    grecall_gpu, gq_err, gt_err = recall_of(gres_gpu)
+
+    matcher_s = []
+
+    def timed_gml(*args):
+        t_m = sync(dev)
+        out = gml_fn(*args)
+        matcher_s.append(sync(dev) - t_m)
+        return out
+
+    gloc.match_fn = timed_gml
+    with torch.no_grad():
+        timed = [run_slice(dev, model, gloc)[2:] for _ in range(6)][1:]
+    gloc.match_fn = gml_fn
+    rec_s = sorted(r for r, _ in timed)[2]
+    loc_s = sorted(lo for _, lo in timed)[2]
+    batch_s = sorted(r + lo for r, lo in timed)[2]
+    match_s = sorted(matcher_s[1:])[2]
+    refined = (gres_gpu.num_inliers != gres_gpu.initial_num_inliers).sum().item()
+    log(f"GML slice on card: recall@5cm/5deg {grecall_gpu:.4f} over {batch} queries (max error "
+        f"{gq_err.max().item():.4f} deg, {gt_err.max().item():.5f} m; final inlier count "
+        f"differs from the first RANSAC's on {refined}); batch {batch} in {batch_s * 1e3:.2f} ms (median of 5; recognition "
+        f"{rec_s * 1e3:.2f} ms, localization {loc_s * 1e3:.2f} ms of which GML matching "
+        f"{match_s * 1e3:.2f} ms) = {batch / batch_s:.1f} queries/s")
+
+    # the same batch on the CPU through the plain versions, same RANSAC noise
+    # in both RANSAC calls (drawn on the CPU from one seed)
+    t_cpu = time.perf_counter()
+    gml_cpu = load_gml(gml_weights, GMLConfig(), device="cpu", dtype=bf16)
+    with torch.no_grad():
+        _, gres_cpu, _, _ = run_slice(
+            "cpu", model_cpu,
+            make_localizer("cpu", make_gml_match_fn(gml_cpu, gml_cpu.config.match_threshold), gml_cfg),
+        )
+    log(f"GML slice on the CPU: {batch} queries in {time.perf_counter() - t_cpu:.1f} s")
+    compare_with_cpu("GML slice", gres_gpu, gres_cpu, grecall_gpu)
+    phase("gml_slice", t)
+
+    table = []
+    for name in ("self_attention", "residual_mlp", "ransac_score", "gn_polish",
+                 "cross_attention", "sinkhorn", "refine_nn"):
+        r = rows[name]
+        r["launches"] = launches[name]
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"{r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib} ms, "
+        log(f"{name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {r['launches']} launches")
+        table.append(r)
 
     log(f"phases (s): {json.dumps(PHASES)}; total {time.perf_counter() - T0:.1f} s")
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)
     print(json.dumps({
         "ok": True,

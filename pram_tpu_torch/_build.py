@@ -31,10 +31,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, w_qkv, b_qkv, cos, sin, key_bias, out, B, N, heads, scale, stream
-    "pram_self_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # x, w_qkv, b_qkv, cos, sin, key_bias, out, B, N, heads, scale,
+    # side lengths (host int array), n_sides, stream
+    "pram_self_attention": [_P] * 7 + [_I, _I, _I, _F, _P, _I, _P],
     # x, msg, wp, bp, w0, b0, ln_w, ln_b, w3, b3, out, tokens, eps, stream
     "pram_residual_mlp": [_P] * 11 + [_I, _F, _P],
+    # x, w_qk, b_qk, w_v, b_v, bias0, bias1, qk scratch, v scratch, out,
+    # B, N, n0, heads, scale, stream
+    "pram_cross_attention": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
+    # sim, r, c, bin, out, B, n, m, iters, stream
+    "pram_sinkhorn": [_P] * 5 + [_I, _I, _I, _I, _P],
+    # descs, pdesc, kpts, uv, in_img, qmask, gate_r, ratio, nn_idx, d1, keep,
+    # B, N, P, stream
+    "pram_refine_nn": [_P] * 6 + [_F, _F] + [_P] * 3 + [_I, _I, _I, _P],
     # cam, R, t, valid, xyz, uv, mask, threshold, out, P, K, N, stream
     "pram_ransac_score": [_P] * 7 + [_F, _P, _I, _I, _I, _P],
     # cam, R0, t0, xyz, uv, mask, threshold, min_inliers, damping, gn_iters,

@@ -2,7 +2,11 @@
 // for Hopper (bf16 in, f32 accumulation, f32 softmax).
 //
 // Replaces pram_tpu/ops/attention_pallas.py:fused_self_attention_proj
-// (_self_proj_kernel), without its block-diagonal `splits` option.
+// (_self_proj_kernel), with its block-diagonal `splits` option: the tokens
+// are a concatenation of independent sides (GML runs both keypoint sets
+// through one layer stack), and a query attends only to the keys of its own
+// side. Every split is a multiple of the 128-row query tile, so a tile lies
+// in one side and its key loop runs over [lo, hi) of that side.
 //
 // What bounds it: at the slice's shapes (B=32, N=512, d=256, 4 heads of 64)
 // a layer moves ~17 MB (x in, message out, weights) and does ~13 GFLOP of
@@ -11,7 +15,8 @@
 // owns one (batch, head, 128-query tile), so it projects its own queries
 // once and re-projects the head's keys and values for each of its 64-key
 // tiles (4x redundant K/V projection over the 4 query tiles of a frame, the
-// price of 512 independent blocks instead of 128). The head's k and v
+// price of 512 independent blocks instead of 128; with GML's splits
+// (512, 1024) the 1024-token side's 8 query tiles make it 8x). The head's k and v
 // weight slices (2 x 64 x 256 bf16) are staged in shared memory once per
 // block, so the re-projection reads shared memory, not L2. Scores never
 // reach device memory: each warp keeps 16 query rows, and an online softmax
@@ -35,19 +40,21 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "attention_tile.cuh"
+
 using namespace nvcuda;
 
 namespace {
 
 constexpr int DIN = 256;    // model width
-constexpr int HD = 64;      // head dim
+constexpr int HD = tile::HD;  // head dim
 constexpr int QT = 128;     // query rows per block
-constexpr int KT = 64;      // keys per tile
+constexpr int KT = tile::KT;  // keys per tile
 constexpr int NWARP = 8;    // 16 query rows per warp
 constexpr int NTHREADS = NWARP * 32;
 constexpr int LDX = DIN + 8;  // bf16 row stride of x tiles and weight slices
-constexpr int LDH = HD + 8;   // bf16 row stride of q, k, v, p tiles
-constexpr int LDF = HD + 4;   // f32 row stride of per-warp score/output tiles
+constexpr int LDH = tile::LDH;  // bf16 row stride of q, k, v, p tiles
+constexpr int LDF = tile::LDF;  // f32 row stride of per-warp score/output tiles
 
 constexpr size_t W_BYTES = 2ull * HD * LDX * 2;          // two weight slices
 constexpr size_t X_BYTES = 64ull * LDX * 2;              // 64 x rows
@@ -60,6 +67,12 @@ constexpr size_t SMEM_BYTES =
     W_BYTES + X_BYTES + Q_BYTES + KV_BYTES + SF_BYTES + OF_BYTES + P_BYTES;
 
 typedef __nv_bfloat16 bf16;
+
+constexpr int MAX_SPLITS = 8;
+struct Splits {  // side boundaries: side s is tokens [edge[s], edge[s + 1])
+  int n;
+  int edge[MAX_SPLITS + 1];
+};
 
 // copy `rows` rows of DIN bf16 (global row stride src_ld elements) into smem
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
@@ -132,7 +145,8 @@ self_attention_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                       const float* __restrict__ cos,
                       const float* __restrict__ sin,
                       const float* __restrict__ key_bias,
-                      bf16* __restrict__ out, int N, int heads, float scale) {
+                      bf16* __restrict__ out, int N, int heads, float scale,
+                      Splits sp) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ws0 = reinterpret_cast<bf16*>(smem);
   bf16* Ws1 = Ws0 + HD * LDX;
@@ -147,6 +161,12 @@ self_attention_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
+  int lo = 0, hi = N;  // keys of the side this query tile lies in
+  for (int s = 0; s < sp.n; ++s)
+    if (q0 >= sp.edge[s] && q0 < sp.edge[s + 1]) {
+      lo = sp.edge[s];
+      hi = sp.edge[s + 1];
+    }
   const int d_model = heads * HD;
   const bf16* xb = x + (size_t)b * N * DIN;
   const float* cosb = cos + (size_t)b * N * HD;
@@ -177,9 +197,8 @@ self_attention_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 
   for (int i = lane; i < 16 * LDF; i += 32) Ow[i] = 0.f;
   float m_run = -INFINITY, l_run = 0.f;  // row lane/2 of this warp
-  const int r = lane >> 1, c0 = (lane & 1) * 32;
 
-  for (int k0 = 0; k0 < N; k0 += KT) {
+  for (int k0 = lo; k0 < hi; k0 += KT) {
     __syncthreads();  // previous tile's K/V and x are no longer read
     load_rows(Xs, xb + (size_t)k0 * DIN, KT, DIN);
     __syncthreads();
@@ -194,76 +213,13 @@ self_attention_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     }
     __syncthreads();
 
-    // ---- S = Q K^T for this warp's 16 query rows
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-      for (int k = 0; k < HD; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, Qs + warp * 16 * LDH + k, LDH);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bk;
-          wmma::load_matrix_sync(bk, Ks + j * 16 * LDH + k, LDH);
-          wmma::mma_sync(acc[j], a, bk, acc[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(Sw + j * 16, acc[j], LDF, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // ---- online softmax over this tile (2 lanes per row)
-    float mx = -INFINITY;
-    for (int j = c0; j < c0 + 32; ++j)
-      mx = fmaxf(mx, Sw[r * LDF + j] * scale + kbias[k0 + j]);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    const float corr = expf(m_run - m_new);
-    float sum = 0.f;
-    for (int j = c0; j < c0 + 32; ++j) {
-      float p = expf(Sw[r * LDF + j] * scale + kbias[k0 + j] - m_new);
-      sum += p;
-      Pw[r * LDH + j] = __float2bfloat16(p);
-      Ow[r * LDF + j] *= corr;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_run = l_run * corr + sum;
-    m_run = m_new;
-    __syncwarp();
-
-    // ---- O += P V
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(acc[j], Ow + j * 16, LDF, wmma::mem_row_major);
-#pragma unroll
-      for (int k = 0; k < KT; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, Pw + k, LDH);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-          wmma::load_matrix_sync(bv, Vs + k * LDH + j * 16, LDH);
-          wmma::mma_sync(acc[j], a, bv, acc[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(Ow + j * 16, acc[j], LDF, wmma::mem_row_major);
-    }
-    __syncwarp();
+    tile::attend(Qs + warp * 16 * LDH, Ks, Vs, kbias + k0, scale, Sw, Pw, Ow,
+                 m_run, l_run);
   }
 
   // ---- normalize and write this warp's 16 rows of the head's columns
-  const float inv = 1.f / l_run;
-  bf16* orow = out + ((size_t)b * N + q0 + warp * 16 + r) * d_model + h * HD;
-  for (int j = c0; j < c0 + 32; ++j)
-    orow[j] = __float2bfloat16(Ow[r * LDF + j] * inv);
+  const int row = q0 + warp * 16 + (lane >> 1);
+  tile::store_row(Ow, l_run, out + ((size_t)b * N + row) * d_model + h * HD);
 }
 
 }  // namespace
@@ -272,8 +228,22 @@ extern "C" int pram_self_attention(const void* x, const void* w_qkv,
                                    const void* b_qkv, const void* cos,
                                    const void* sin, const void* key_bias,
                                    void* out, int B, int N, int heads,
-                                   float scale, void* stream) {
-  if (N % QT != 0 || heads * HD != DIN) return (int)cudaErrorInvalidValue;
+                                   float scale, const int* splits,
+                                   int n_splits, void* stream) {
+  // splits: n_splits side lengths (host memory), each a multiple of QT and
+  // summing to N; one side of N tokens is plain self-attention
+  if (N % QT != 0 || heads * HD != DIN || n_splits < 1 ||
+      n_splits > MAX_SPLITS)
+    return (int)cudaErrorInvalidValue;
+  Splits sp;
+  sp.n = n_splits;
+  sp.edge[0] = 0;
+  for (int s = 0; s < sp.n; ++s) {
+    const int len = splits[s];
+    if (len <= 0 || len % QT != 0) return (int)cudaErrorInvalidValue;
+    sp.edge[s + 1] = sp.edge[s] + len;
+  }
+  if (sp.edge[sp.n] != N) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       self_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)SMEM_BYTES);
@@ -282,6 +252,6 @@ extern "C" int pram_self_attention(const void* x, const void* w_qkv,
   self_attention_kernel<<<grid, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       (const bf16*)x, (const bf16*)w_qkv, (const float*)b_qkv,
       (const float*)cos, (const float*)sin, (const float*)key_bias, (bf16*)out,
-      N, heads, scale);
+      N, heads, scale, sp);
   return (int)cudaGetLastError();
 }

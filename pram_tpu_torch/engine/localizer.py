@@ -10,23 +10,26 @@ inlier gate is taken. Stages, each written with an explicit batch axis B:
   4. batched matching against the candidates' VRF keypoint tables
   5. batched PnP / RANSAC (geometry/pnp.py)
   6. candidate selection
+  7. projection refinement: the chosen landmark's covisible points are
+     projected with the first pose, matched to the query by a gated top-2
+     nearest neighbour (``ops/refine.py``), and PnP runs again
 
-Projection refinement (stage 7 of the JAX engine) is not ported yet:
-``LocConfig.do_refinement`` must be False.
+Refinement by matching (``refinement_method="matching"``) is not ported yet.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from pram_tpu_torch.geometry.camera import Camera
+from pram_tpu_torch.geometry.camera import Camera, project
 from pram_tpu_torch.geometry.pnp import ransac_pnp
 from pram_tpu_torch.geometry.rotations import rotmat2qvec
 from pram_tpu_torch.maps.device import DeviceMap
+from pram_tpu_torch.ops.refine import refine_nn
 
 
 @dataclass(frozen=True)
@@ -39,12 +42,14 @@ class LocConfig:
     min_matches: int = 4
     min_inliers: int = 32
     threshold: float = 8.0
-    do_refinement: bool = False
+    do_refinement: bool = True
     semantic_matching: bool = True
     pre_filtering_th: float = 0.95
     num_hypotheses: int = 256
     gn_iters: int = 8
     lo_rounds: int = 2
+    projection_ratio: float = 0.995  # refinement NN ratio test
+    refinement_method: str = "projection"  # 'projection' ('matching' not ported)
 
 
 def normalize_kpts_like_reference(kpts, width, height):
@@ -150,6 +155,14 @@ class VrfTables(NamedTuple):
     h: torch.Tensor  # [B, S]
 
 
+class RefineSet(NamedTuple):
+    """Gathered covisible-point set for projection refinement ``[B, Pr, ...]``."""
+
+    pt_idx: torch.Tensor  # [B, Pr] (-1 invalid)
+    xyz: torch.Tensor  # [B, Pr, 3]
+    desc: torch.Tensor  # [B, Pr, D]
+
+
 class CoreResult(NamedTuple):
     """Pre-refinement localization state (steps 1-6), batched."""
 
@@ -214,6 +227,13 @@ def gather_vrf_tables(dmap: DeviceMap, frames: torch.Tensor) -> VrfTables:
         w=size[..., 0],
         h=size[..., 1],
     )
+
+
+def gather_refine_set(dmap: DeviceMap, slot: torch.Tensor) -> RefineSet:
+    """Plain-indexing projection-refinement point set of VRF slots ``[B]``."""
+    pt_idx = dmap.vrf_ref_point_idx[slot]
+    safe = torch.clamp(pt_idx, 0, dmap.point_xyz.shape[0] - 1)
+    return RefineSet(pt_idx=pt_idx, xyz=dmap.point_xyz[safe], desc=dmap.point_desc[safe])
 
 
 def match_pnp_core(
@@ -311,19 +331,96 @@ def match_pnp_core(
     )
 
 
-def finalize_result(core: CoreResult) -> LocResult:
-    """Output packing without refinement."""
+def project_refine_set(camera: Camera, rset: RefineSet, R0, t0):
+    """Pixels ``[B, Pr, 2]`` of the refinement points under the first pose,
+    and whether each is a real point in front of the camera (0 < z < 100)
+    and inside the image ``[B, Pr]``."""
+    uv, z = project(camera, R0, t0, rset.xyz.float())
+    w = camera.size[:, 0:1]
+    h = camera.size[:, 1:2]
+    in_img = (
+        (z > 0) & (z < 100.0)
+        & (uv[..., 0] >= 0) & (uv[..., 0] < w)
+        & (uv[..., 1] >= 0) & (uv[..., 1] < h)
+        & (rset.pt_idx >= 0)
+    )
+    return uv.contiguous(), in_img.contiguous()
+
+
+def refine_projection_core(
+    camera: Camera,  # params [B, 8], size [B, 2]
+    kpts: torch.Tensor,  # [B, N, 2]
+    descs: torch.Tensor,  # [B, N, D]
+    mask: torch.Tensor,  # [B, N]
+    rset: RefineSet,
+    R0: torch.Tensor,  # [B, 3, 3]
+    t0: torch.Tensor,  # [B, 3]
+    cfg: LocConfig,
+    generator: Optional[torch.Generator] = None,
+    triplets: Optional[torch.Tensor] = None,
+):
+    """Projection refinement on a pre-gathered covisible point set.
+
+    Returns ``(R, t, num_inliers, success, kpt_point_idx, matched_xyz)``.
+    RANSAC draws from ``generator`` unless ``triplets [B, num_hypotheses, 3]``
+    are given.
+    """
+    pt_idx = rset.pt_idx
+    xyz = rset.xyz.float()
+    uv, in_img = project_refine_set(camera, rset, R0, t0)
+    # gated top-2 NN; the similarity accumulates in f32, which the 0.995
+    # ratio test needs (bf16 sums flip it)
+    nn_idx, _, keep = refine_nn(
+        descs.contiguous(), rset.desc.contiguous(), kpts.float().contiguous(),
+        uv, in_img, mask.contiguous(), 2.0 * cfg.threshold, cfg.projection_ratio,
+    )
+    m_xyz = torch.gather(xyz, 1, nn_idx[..., None].expand(-1, -1, 3))
+    m_pt_idx = torch.where(keep, torch.gather(pt_idx, 1, nn_idx), -1)
+    res = ransac_pnp(
+        camera,
+        kpts + 0.5,
+        m_xyz.contiguous(),
+        keep.contiguous(),
+        generator=generator,
+        triplets=triplets,
+        inlier_threshold=cfg.threshold,
+        num_hypotheses=cfg.num_hypotheses,
+        min_inliers=cfg.min_inliers,
+        gn_iters=cfg.gn_iters,
+        lo_rounds=cfg.lo_rounds,
+    )
+    kpt_point_idx = torch.where(res.inliers, m_pt_idx, -1)
+    return res.R, res.t, res.num_inliers, res.success, kpt_point_idx, m_xyz
+
+
+def finalize_result(core: CoreResult, refinement: Optional[Tuple] = None) -> LocResult:
+    """Step 7 merge + output packing.
+
+    ``refinement`` is ``(R, t, num_inliers, ok, kpt_point_idx, kpt_xyz)``
+    of :func:`refine_projection_core`; its pose is taken where it succeeded
+    and the first stage did too.
+    """
+    R_fin, t_fin, inl_fin = core.R0, core.t0, core.inl0
+    kpt_point_idx, kpt_xyz = core.kpt_point_idx, core.kpt_xyz
+    if refinement is not None:
+        Rr, tr, inl_r, ref_ok, r_pt_idx, r_xyz = refinement
+        use = ref_ok & core.any_ok
+        R_fin = torch.where(use[:, None, None], Rr, R_fin)
+        t_fin = torch.where(use[:, None], tr, t_fin)
+        inl_fin = torch.where(use, inl_r, inl_fin)
+        kpt_point_idx = torch.where(use[:, None], r_pt_idx, kpt_point_idx)
+        kpt_xyz = torch.where(use[:, None, None], r_xyz, kpt_xyz)
     return LocResult(
-        qvec=rotmat2qvec(core.R0),
-        tvec=core.t0,
-        R=core.R0,
+        qvec=rotmat2qvec(R_fin),
+        tvec=t_fin,
+        R=R_fin,
         success=core.any_ok,
-        num_inliers=core.inl0,
+        num_inliers=inl_fin,
         matched_order=torch.where(core.any_ok, core.pick, -1),
         matched_sid=core.picked_sid,
         initial_num_inliers=core.inl0,
-        kpt_point_idx=core.kpt_point_idx,
-        kpt_xyz=core.kpt_xyz,
+        kpt_point_idx=kpt_point_idx,
+        kpt_xyz=kpt_xyz,
     )
 
 
@@ -331,10 +428,13 @@ class Localizer:
     """Device map + matcher + batched localization step."""
 
     def __init__(self, dmap: DeviceMap, match_fn: MatchFn, cfg: LocConfig):
-        if cfg.do_refinement:
+        if cfg.do_refinement and cfg.refinement_method == "matching":
             raise NotImplementedError(
-                "projection refinement is not ported yet; use do_refinement=False"
+                "refinement by matching is not ported yet; use "
+                "refinement_method='projection' or do_refinement=False"
             )
+        if cfg.refinement_method not in ("projection", "matching"):
+            raise ValueError(f"unknown refinement_method {cfg.refinement_method!r}")
         self.dmap = dmap
         self.match_fn = match_fn
         self.cfg = cfg
@@ -343,11 +443,14 @@ class Localizer:
     def localize_batch(
         self, generator: torch.Generator, camera: Camera, kpts, scores, descs,
         mask, seg_logits, triplets: Optional[torch.Tensor] = None,
+        refine_triplets: Optional[torch.Tensor] = None,
     ) -> LocResult:
         """Localize a batch: camera ``[B, ...]``, arrays ``[B, N, ...]``.
 
         ``generator`` is a CPU ``torch.Generator``; it draws the RANSAC
         hypotheses, so one seed gives the same triplets on every device.
+        ``triplets [B * seg_k, H, 3]`` fix the first RANSAC's hypotheses and
+        ``refine_triplets [B, H, 3]`` the refinement's.
         """
         n_seg = self.dmap.seg_vrf_slot.shape[0]
         rank = rank_candidates(
@@ -358,4 +461,12 @@ class Localizer:
             self.match_fn, camera, kpts, scores, descs, rank, tabs, n_seg,
             self.cfg, generator=generator, triplets=triplets,
         )
-        return finalize_result(core)
+        refinement = None
+        if self.cfg.do_refinement:
+            # refine_pose_by_projection on the chosen landmark's VRF
+            refinement = refine_projection_core(
+                camera, kpts, descs, rank.mask,
+                gather_refine_set(self.dmap, core.picked_slot), core.R0, core.t0,
+                self.cfg, generator, refine_triplets,
+            )
+        return finalize_result(core, refinement)

@@ -8,6 +8,7 @@ from typing import Callable, Optional
 import torch
 
 from pram_tpu_torch.models.nn_matcher import mutual_nn_match
+from pram_tpu_torch.ops.matching import mutual_matches
 
 MatchFn = Callable[..., torch.Tensor]
 
@@ -22,5 +23,15 @@ def make_nn_match_fn(
         return mutual_nn_match(
             d0, d1, m0, m1, ratio_threshold, distance_threshold
         ).matches0
+
+    return fn
+
+
+def make_gml_match_fn(model, threshold: float = 0.2) -> MatchFn:
+    """GML matcher (``models/gml.py``): mutual-max matches of its plan."""
+
+    def fn(d0, nk0, s0, m0, d1, nk1, s1, m1):
+        out = model(d0, d1, nk0, nk1, m0, m1)
+        return mutual_matches(out["plan"], threshold).matches0
 
     return fn

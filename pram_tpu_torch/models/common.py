@@ -1,14 +1,15 @@
 """Shared transformer blocks (pram_tpu/models/common.py).
 
 Interleaved-pair rotary embedding driven by a learnable Fourier projection
-of keypoint coordinates, masked softmax, and the self-attention block with
-its concat-MLP residual. Parameter names follow the flax modules, so
-``models/convert.py`` maps a flax tree onto these modules by name.
+of keypoint coordinates, masked softmax, and the self- and cross-attention
+blocks with their concat-MLP residual. Parameter names follow the flax
+modules, so ``models/convert.py`` maps a flax tree onto these modules by
+name.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -19,9 +20,11 @@ from pram_tpu_torch.ops.attention import (
     rotate_half,
     self_attention,
 )
+from pram_tpu_torch.ops.cross_attention import cross_attention
 from pram_tpu_torch.ops.mlp import residual_mlp
 
 __all__ = [
+    "CrossAttentionBlock",
     "LearnableFourierPE",
     "SelfAttentionBlock",
     "apply_rotary",
@@ -72,26 +75,77 @@ class SelfAttentionBlock(nn.Module):
         self.num_heads = num_heads
         self.head_dim = hidden_dim // num_heads
         self.qkv = nn.Linear(feat_dim, 3 * hidden_dim)
-        self.proj = nn.Linear(hidden_dim, hidden_dim)
-        self.mlp_0 = nn.Linear(feat_dim + hidden_dim, 2 * feat_dim)
-        self.mlp_ln = nn.LayerNorm(2 * feat_dim, eps=1e-6)
-        self.mlp_3 = nn.Linear(2 * feat_dim, feat_dim)
+        _add_residual_mlp(self, feat_dim, hidden_dim)
 
     def forward(
         self,
         x: torch.Tensor,
         encoding: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         mask: Optional[torch.Tensor] = None,
+        splits: Optional[Sequence[int]] = None,
     ) -> torch.Tensor:
+        """``splits``: x is a token concatenation of independent sides (GML
+        runs both keypoint sets through shared weights); the projections and
+        the MLP run over all tokens, attention stays within each side."""
         b, n, _ = x.shape
         cos, sin = encoding if encoding is not None else (None, None)
         msg = self_attention(
             x, self.qkv.weight, self.qkv.bias, cos, sin,
             mask_to_bias(mask, b, n, x.device), self.head_dim**-0.5,
-            self.num_heads,
+            self.num_heads, splits,
         )
-        return residual_mlp(
-            x, msg, self.proj.weight, self.proj.bias, self.mlp_0.weight,
-            self.mlp_0.bias, self.mlp_ln.weight, self.mlp_ln.bias,
-            self.mlp_3.weight, self.mlp_3.bias, eps=self.mlp_ln.eps,
+        return _apply_residual_mlp(self, x, msg)
+
+
+class CrossAttentionBlock(nn.Module):
+    """Symmetric cross-attention with a shared QK projection, then the
+    residual concat-MLP, in the cat form GML uses: x is the token
+    concatenation ``[x0 | x1]`` with ``splits = (n0, n1)``.
+
+    Both halves go through kernel wrappers: ``ops/cross_attention.py``
+    (to_qk / to_v projections, one similarity softmaxed along each axis)
+    and ``ops/mlp.py`` over all tokens.
+    """
+
+    def __init__(self, feat_dim: int, hidden_dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = hidden_dim // num_heads
+        self.to_qk = nn.Linear(feat_dim, hidden_dim)
+        self.to_v = nn.Linear(feat_dim, hidden_dim)
+        _add_residual_mlp(self, feat_dim, hidden_dim)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        splits: Tuple[int, int],
+        mask0: Optional[torch.Tensor] = None,
+        mask1: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        b, n, _ = x.shape
+        n0, n1 = splits
+        if n0 + n1 != n:
+            raise ValueError(f"splits {tuple(splits)} do not sum to {n} tokens")
+        msg = cross_attention(
+            x, self.to_qk.weight, self.to_qk.bias, self.to_v.weight, self.to_v.bias,
+            mask_to_bias(mask0, b, n0, x.device), mask_to_bias(mask1, b, n1, x.device),
+            self.head_dim**-0.5, self.num_heads, n0,
         )
+        return _apply_residual_mlp(self, x, msg)
+
+
+def _add_residual_mlp(block: nn.Module, feat_dim: int, hidden_dim: int) -> None:
+    """The flax blocks' message projection and concat-MLP parameters."""
+    block.proj = nn.Linear(hidden_dim, hidden_dim)
+    block.mlp_0 = nn.Linear(feat_dim + hidden_dim, 2 * feat_dim)
+    block.mlp_ln = nn.LayerNorm(2 * feat_dim, eps=1e-6)
+    block.mlp_3 = nn.Linear(2 * feat_dim, feat_dim)
+
+
+def _apply_residual_mlp(block: nn.Module, x: torch.Tensor, msg: torch.Tensor) -> torch.Tensor:
+    """``x + mlp_3(gelu(LN(mlp_0([x, proj(msg)]))))`` through ``ops/mlp.py``."""
+    return residual_mlp(
+        x, msg, block.proj.weight, block.proj.bias, block.mlp_0.weight,
+        block.mlp_0.bias, block.mlp_ln.weight, block.mlp_ln.bias,
+        block.mlp_3.weight, block.mlp_3.bias, eps=block.mlp_ln.eps,
+    )

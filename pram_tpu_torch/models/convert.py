@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from pram_tpu_torch.io.flax_msgpack import read_flax_msgpack
+from pram_tpu_torch.models.gml import GML, GMLConfig
 from pram_tpu_torch.models.segnetvit import SegNetViT, SegNetViTConfig
 
 
@@ -61,5 +62,55 @@ def load_segnetvit(
         if not k.startswith("gnn.") or int(k.split(".")[1]) < config.n_layers
     }
     model = SegNetViT(config)
+    model.load_state_dict(sd, strict=True)
+    return model.to(device=device, dtype=dtype).eval()
+
+
+def gml_state_dict(params: dict, n_layers: int) -> Dict[str, torch.Tensor]:
+    """GML flax params -> GML state dict for its first ``n_layers`` layers.
+
+    ``self_attn_<i>`` / ``cross_attn_<i>`` become ``self_attn.<i>`` /
+    ``cross_attn.<i>``; the checkpoint's one output projection
+    (``out_proj_<k>``: flax creates no parameters for the unused ones)
+    becomes ``out_proj``; the scalar ``bin_score`` is kept as is.
+    """
+    params = dict(params)
+    if "bin_score" not in params:
+        raise ValueError("GML params have no bin_score")
+    bin_score = np.asarray(params.pop("bin_score"), np.float32).reshape(())
+    out_projs = sorted(k for k in params if k.startswith("out_proj_"))
+    if len(out_projs) != 1:
+        raise ValueError(f"expected one out_proj_<k> in the GML params, got {out_projs}")
+    params["out_proj"] = params.pop(out_projs[0])
+    sd = {
+        re.sub(r"^(self_attn|cross_attn)_(\d+)\.", r"\1.\2.", k): v
+        for k, v in flax_to_state_dict(params).items()
+    }
+    have = len({k.split(".")[1] for k in sd if k.startswith("self_attn.")})
+    if have < n_layers:
+        raise ValueError(f"GML params have {have} layers, config wants {n_layers}")
+    sd = {
+        k: v for k, v in sd.items()
+        if not k.startswith(("self_attn.", "cross_attn.")) or int(k.split(".")[1]) < n_layers
+    }
+    sd["bin_score"] = torch.from_numpy(bin_score.copy())
+    return sd
+
+
+def load_gml(
+    path: str, config: GMLConfig = GMLConfig(), device="cuda", dtype=torch.float32
+) -> GML:
+    """GML with weights from a flax msgpack file (random-free).
+
+    With ``config.n_layers`` below the checkpoint's, the first layers are
+    kept and the checkpoint's output projection follows them. In bf16 every
+    parameter is rounded to bf16, ``bin_score`` and the Fourier encoding's
+    ``Wr`` included, as ``bench.py:cast_tree`` casts every f32 leaf; the
+    encoding then runs in f32 on the rounded ``Wr`` (flax promotes the bf16
+    kernel to the f32 keypoints) and Sinkhorn in f32 on the rounded score.
+    """
+    tree = read_flax_msgpack(path)
+    sd = gml_state_dict(tree.get("params", tree), config.n_layers)
+    model = GML(config)
     model.load_state_dict(sd, strict=True)
     return model.to(device=device, dtype=dtype).eval()

@@ -1,9 +1,11 @@
 """Masked multi-head self-attention with the qkv projection and rotary fused.
 
 :func:`self_attention` replaces
-``pram_tpu/ops/attention_pallas.py:fused_self_attention_proj`` (without its
-block-diagonal ``splits``). A CPU tensor takes :func:`self_attention_plain`;
-a CUDA tensor launches ``csrc/attention.cu`` or raises.
+``pram_tpu/ops/attention_pallas.py:fused_self_attention_proj``, with its
+block-diagonal ``splits``: the tokens are a concatenation of independent
+sides and each query attends only to the keys of its own side. A CPU tensor
+takes :func:`self_attention_plain`; a CUDA tensor launches
+``csrc/attention.cu`` or raises.
 
 Weights are in torch ``Linear`` layout: ``w_qkv [3 * d, d_in]`` whose output
 index is ``(head * head_dim + i) * 3 + c`` for c in (q, k, v), the flax
@@ -13,7 +15,7 @@ kernel transposed and nothing else.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -25,6 +27,7 @@ LAUNCHES = {"self_attention": 0}
 KERNEL_D_IN = 256
 KERNEL_HEAD_DIM = 64
 KERNEL_QUERY_TILE = 128
+KERNEL_MAX_SPLITS = 8
 
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:
@@ -46,13 +49,26 @@ def mask_to_bias(mask: Optional[torch.Tensor], b: int, n: int, device) -> torch.
     return torch.where(mask, 0.0, -1e9).to(torch.float32)
 
 
-def self_attention_plain(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads):
+def split_edges(splits: Optional[Sequence[int]], n: int) -> List[Tuple[int, int]]:
+    """``[(lo, hi), ...]`` of the sides; one side of ``n`` tokens for None."""
+    if splits is None:
+        return [(0, n)]
+    if sum(splits) != n:
+        raise ValueError(f"splits {tuple(splits)} do not sum to {n} tokens")
+    edges = [0]
+    for s in splits:
+        edges.append(edges[-1] + s)
+    return list(zip(edges[:-1], edges[1:]))
+
+
+def self_attention_plain(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads, splits=None):
     """Messages ``[B, N, d]`` in x's dtype.
 
     x ``[B, N, d_in]``; cos/sin ``[B, N, head_dim]`` f32 or None; key_bias
-    ``[B, N]`` f32. qkv and the rotated q/k are rounded to x's dtype, the
-    logits and softmax are f32, and the probabilities are rounded to x's
-    dtype for the product with v, as the kernel does.
+    ``[B, N]`` f32; ``splits`` side lengths summing to N (None: one side).
+    qkv and the rotated q/k are rounded to x's dtype, the logits and softmax
+    are f32, and the probabilities are rounded to x's dtype for the product
+    with v, as the kernel does.
     """
     b, n, _ = x.shape
     d = w_qkv.shape[0] // 3
@@ -65,18 +81,36 @@ def self_attention_plain(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads):
         enc = (cos[:, None].float(), sin[:, None].float())
         q = apply_rotary(enc, q.float()).to(dt)
         k = apply_rotary(enc, k.float()).to(dt)
+    out = torch.cat(
+        [
+            attend_plain(q[:, :, lo:hi], k[:, :, lo:hi], v[:, :, lo:hi],
+                         key_bias[:, lo:hi], scale)
+            for lo, hi in split_edges(splits, n)
+        ],
+        dim=2,
+    )
+    return out.permute(0, 2, 1, 3).reshape(b, n, d)
+
+
+def attend_plain(q, k, v, key_bias, scale):
+    """Masked softmax attention ``[B, H, Nq, hd]`` in v's dtype.
+
+    Logits ``q k^T * scale + key_bias`` in f32; the max-subtracted weights
+    are rounded to v's dtype for the product with v and the f32 1/sum is
+    folded into the output (``_attn_weights`` of the TPU kernels), so an
+    all-masked key row gives the mean of v.
+    """
     logits = (q.float() @ k.float().transpose(-1, -2)) * scale
     logits = logits + key_bias[:, None, None, :].float()
     e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     r = 1.0 / e.sum(dim=-1, keepdim=True)
-    out = (e.to(dt).float() @ v.float()) * r
-    return out.to(dt).permute(0, 2, 1, 3).reshape(b, n, d)
+    return ((e.to(v.dtype).float() @ v.float()) * r).to(v.dtype)
 
 
-def self_attention(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads):
+def self_attention(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads, splits=None):
     """:func:`self_attention_plain` on the CPU; ``csrc/attention.cu`` on CUDA."""
     if x.device.type == "cpu":
-        return self_attention_plain(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads)
+        return self_attention_plain(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads, splits)
     b, n, d_in = x.shape
     dev = x.device
     if cos is None or sin is None:
@@ -86,8 +120,12 @@ def self_attention(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads):
             f"CUDA self-attention is built for d_in={KERNEL_D_IN} and head_dim="
             f"{KERNEL_HEAD_DIM}; got d_in={d_in}, heads={heads}"
         )
-    if n % KERNEL_QUERY_TILE:
-        raise ValueError(f"CUDA self-attention needs N % {KERNEL_QUERY_TILE} == 0, got {n}")
+    sides = [hi - lo for lo, hi in split_edges(splits, n)]
+    if any(s % KERNEL_QUERY_TILE for s in sides) or len(sides) > KERNEL_MAX_SPLITS:
+        raise ValueError(
+            f"CUDA self-attention needs N % {KERNEL_QUERY_TILE} == 0 on each of at "
+            f"most {KERNEL_MAX_SPLITS} sides; got sides {tuple(sides)}"
+        )
     b_qkv = b_qkv.to(torch.float32).contiguous()
     check_tensor(x, "x", (b, n, d_in), torch.bfloat16, dev)
     check_tensor(w_qkv, "w_qkv", (3 * d_in, d_in), torch.bfloat16, dev)
@@ -99,11 +137,12 @@ def self_attention(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty((b, n, d_in), dtype=torch.bfloat16, device=dev)
+    side_lengths = (ctypes.c_int * len(sides))(*sides)
     check_status(
         library().pram_self_attention(
             ptr(x), ptr(w_qkv), ptr(b_qkv), ptr(cos), ptr(sin),
             ptr(key_bias), ptr(out), b, n, heads, ctypes.c_float(scale),
-            stream_of(dev),
+            ctypes.cast(side_lengths, ctypes.c_void_p), len(sides), stream_of(dev),
         ),
         "pram_self_attention",
     )

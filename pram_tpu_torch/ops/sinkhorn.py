@@ -1,0 +1,137 @@
+"""Sinkhorn optimal transport with a dustbin, masked for fixed-shape batches
+(pram_tpu/ops/sinkhorn.py).
+
+The similarity ``[B, N, M]`` gets a learned dustbin row and column, is
+softmaxed along rows, and a fixed number of (non-log) Sinkhorn iterations
+turn it into a transport plan ``[B, N+1, M+1]``. Padded rows and columns
+carry zero marginal mass, so the plan restricted to the valid entries is
+that of the unpadded problem.
+
+:func:`sinkhorn` replaces
+``pram_tpu/ops/sinkhorn_pallas.py:sinkhorn_matching_pallas``: a CPU tensor
+takes :func:`sinkhorn_matching`, a CUDA tensor launches ``csrc/sinkhorn.cu``
+or raises. :func:`dual_softmax_matching` has no kernel in either package.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from pram_tpu_torch._build import check_status, check_tensor, library, ptr, stream_of
+
+LAUNCHES = {"sinkhorn": 0}
+
+_EPS = 1e-8
+KERNEL_MAX_COLS = 32 * 48  # M + 1 the CUDA kernel holds per row
+
+
+def _augment_with_dustbin(sim: torch.Tensor, dustbin) -> torch.Tensor:
+    """Append a dustbin row and column filled with the learned scalar."""
+    b, n, m = sim.shape
+    bin_ = torch.as_tensor(dustbin, dtype=sim.dtype, device=sim.device)
+    col = bin_.expand(b, n, 1)
+    aug = torch.cat([sim, col], dim=-1)
+    return torch.cat([aug, bin_.expand(b, 1, m + 1)], dim=-2)
+
+
+def marginals(
+    b: int, n: int, m: int, mask0, mask1, dtype, device
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row and column marginals ``[B, N+1]``, ``[B, M+1]``: 1 for a valid
+    entry, 0 for a padded one, and (valid count + 1) for the dustbin."""
+
+    def one(mask, k):
+        if mask is None:
+            valid = torch.ones((b, k), dtype=dtype, device=device)
+            count = torch.full((b,), float(k + 1), dtype=dtype, device=device)
+        else:
+            valid = mask.to(dtype)
+            count = valid.sum(-1) + 1.0
+        return torch.cat([valid, count[:, None]], dim=-1)
+
+    return one(mask0, n), one(mask1, m)
+
+
+def sinkhorn_matching(
+    sim: torch.Tensor,
+    dustbin,
+    num_iters: int = 20,
+    mask0: Optional[torch.Tensor] = None,
+    mask1: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Sinkhorn transport plan with dustbin ``[B, N+1, M+1]`` (plain torch)."""
+    b, n, m = sim.shape
+    aug = _augment_with_dustbin(sim, dustbin)
+    r, c = marginals(b, n, m, mask0, mask1, sim.dtype, sim.device)
+    p = torch.softmax(aug, dim=-1)
+    u = torch.ones_like(r)
+    v = torch.ones_like(c)
+    for _ in range(num_iters):
+        u = r / (torch.einsum("bnm,bm->bn", p, v) + _EPS)
+        v = c / (torch.einsum("bnm,bn->bm", p, u) + _EPS)
+    return p * u[:, :, None] * v[:, None, :]
+
+
+def dual_softmax_matching(
+    sim: torch.Tensor,
+    dustbin,
+    mask0: Optional[torch.Tensor] = None,
+    mask1: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Dual-softmax score with dustbin; padded rows/columns are pushed to
+    -1e9 before the softmaxes and zeroed in the output."""
+    b = sim.shape[0]
+    aug = _augment_with_dustbin(sim, dustbin)
+    neg = torch.tensor(-1e9, dtype=aug.dtype, device=aug.device)
+    ones = torch.ones((b, 1), dtype=torch.bool, device=sim.device)
+    rm = cm = None
+    if mask0 is not None:
+        rm = torch.cat([mask0, ones], dim=-1)
+        aug = torch.where(rm[:, :, None], aug, neg)
+    if mask1 is not None:
+        cm = torch.cat([mask1, ones], dim=-1)
+        aug = torch.where(cm[:, None, :], aug, neg)
+    out = torch.exp(torch.log_softmax(aug, dim=-1) + torch.log_softmax(aug, dim=-2))
+    if rm is not None:
+        out = out * rm[:, :, None]
+    if cm is not None:
+        out = out * cm[:, None, :]
+    return out
+
+
+def sinkhorn(
+    sim: torch.Tensor,
+    dustbin,
+    num_iters: int = 20,
+    mask0: Optional[torch.Tensor] = None,
+    mask1: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`sinkhorn_matching` on the CPU; ``csrc/sinkhorn.cu`` on CUDA.
+
+    ``dustbin`` is a scalar tensor or float; the kernel reads it from the
+    device.
+    """
+    if sim.device.type == "cpu":
+        return sinkhorn_matching(sim, dustbin, num_iters, mask0, mask1)
+    b, n, m = sim.shape
+    dev = sim.device
+    f32 = torch.float32
+    if m + 1 > KERNEL_MAX_COLS:
+        raise ValueError(f"CUDA Sinkhorn holds at most {KERNEL_MAX_COLS} columns, got {m + 1}")
+    check_tensor(sim, "sim", (b, n, m), f32, dev)
+    r, c = marginals(b, n, m, mask0, mask1, f32, dev)
+    check_tensor(r, "row marginals (mask0)", (b, n + 1), f32, dev)
+    check_tensor(c, "column marginals (mask1)", (b, m + 1), f32, dev)
+    out = torch.empty((b, n + 1, m + 1), dtype=f32, device=dev)
+    bin_ = torch.as_tensor(dustbin).to(device=dev, dtype=f32).reshape(1).contiguous()
+    check_status(
+        library().pram_sinkhorn(
+            ptr(sim), ptr(r), ptr(c), ptr(bin_), ptr(out), b, n, m, num_iters,
+            stream_of(dev),
+        ),
+        "pram_sinkhorn",
+    )
+    LAUNCHES["sinkhorn"] += 1
+    return out

@@ -6,7 +6,13 @@ card's machine (no jax there, so without this directory's conftest):
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances as in chip_smoke.py: bf16 outputs within 2% of the output's
-scale; inlier counts within 2 at the gate edge; polished poses within 2e-3.
+scale; inlier counts within 2 at the gate edge; polished poses within 2e-3;
+Sinkhorn's real block within 1e-4 and its dustbin row and column within
+0.3%; refinement NN indices and keep flags agreeing on 99% of queries (f32
+sums in another order flip near-ties of the 0.995 ratio test) and d1 within
+1e-4 (chip_smoke.py allows 1e-3 because its rendered queries carry exact
+map descriptors, where d1 ~ 1e-3 and its slope in the similarity is 1/d1;
+the noisy copies here keep d1 above 0.1).
 """
 
 import pytest
@@ -14,7 +20,7 @@ import torch
 
 from pram_tpu_torch.geometry.camera import Camera, project
 from pram_tpu_torch.geometry.rotations import so3_exp
-from pram_tpu_torch.ops import attention, mlp, pnp
+from pram_tpu_torch.ops import attention, cross_attention, mlp, pnp, refine, sinkhorn
 
 pytestmark = pytest.mark.cuda
 
@@ -50,6 +56,93 @@ def test_self_attention_kernel(dev, b, n):
     ref = attention.self_attention_plain(*args)
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= 0.02 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("b,splits", [(2, (128, 256)), (2, (512, 1024))])
+def test_self_attention_kernel_splits(dev, b, splits):
+    """Block-diagonal attention over a concatenation of sides (GML)."""
+    n = sum(splits)
+    g = torch.Generator().manual_seed(n + 1)
+    x = _rand(g, b, n, 256).to(dev, torch.bfloat16)
+    w = _rand(g, 768, 256, scale=256**-0.5).to(dev, torch.bfloat16)
+    bias = _rand(g, 768, scale=0.1).to(dev)
+    ang = _rand(g, b, n, 32)
+    cos = torch.cos(ang).repeat_interleave(2, -1).to(dev)
+    sin = torch.sin(ang).repeat_interleave(2, -1).to(dev)
+    mask = torch.rand(b, n, generator=g) > 0.2
+    mask[1, splits[0]:] = False  # an all-padded side
+    kb = attention.mask_to_bias(mask, b, n, "cpu").to(dev)
+    args = (x, w, bias, cos, sin, kb, 64**-0.5, 4)
+    got = attention.self_attention(*args, splits=splits)
+    ref = attention.self_attention_plain(*args, splits=splits)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 0.02 * ref.float().abs().max().item()
+    # the blocks really are separate: one attention over all tokens differs
+    full = attention.self_attention_plain(*args)
+    assert (full.float() - ref.float()).abs().max().item() > 0.1 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("b,n0,n1", [(2, 128, 256), (2, 512, 1024)])
+def test_cross_attention_kernel(dev, b, n0, n1):
+    g = torch.Generator().manual_seed(n0 + n1)
+    n = n0 + n1
+    x = _rand(g, b, n, 256).to(dev, torch.bfloat16)
+
+    def w():
+        return _rand(g, 256, 256, scale=256**-0.5).to(dev, torch.bfloat16)
+
+    m0 = torch.rand(b, n0, generator=g) > 0.1
+    m1 = torch.rand(b, n1, generator=g) > 0.3
+    m1[1] = False  # an all-masked key side: side 0 of frame 1 gets mean(v1)
+    b0 = attention.mask_to_bias(m0, b, n0, "cpu").to(dev)
+    b1 = attention.mask_to_bias(m1, b, n1, "cpu").to(dev)
+    args = (x, w(), _rand(g, 256, scale=0.1).to(dev), w(), _rand(g, 256, scale=0.1).to(dev),
+            b0, b1, 64**-0.5, 4, n0)
+    before = cross_attention.LAUNCHES["cross_attention"]
+    got = cross_attention.cross_attention(*args)
+    torch.cuda.synchronize()
+    assert cross_attention.LAUNCHES["cross_attention"] == before + 1
+    ref = cross_attention.cross_attention_plain(*args)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 0.02 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("b,n,m", [(3, 100, 200), (2, 512, 1024)])
+def test_sinkhorn_kernel(dev, b, n, m):
+    g = torch.Generator().manual_seed(n)
+    sim = _rand(g, b, n, m, scale=3.0).to(dev)
+    m0 = torch.rand(b, n, generator=g) > 0.1
+    m1 = torch.rand(b, m, generator=g) > 0.4
+    args = (sim, torch.tensor(1.2, device=dev), 20, m0.to(dev), m1.to(dev))
+    got = sinkhorn.sinkhorn(*args)
+    ref = sinkhorn.sinkhorn_matching(*args)
+    assert (got[:, :n, :m] - ref[:, :n, :m]).abs().max().item() <= 1e-4
+    for a, r in ((got[:, n, :], ref[:, n, :]), (got[:, :, m], ref[:, :, m])):
+        assert ((a - r).abs() / r.abs().clamp(min=1e-6)).max().item() <= 3e-3
+    assert (got[:, :n][~m0.to(dev)] == 0).all()
+    assert (got[:, :, :m].transpose(1, 2)[~m1.to(dev)] == 0).all()
+
+
+@pytest.mark.parametrize("b,n,p", [(2, 128, 256), (4, 512, 2048)])
+def test_refine_nn_kernel(dev, b, n, p):
+    g = torch.Generator().manual_seed(p)
+    descs = torch.nn.functional.normalize(_rand(g, b, n, 128), dim=-1)
+    pdesc = torch.nn.functional.normalize(_rand(g, b, p, 128), dim=-1)
+    pdesc[:, : n // 2] = torch.nn.functional.normalize(
+        descs[:, : n // 2] + _rand(g, b, n // 2, 128, scale=0.05), dim=-1)
+    kpts = torch.rand(b, n, 2, generator=g) * torch.tensor([640.0, 480.0])
+    uv = torch.rand(b, p, 2, generator=g) * torch.tensor([640.0, 480.0])
+    uv[:, : n // 2] = kpts[:, : n // 2] + _rand(g, b, n // 2, 2, scale=3.0)
+    in_img = torch.rand(b, p, generator=g) > 0.1
+    qmask = torch.rand(b, n, generator=g) > 0.1
+    args = [descs.to(dev, torch.bfloat16), pdesc.to(dev, torch.bfloat16)]
+    args += [a.to(dev).contiguous() for a in (kpts, uv, in_img, qmask)] + [16.0, 0.995]
+    idx, d1, keep = refine.refine_nn(*args)
+    ridx, rd1, rkeep = refine.refine_nn_plain(*args)
+    assert (idx == ridx).float().mean().item() >= 0.99
+    assert (keep == rkeep).float().mean().item() >= 0.99
+    assert (d1 - rd1).abs().max().item() <= 1e-4
+    assert keep.any()
 
 
 def test_residual_mlp_kernel(dev):

@@ -4,7 +4,8 @@ The card's machine has torch, triton, numpy, scipy and einops, but no jax,
 flax, msgpack, ml_dtypes, yaml or ninja. A fresh interpreter refuses those
 (and the JAX package itself) through a ``sys.meta_path`` finder, then
 imports every module of ``pram_tpu_torch`` and ``chip_smoke``, reads the
-flax weights, and runs the slice with a 2-layer SegNetViT on the CPU.
+flax weights, and runs both slices on the CPU: a 2-layer SegNetViT with the
+NN matcher, then a 2-layer GML with projection refinement.
 """
 
 import os
@@ -47,13 +48,14 @@ SCRIPT = textwrap.dedent(
     import chip_smoke  # its work sits under __main__
 
     from pram_tpu_torch.engine.localizer import LocConfig, Localizer
-    from pram_tpu_torch.engine.matching import make_nn_match_fn
+    from pram_tpu_torch.engine.matching import make_gml_match_fn, make_nn_match_fn
     from pram_tpu_torch.geometry.camera import Camera
     from pram_tpu_torch.geometry.rotations import compute_pose_error
     from pram_tpu_torch.io.flax_msgpack import read_flax_msgpack
     from pram_tpu_torch.maps.device import to_device
     from pram_tpu_torch.maps.synthetic import make_synthetic_scene
-    from pram_tpu_torch.models.convert import load_segnetvit
+    from pram_tpu_torch.models.convert import load_gml, load_segnetvit
+    from pram_tpu_torch.models.gml import GMLConfig
     from pram_tpu_torch.models.segnetvit import SegNetViTConfig
 
     weights = "weights/segnetvit_synthetic.msgpack"
@@ -71,12 +73,23 @@ SCRIPT = textwrap.dedent(
     logits = logits[:, :, : scene.map.n_class]
     assert torch.isfinite(logits).all()
     cfg = LocConfig(seg_k=1, min_inliers=32, threshold=8.0, num_hypotheses=128,
-                    gn_iters=5, lo_rounds=1)
+                    gn_iters=5, lo_rounds=1, do_refinement=False)
     loc = Localizer(to_device(scene.map, "cpu"), make_nn_match_fn(), cfg)
     cam = Camera(torch.tensor([[500.0, 500, 320, 240, 0, 0, 0, 0]] * 2),
                  torch.tensor([[640.0, 480.0]] * 2))
     res = loc.localize_batch(torch.Generator().manual_seed(7), cam, kp, sc, de, mk, logits)
     assert res.qvec.shape == (2, 4) and torch.isfinite(res.tvec).all()
+    compute_pose_error(res.qvec, res.tvec, st("qvec").float(), st("tvec"))
+
+    gml_weights = "weights/gml_synthetic.msgpack"
+    assert len(read_flax_msgpack(gml_weights)) == 2 * 9 + 4  # layers, input/out_proj, poseenc, bin
+    gml = load_gml(gml_weights, GMLConfig(n_layers=2), device="cpu")
+    cfg = LocConfig(seg_k=1, min_inliers=32, threshold=8.0, num_hypotheses=128,
+                    gn_iters=5, lo_rounds=1, do_refinement=True)
+    loc = Localizer(to_device(scene.map, "cpu"), make_gml_match_fn(gml), cfg)
+    res = loc.localize_batch(torch.Generator().manual_seed(7), cam, kp, sc, de, mk, logits)
+    assert res.qvec.shape == (2, 4) and torch.isfinite(res.tvec).all()
+    assert res.kpt_point_idx.shape == (2, 512) and torch.isfinite(res.kpt_xyz).all()
     compute_pose_error(res.qvec, res.tvec, st("qvec").float(), st("tvec"))
     leaked = BLOCKED & {m.split(".")[0] for m in sys.modules}
     assert not leaked, leaked
