@@ -29,6 +29,24 @@ Phases, each printed with its elapsed seconds:
                 projection refinement -> RANSAC PnP, counted the same way
                 (every kernel, 1 to 7, must have launched), timed, and
                 compared with the same batch on the CPU.
+8. image setup  the image slice's RenderedGuard in bf16: SFD2, SegNetViT and
+                GML from weights/*_rendered.msgpack, the map built on the
+                card by the port's extractor from 12 reference views
+                rendered on the host.
+9. extract kernels
+                the third slice's kernels against their plain versions at
+                its shapes, 32 x 480 x 640: the SFD2 stem (kernel 8) on the
+                32 noisy query images in bf16 and f32, and NMS (kernel 9)
+                on the model's score maps of those images in bf16 and f32;
+                the stem's cuDNN yardstick.
+10. image slice the main path, bench.py's image recall guard: 32 noisy
+                rendered queries (seed 11) -> SFD2 extraction -> SegNetViT
+                -> GML -> RANSAC PnP -> projection refinement, through
+                RenderedGuard.recall, counted (every kernel, 1 to 9, must
+                have launched), recall@5cm/5deg required to be 1.0; then
+                timed (a batch, and extraction split into its stages), and
+                the extraction A/B check, kernel path vs plain path on 4
+                views, in bf16 and in f32.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Any failed
@@ -77,6 +95,18 @@ REFINE_AGREE = 0.99
 REFINE_D1_ATOL = 1e-3
 # card vs CPU on a slice: same consensus, so poses agree far inside 5 cm / 5 deg
 SLICE_T_TOL, SLICE_R_TOL_DEG = 0.005, 0.1
+# stem: in bf16 both sides round conv1a's output to bf16, and an f32 sum in
+# another order moves a value across a bf16 rounding boundary now and then
+# (one step, 2^-8 relative), which conv1b carries on: 2% of the output's
+# scale, as for the attention kernels. In f32 only the summation order
+# differs: rtol = atol = 1e-4 (TF32 off).
+STEM_TOL = 0.02
+STEM_F32_TOL = 1e-4
+# extraction A/B, kernel path vs plain path: in bf16 the stem's rounding
+# differences move a few near-threshold or near-tied maxima; in f32 the two
+# paths differ by summation order only
+AB_BF16 = (0.95, 0.99)  # keypoint-set agreement, descriptor cosine min
+AB_F32 = (0.99, 0.999)
 
 
 def log(msg: str) -> None:
@@ -122,6 +152,18 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def median_s(fn, n: int = 5) -> float:
+    """Median host seconds of ``n`` calls after one warm-up; ``fn`` ends in
+    a synchronize."""
+    fn()
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    return sorted(times)[n // 2]
+
+
 def check_scaled(name: str, got, ref, tol: float) -> float:
     """Require |got - ref| <= tol * max|ref|; returns the max abs error."""
     err = (got.float() - ref.float()).abs().max().item()
@@ -154,18 +196,26 @@ def main() -> int:
         rank_candidates,
     )
     from pram_tpu_torch.engine.matching import make_gml_match_fn, make_nn_match_fn
+    from pram_tpu_torch.engine.rendered_guard import (
+        SFD2_W,
+        RenderedGuard,
+        apply_noise,
+        extraction_ab_check,
+        render_views,
+    )
     from pram_tpu_torch.geometry.camera import Camera, project
     from pram_tpu_torch.geometry.rotations import compute_pose_error, so3_exp
     from pram_tpu_torch.maps.device import to_device
     from pram_tpu_torch.maps.synthetic import make_synthetic_scene
-    from pram_tpu_torch.models.convert import load_gml, load_segnetvit
+    from pram_tpu_torch.models.convert import load_gml, load_segnetvit, load_sfd2
     from pram_tpu_torch.models.gml import GMLConfig
     from pram_tpu_torch.models.segnetvit import SegNetViTConfig
-    from pram_tpu_torch.ops import attention, cross_attention, mlp, pnp, refine, sinkhorn
+    from pram_tpu_torch.models.sfd2 import preprocess_image
+    from pram_tpu_torch.ops import attention, cross_attention, keypoints, mlp, nms, pnp, refine, sampling, sinkhorn, stem
 
     counters = (
         attention.LAUNCHES, mlp.LAUNCHES, pnp.LAUNCHES, cross_attention.LAUNCHES,
-        sinkhorn.LAUNCHES, refine.LAUNCHES,
+        sinkhorn.LAUNCHES, refine.LAUNCHES, stem.LAUNCHES, nms.LAUNCHES,
     )
 
     def reset_counts():
@@ -579,9 +629,11 @@ def main() -> int:
     launches = read_counts()
     log(f"GML slice launches: {launches}")
     for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched on the GML slice")
+        if name not in ("fused_stem", "nms"):  # the image slice's kernels
+            require(count > 0, f"kernel {name} was not launched on the GML slice")
     require(tuple(gres_gpu.qvec.shape) == (batch, 4), "bad pose batch shape")
     require(bool(torch.isfinite(gres_gpu.tvec).all()), "non-finite poses")
+    gml_launches = launches
     grecall_gpu, gq_err, gt_err = recall_of(gres_gpu)
 
     matcher_s = []
@@ -618,13 +670,161 @@ def main() -> int:
         )
     log(f"GML slice on the CPU: {batch} queries in {time.perf_counter() - t_cpu:.1f} s")
     compare_with_cpu("GML slice", gres_gpu, gres_cpu, grecall_gpu)
+    del model_cpu, gml_cpu
     phase("gml_slice", t)
+
+    # ---- 8. the image slice's guard: models in bf16, the map built on the card
+    t = time.perf_counter()
+    guard = RenderedGuard(batch=batch, device=dev, dtype=bf16)
+    torch.cuda.synchronize()
+    log(f"rendered map: {guard.scene.map.num_points} points, {guard.scene.map.num_frames} frames, "
+        f"n_class {guard.n_class}")
+    q_imgs, q_qvecs, q_tvecs = render_views(batch, 11, guard.scene.world)
+    q_imgs = apply_noise(q_imgs, np.random.RandomState(12))
+    phase("image_setup", t)
+
+    # ---- 9. the third slice's kernels vs plain versions at its shapes
+    t = time.perf_counter()
+    sfd2 = guard.sfd2
+    h_img, w_img = q_imgs.shape[1:3]
+    with torch.no_grad():
+        x = preprocess_image(torch.from_numpy(q_imgs).to(dev)).to(bf16).contiguous()
+        st_args = (*sfd2.conv1a.stem_args(), *sfd2.conv1b.stem_args())
+        y = stem.fused_stem(x, *st_args)
+        err = check_scaled("fused_stem (bf16)", y, stem.fused_stem_plain(x, *st_args), STEM_TOL)
+        sfd2_f32 = load_sfd2(SFD2_W, device=dev, dtype=torch.float32)
+        x32 = preprocess_image(torch.from_numpy(q_imgs).to(dev)).contiguous()
+        st32 = (*sfd2_f32.conv1a.stem_args(), *sfd2_f32.conv1b.stem_args())
+        y32, r32 = stem.fused_stem(x32, *st32), stem.fused_stem_plain(x32, *st32)
+        err32 = (y32 - r32).abs().max().item()
+        excess = ((y32 - r32).abs() - STEM_F32_TOL * r32.abs()).max().item()
+        log(f"fused_stem (f32): max abs err {err32:.3e} over max|ref| {r32.abs().max().item():.3e} "
+            f"(rtol = atol = {STEM_F32_TOL})")
+        require(excess <= STEM_F32_TOL, "fused_stem (f32) kernel disagrees with its plain version")
+        # library yardstick: two cuDNN convolutions (bf16, channels_last,
+        # folded weights) with ReLU
+        k1f, b1f = stem.fold_bn(*sfd2.conv1a.stem_args()[:2], *sfd2.conv1a.stem_args()[2])
+        k2f, b2f = stem.fold_bn(*sfd2.conv1b.stem_args()[:2], *sfd2.conv1b.stem_args()[2])
+        cl = torch.channels_last
+        k1c, k2c = k1f.to(bf16).contiguous(memory_format=cl), k2f.to(bf16).contiguous(memory_format=cl)
+        b1c, b2c = b1f.to(bf16), b2f.to(bf16)
+        xc = x.permute(0, 3, 1, 2)
+        conv = torch.nn.functional.conv2d
+
+        def cudnn_stem():
+            a = torch.relu(conv(xc, k1c, b1c, padding=1))
+            return torch.relu(conv(a, k2c, b2c, stride=2, padding=1))
+
+        lib_ms = cuda_ms(torch, cudnn_stem)
+        n_img, n_out = batch * h_img * w_img, y.shape[0] * y.shape[1] * y.shape[2]
+        s_bytes = n_img * 3 * 2 + n_out * 64 * 2 + (27 + 576) * 64 * 2 + 2 * 64 * 4
+        s_ops = 2.0 * (27 * 64 * n_img + 576 * 64 * n_out)
+        bnd, by = bound_ms(s_bytes, s_ops, BF16_TENSOR_FLOPS)
+        rows["fused_stem"] = dict(
+            name="fused_stem", route="cuda", source="pram_tpu_torch/csrc/stem.cu",
+            replaces="pram_tpu/ops/stem_pallas.py:198",
+            launches=None, max_abs_err=err,
+            ms=cuda_ms(torch, lambda: stem.fused_stem(x, *st_args)),
+            plain_ms=cuda_ms(torch, lambda: stem.fused_stem_plain(x, *st_args), iters=5),
+            bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+        )
+        log(f"fused_stem f32: {cuda_ms(torch, lambda: stem.fused_stem(x32, *st32), iters=5):.4f} ms")
+
+        # kernel 9 on the model's score maps of the same images
+        smap = sfd2(x)["score_map"]
+        smap32 = sfd2_f32(x32)["score_map"]
+        for name, sm in (("bf16", smap), ("f32", smap32)):
+            got, ref = nms.nms(sm, 4), nms.simple_nms(sm, 4)
+            diff = int((got != ref).sum().item())
+            log(f"nms ({name}): {diff} elements differ of {ref.numel()}; "
+                f"{int((ref > 0).sum().item())} maxima survive")
+            require(diff == 0, f"nms ({name}) kernel is not bit-equal to its plain version")
+        n_px = smap.numel()
+        # 5 separable pools of 2 * 8 max a pixel, and ~8 tests and selects
+        bnd, by = bound_ms(2 * n_px * 2, 88.0 * n_px, F32_FLOPS)
+        rows["nms"] = dict(
+            name="nms", route="cuda", source="pram_tpu_torch/csrc/nms.cu",
+            replaces="pram_tpu/ops/nms_pallas.py:102",
+            launches=None, max_abs_err=0.0,
+            ms=cuda_ms(torch, lambda: nms.nms(smap, 4)),
+            plain_ms=cuda_ms(torch, lambda: nms.simple_nms(smap, 4), iters=5),
+            bound_ms=bnd, bound_by=by, library_ms=None,
+        )
+        log(f"nms f32: {cuda_ms(torch, lambda: nms.nms(smap32, 4), iters=5):.4f} ms")
+        del sfd2_f32, x32, y32, r32, smap32
+    phase("extract_kernels", t)
+
+    # ---- 10. the image slice (the main path), counted
+    t = time.perf_counter()
+    reset_counts()
+    metrics = guard.recall(n_queries=batch, noise=True, seed=11)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"image slice launches: {launches}")
+    for name, count in launches.items():
+        require(count > 0, f"kernel {name} was not launched on the image slice")
+    log(f"image slice on card: {json.dumps(metrics)}")
+    require(metrics["n_queries"] == batch, "image slice did not localize every query")
+    require(metrics["recall"] == 1.0, "image slice recall@5cm/5deg below 1.0")
+
+    gen = torch.Generator()
+
+    def one_batch():
+        guard.pipeline(gen.manual_seed(7), q_imgs)
+        torch.cuda.synchronize()
+
+    def one_extract():
+        guard.extract(q_imgs, 512)
+        torch.cuda.synchronize()
+
+    def one_front():
+        guard.front(q_imgs)
+        torch.cuda.synchronize()
+
+    def one_copy():  # the images' way onto the card in RenderedGuard.extract
+        torch.as_tensor(q_imgs).to(dev, torch.float32)
+        torch.cuda.synchronize()
+
+    batch_s, ext_s, front_s = median_s(one_batch), median_s(one_extract), median_s(one_front)
+    copy_s = median_s(one_copy)
+    with torch.no_grad():
+        x_dev = torch.as_tensor(q_imgs).to(dev, torch.float32)
+        pre_ms = cuda_ms(torch, lambda: preprocess_image(x_dev).to(bf16), iters=5)
+        xs = preprocess_image(x_dev).to(bf16).contiguous()
+        out = sfd2(xs)
+        nmsd = nms.nms(out["score_map"], 4)
+        kps = keypoints.extract_keypoints(nmsd, max_keypoints=512, conf_th=1e-4)
+        dmap = out["desc_map"].permute(0, 3, 1, 2)
+        mid = out["mid_features"].permute(0, 3, 1, 2)
+        fwd_ms = cuda_ms(torch, lambda: sfd2(xs), iters=5)
+        topk_ms = cuda_ms(torch, lambda: keypoints.extract_keypoints(nmsd, max_keypoints=512, conf_th=1e-4), iters=5)
+        samp_ms = cuda_ms(torch, lambda: (sampling.sample_descriptors(kps.xy, dmap, 4),
+                                          sampling.sample_descriptors(kps.xy, mid, 4)), iters=5)
+    log(f"image slice: batch {batch} in {batch_s * 1e3:.2f} ms (median of 5, host clock, synchronized) "
+        f"= {batch / batch_s:.1f} queries/s; extraction {ext_s * 1e3:.2f} ms, extraction + recognition "
+        f"{front_s * 1e3:.2f} ms, localization {(batch_s - front_s) * 1e3:.2f} ms")
+    log(f"extraction by CUDA events: SFD2 forward {fwd_ms:.3f} ms (stem kernel {rows['fused_stem']['ms']:.3f}, "
+        f"other convolutions and heads {fwd_ms - rows['fused_stem']['ms']:.3f}), NMS {rows['nms']['ms']:.4f}, "
+        f"top-k {topk_ms:.3f}, sampling {samp_ms:.3f}")
+    staged_ms = copy_s * 1e3 + pre_ms + fwd_ms + rows["nms"]["ms"] + topk_ms + samp_ms
+    log(f"extraction's host side: copy of the {q_imgs.nbytes / 1e6:.1f} MB of {q_imgs.dtype} images "
+        f"from pageable numpy memory {copy_s * 1e3:.2f} ms (host clock, synchronized, median of 5) "
+        f"= {q_imgs.nbytes / copy_s / 1e9:.2f} GB/s; preprocessing and cast {pre_ms:.3f} ms (CUDA events); "
+        f"unattributed {ext_s * 1e3 - staged_ms:.2f} ms of {ext_s * 1e3:.2f}")
+
+    for name, dt, thr in (("bf16", bf16, AB_BF16), ("f32", torch.float32, AB_F32)):
+        ab = extraction_ab_check(n_images=4, seed=13, device=dev, dtype=dt)
+        log(f"extraction A/B ({name}, kernel path vs plain path): {json.dumps(ab)}")
+        require(ab["kpt_set_agreement"] >= thr[0] and ab["desc_cos_min"] >= thr[1],
+                f"extraction A/B ({name}) below {thr}")
+    phase("image_slice", t)
 
     table = []
     for name in ("self_attention", "residual_mlp", "ransac_score", "gn_polish",
-                 "cross_attention", "sinkhorn", "refine_nn"):
+                 "cross_attention", "sinkhorn", "refine_nn", "fused_stem", "nms"):
         r = rows[name]
-        r["launches"] = launches[name]
+        # kernels 1-7 counted on the GML slice, 8-9 on the image slice
+        r["launches"] = (launches if name in ("fused_stem", "nms") else gml_launches)[name]
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"{name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {r['launches']} launches")

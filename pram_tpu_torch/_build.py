@@ -49,6 +49,10 @@ _SIGNATURES = {
     # cam, R0, t0, xyz, uv, mask, threshold, min_inliers, damping, gn_iters,
     # lo_rounds, R, t, num, inliers, P, N, stream
     "pram_gn_polish": [_P] * 6 + [_F, _F, _F, _I, _I] + [_P] * 4 + [_I, _I, _P],
+    # image, w1, b1, w2, b2, out, B, H, W, is_bf16, stream
+    "pram_stem": [_P] * 6 + [_I] * 4 + [_P],
+    # scores, out, B, H, W, radius, num_iters, is_bf16, stream
+    "pram_nms": [_P] * 2 + [_I] * 6 + [_P],
 }
 
 _LIB = None

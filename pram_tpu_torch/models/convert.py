@@ -1,9 +1,12 @@
 """Flax parameter trees -> the port's state dicts.
 
 A flax ``Dense`` kernel ``[in, out]`` becomes a torch ``Linear.weight``
-``[out, in]``; a ``LayerNorm`` ``scale`` becomes ``weight``; biases keep
-their name. The flax layout is the contract: the qkv columns stay in their
-``(head, head_dim, 3)`` order.
+``[out, in]``; a ``Conv`` kernel ``[kh, kw, in / groups, out]`` a
+``Conv2d.weight`` ``[out, in / groups, kh, kw]``; a norm's ``scale`` becomes
+``weight``, a BatchNorm's ``mean`` and ``var`` (from ``batch_stats``)
+``running_mean`` and ``running_var``; biases keep their name. The flax
+layout is the contract: the qkv columns stay in their ``(head, head_dim, 3)``
+order.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 from pram_tpu_torch.io.flax_msgpack import read_flax_msgpack
 from pram_tpu_torch.models.gml import GML, GMLConfig
 from pram_tpu_torch.models.segnetvit import SegNetViT, SegNetViTConfig
+from pram_tpu_torch.models.sfd2 import ResNet4x
 
 
 def flax_to_state_dict(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -29,11 +33,16 @@ def flax_to_state_dict(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
             continue
         arr = np.asarray(leaf, np.float32)
         if name == "kernel":
-            if arr.ndim != 2:
-                raise ValueError(f"{key}: only Dense kernels are converted, got {arr.shape}")
-            out[f"{prefix}weight"] = torch.from_numpy(arr.T.copy())
+            if arr.ndim == 2:
+                out[f"{prefix}weight"] = torch.from_numpy(arr.T.copy())
+            elif arr.ndim == 4:
+                out[f"{prefix}weight"] = torch.from_numpy(arr.transpose(3, 2, 0, 1).copy())
+            else:
+                raise ValueError(f"{key}: only Dense and 2-D Conv kernels are converted, got {arr.shape}")
         elif name == "scale":
             out[f"{prefix}weight"] = torch.from_numpy(arr.copy())
+        elif name in ("mean", "var"):
+            out[f"{prefix}running_{name}"] = torch.from_numpy(arr.copy())
         elif name == "bias":
             out[key] = torch.from_numpy(arr.copy())
         else:
@@ -114,3 +123,28 @@ def load_gml(
     model = GML(config)
     model.load_state_dict(sd, strict=True)
     return model.to(device=device, dtype=dtype).eval()
+
+
+def sfd2_state_dict(tree: dict) -> Dict[str, torch.Tensor]:
+    """SFD2 flax variables (``params`` and ``batch_stats``) -> ResNet4x state
+    dict: ``res_<i>`` becomes ``res.<i>``, and every BatchNorm gets a zero
+    ``num_batches_tracked`` (unused in inference)."""
+    if "params" not in tree or "batch_stats" not in tree:
+        raise ValueError("SFD2 variables need both params and batch_stats")
+    sd = flax_to_state_dict(tree["params"])
+    sd.update(flax_to_state_dict(tree["batch_stats"]))
+    sd = {re.sub(r"^res_(\d+)\.", r"res.\1.", k): v for k, v in sd.items()}
+    for k in [k for k in sd if k.endswith(".running_mean")]:
+        sd[k[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def load_sfd2(path: str, device="cuda", dtype=torch.float32) -> ResNet4x:
+    """ResNet4x with weights and BN statistics from a flax msgpack file, in
+    channels_last memory. In bf16 every parameter and statistic is rounded
+    to bf16 first, as ``bench.py:cast_tree`` rounds every f32 leaf; BN and
+    the stem's BN folding then compute from the rounded values."""
+    model = ResNet4x()
+    model.load_state_dict(sfd2_state_dict(read_flax_msgpack(path)), strict=True)
+    model = model.to(device=device, dtype=dtype).to(memory_format=torch.channels_last)
+    return model.eval()

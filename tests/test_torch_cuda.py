@@ -12,7 +12,9 @@ Sinkhorn's real block within 1e-4 and its dustbin row and column within
 sums in another order flip near-ties of the 0.995 ratio test) and d1 within
 1e-4 (chip_smoke.py allows 1e-3 because its rendered queries carry exact
 map descriptors, where d1 ~ 1e-3 and its slope in the similarity is 1/d1;
-the noisy copies here keep d1 above 0.1).
+the noisy copies here keep d1 above 0.1); the stem within 2% of the
+output's scale in bf16 and within rtol = atol = 1e-4 in f32 (cuDNN's TF32
+off); NMS bit for bit in both types.
 """
 
 import pytest
@@ -20,7 +22,7 @@ import torch
 
 from pram_tpu_torch.geometry.camera import Camera, project
 from pram_tpu_torch.geometry.rotations import so3_exp
-from pram_tpu_torch.ops import attention, cross_attention, mlp, pnp, refine, sinkhorn
+from pram_tpu_torch.ops import attention, cross_attention, mlp, nms, pnp, refine, sinkhorn, stem
 
 pytestmark = pytest.mark.cuda
 
@@ -220,3 +222,63 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
             x[:, :100].to(torch.bfloat16).contiguous(), w, torch.zeros(768, device=dev),
             cs[:, :100].contiguous(), cs[:, :100].contiguous(), kb[:, :100].contiguous(), 0.125, 4,
         )
+
+
+def _stem_args(g, dev):
+    """Random conv1a/conv1b weights ([O, I, 3, 3]), biases and BN tuples."""
+
+    def bn():
+        return (1.0 + _rand(g, 64, scale=0.2), _rand(g, 64, scale=0.3),
+                _rand(g, 64, scale=0.05), _rand(g, 64).abs() * 0.5 + 0.5)
+
+    args = (_rand(g, 64, 3, 3, 3, scale=0.3), _rand(g, 64, scale=0.3), bn(),
+            _rand(g, 64, 64, 3, 3, scale=0.05), _rand(g, 64, scale=0.3), bn())
+    return tuple(tuple(t.to(dev) for t in a) if isinstance(a, tuple) else a.to(dev) for a in args)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,w", [(2, 50, 70), (2, 96, 160)])
+def test_stem_kernel(dev, dtype, b, h, w):
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(h * w)
+    image = _rand(g, b, h, w, 3).to(dev, dtype)
+    args = _stem_args(g, dev)
+    before = stem.LAUNCHES["fused_stem"]
+    got = stem.fused_stem(image, *args)
+    torch.cuda.synchronize()
+    assert stem.LAUNCHES["fused_stem"] == before + 1
+    ref = stem.fused_stem_plain(image, *args)
+    assert got.shape == ref.shape == (b, (h + 1) // 2, (w + 1) // 2, 64)
+    assert got.is_contiguous() and got.dtype == dtype
+    if dtype == torch.bfloat16:
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 0.02 * ref.float().abs().max().item()
+    else:
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,w,r", [(2, 50, 70, 4), (2, 96, 256, 4), (1, 61, 333, 2)])
+def test_nms_kernel(dev, dtype, b, h, w, r):
+    g = torch.Generator().manual_seed(h + w + r)
+    for s in (torch.rand(b, h, w, generator=g) ** 4,
+              torch.randint(0, 6, (b, h, w), generator=g) / 5.0):  # many exact ties
+        s = s.to(dev, dtype)
+        before = nms.LAUNCHES["nms"]
+        got = nms.nms(s, r)
+        torch.cuda.synchronize()
+        assert nms.LAUNCHES["nms"] == before + 1
+        assert torch.equal(got, nms.simple_nms(s, r))
+
+
+def test_extractor_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    s = torch.rand(1, 32, 32, device=dev)
+    for r in (3, 9):
+        with pytest.raises(ValueError, match="radius"):
+            nms.nms(s, r)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        nms.nms(s.half(), 4)
+    args = _stem_args(torch.Generator().manual_seed(0), dev)
+    image = torch.rand(1, 3, 16, 16, device=dev).permute(0, 2, 3, 1)  # NHWC view, not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        stem.fused_stem(image, *args)

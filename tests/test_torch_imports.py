@@ -4,8 +4,9 @@ The card's machine has torch, triton, numpy, scipy and einops, but no jax,
 flax, msgpack, ml_dtypes, yaml or ninja. A fresh interpreter refuses those
 (and the JAX package itself) through a ``sys.meta_path`` finder, then
 imports every module of ``pram_tpu_torch`` and ``chip_smoke``, reads the
-flax weights, and runs both slices on the CPU: a 2-layer SegNetViT with the
-NN matcher, then a 2-layer GML with projection refinement.
+flax weights, and runs the three slices on the CPU: a 2-layer SegNetViT
+with the NN matcher, then a 2-layer GML with projection refinement, then
+SFD2 extraction (weights/sfd2_rendered.msgpack) on one small rendered view.
 """
 
 import os
@@ -91,6 +92,22 @@ SCRIPT = textwrap.dedent(
     assert res.qvec.shape == (2, 4) and torch.isfinite(res.tvec).all()
     assert res.kpt_point_idx.shape == (2, 512) and torch.isfinite(res.kpt_xyz).all()
     compute_pose_error(res.qvec, res.tvec, st("qvec").float(), st("tvec"))
+
+    from pram_tpu_torch.maps.rendered import make_world, ref_poses
+    from pram_tpu_torch.models.convert import load_sfd2
+    from pram_tpu_torch.models.sfd2 import extract, preprocess_image
+
+    wrng = np.random.RandomState(0)
+    world = make_world(wrng)
+    R, t = ref_poses(12, wrng)[3]
+    img = world.render(R, t, (125.0, 125.0, 80.0, 60.0), 160, 120).astype(np.float32)
+    sfd2 = load_sfd2("weights/sfd2_rendered.msgpack", device="cpu")
+    with torch.no_grad():
+        feats = extract(sfd2, preprocess_image(torch.from_numpy(img[None])), max_keypoints=64,
+                        conf_th=1e-4)
+    assert feats["score_map"].shape == (1, 120, 160)
+    assert feats["descriptors"].shape == (1, 64, 128) and feats["seg_descriptors"].shape == (1, 64, 256)
+    assert int(feats["keypoints"].mask.sum()) > 0 and torch.isfinite(feats["descriptors"]).all()
     leaked = BLOCKED & {m.split(".")[0] for m in sys.modules}
     assert not leaked, leaked
     print("FENCE OK", len(names))
