@@ -47,6 +47,32 @@ Phases, each printed with its elapsed seconds:
                 timed (a batch, and extraction split into its stages), and
                 the extraction A/B check, kernel path vs plain path on 4
                 views, in bf16 and in f32.
+11. aachen setup
+                the AdaGML slice at scripts/bench_aachen.py's operating point:
+                AdaGML (9 layers, d=256) in bf16 from
+                weights/adagml_aachen.msgpack, the Aachen-shaped scene (512
+                landmarks of 40 points, 24 reference frames of 2048
+                keypoints, 4096 refinement points, 1024 x 768) and 32
+                queries of 4096 keypoints (seed 11) in 4 batches of 8,
+                routed by ground-truth logits over 513 classes.
+12. aachen kernels
+                kernels 10-12 against their plain versions at the slice's
+                shapes, on layer-0 activations of batch 0 with padded,
+                pruned and fully masked tokens: packed self-attention with
+                statistics at 4096 and 2048 tokens (kernel 10), packed
+                cross-attention with statistics at 4096 x 2048 (kernel 11),
+                and the blocked self-attention at GML's splits (512, 1024)
+                (kernel 12); SDPA yardsticks.
+13. aachen slice
+                AdaGML matching (batched early exit) -> RANSAC PnP ->
+                projection refinement -> RANSAC PnP on the 32 queries,
+                counted (kernels 10, 11, 2, 3, 4, 7 must launch; 1, 5, 6
+                must not), recall@25cm/2deg >= 31/32, match precision and
+                median errors; timed (5 batches, matcher by CUDA events);
+                the matcher A/B on batch 0 (kernel path vs plain path in
+                bf16 by match agreement, and in f32 by masks and stop
+                layers), early exit vs the unrolled module, and the first 2
+                queries on the card against the card machine's CPU.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Any failed
@@ -107,6 +133,20 @@ STEM_F32_TOL = 1e-4
 # paths differ by summation order only
 AB_BF16 = (0.95, 0.99)  # keypoint-set agreement, descriptor cosine min
 AB_F32 = (0.99, 0.999)
+# kernels 10-11's statistics: both sides sum the same normalized f32 weights;
+# the logits they come from are summed in another order (and from bf16
+# weights rounded against another running max in the messages), so 1e-3 of
+# the statistics' scale
+STATS_TOL = 1e-3
+# AdaGML matcher, kernel path vs plain path in bf16: a token whose confidence
+# sits at a pooling threshold can flip with the rounding, so the outcome is
+# held, as scripts/bench_aachen.py holds the fused JAX path to its XLA path
+# (0.9985 there): matches agree on >= 99% of the valid query keypoints
+ADA_AB_AGREE = 0.99
+# early exit vs the unrolled module: the same operations up to the all-stop
+# point, so plans within tests/test_adagml_fused.py's rtol / atol
+ADA_EXIT_RTOL, ADA_EXIT_ATOL = 5e-4, 5e-5
+ADA_RECALL_MIN = 31 / 32  # recall@25cm/2deg on the 32 Aachen queries
 
 
 def log(msg: str) -> None:
@@ -195,7 +235,11 @@ def main() -> int:
         project_refine_set,
         rank_candidates,
     )
-    from pram_tpu_torch.engine.matching import make_gml_match_fn, make_nn_match_fn
+    from pram_tpu_torch.engine.matching import (
+        make_adagml_match_fn,
+        make_gml_match_fn,
+        make_nn_match_fn,
+    )
     from pram_tpu_torch.engine.rendered_guard import (
         SFD2_W,
         RenderedGuard,
@@ -204,19 +248,39 @@ def main() -> int:
         render_views,
     )
     from pram_tpu_torch.geometry.camera import Camera, project
-    from pram_tpu_torch.geometry.rotations import compute_pose_error, so3_exp
+    from pram_tpu_torch.geometry.rotations import compute_pose_error, qvec2rotmat, so3_exp
     from pram_tpu_torch.maps.device import to_device
     from pram_tpu_torch.maps.synthetic import make_synthetic_scene
-    from pram_tpu_torch.models.convert import load_gml, load_segnetvit, load_sfd2
+    from pram_tpu_torch.models.adagml import AdaGMLConfig, adagml_batched_adaptive_apply
+    from pram_tpu_torch.models.convert import load_adagml, load_gml, load_segnetvit, load_sfd2
     from pram_tpu_torch.models.gml import GMLConfig
     from pram_tpu_torch.models.segnetvit import SegNetViTConfig
     from pram_tpu_torch.models.sfd2 import preprocess_image
-    from pram_tpu_torch.ops import attention, cross_attention, keypoints, mlp, nms, pnp, refine, sampling, sinkhorn, stem
+    from pram_tpu_torch.ops.matching import mutual_matches
+    from pram_tpu_torch.ops import (
+        attention,
+        attention_qkv,
+        cross_attention,
+        keypoints,
+        mlp,
+        nms,
+        pnp,
+        refine,
+        sampling,
+        sinkhorn,
+        stem,
+    )
 
     counters = (
         attention.LAUNCHES, mlp.LAUNCHES, pnp.LAUNCHES, cross_attention.LAUNCHES,
         sinkhorn.LAUNCHES, refine.LAUNCHES, stem.LAUNCHES, nms.LAUNCHES,
+        attention_qkv.LAUNCHES,
     )
+    gml_kernels = ("self_attention", "residual_mlp", "ransac_score", "gn_polish",
+                   "cross_attention", "sinkhorn", "refine_nn")
+    # kernels 10-12: AdaGML's (10, 11) and the blocked form (12), on no
+    # earlier slice's path
+    ada_kernels = ("self_attention_qkv", "cross_attention_packed", "self_attention_qkv_blocked")
 
     def reset_counts():
         for c in counters:
@@ -629,7 +693,7 @@ def main() -> int:
     launches = read_counts()
     log(f"GML slice launches: {launches}")
     for name, count in launches.items():
-        if name not in ("fused_stem", "nms"):  # the image slice's kernels
+        if name not in ("fused_stem", "nms") + ada_kernels:  # later slices' kernels
             require(count > 0, f"kernel {name} was not launched on the GML slice")
     require(tuple(gres_gpu.qvec.shape) == (batch, 4), "bad pose batch shape")
     require(bool(torch.isfinite(gres_gpu.tvec).all()), "non-finite poses")
@@ -762,7 +826,8 @@ def main() -> int:
     launches = read_counts()
     log(f"image slice launches: {launches}")
     for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched on the image slice")
+        if name not in ada_kernels:
+            require(count > 0, f"kernel {name} was not launched on the image slice")
     log(f"image slice on card: {json.dumps(metrics)}")
     require(metrics["n_queries"] == batch, "image slice did not localize every query")
     require(metrics["recall"] == 1.0, "image slice recall@5cm/5deg below 1.0")
@@ -818,13 +883,386 @@ def main() -> int:
         require(ab["kpt_set_agreement"] >= thr[0] and ab["desc_cos_min"] >= thr[1],
                 f"extraction A/B ({name}) below {thr}")
     phase("image_slice", t)
+    image_launches = launches
+    del guard, sfd2
+
+    # ---- 11. the AdaGML slice at scripts/bench_aachen.py's operating point
+    t = time.perf_counter()
+    a_w, a_h, a_kpts, a_cls, a_batch, n_batches = 1024, 768, 4096, 512, 8, 4
+    ada_w = str(root / "weights" / "adagml_aachen.msgpack")
+    ada = load_adagml(ada_w, AdaGMLConfig(), device=dev, dtype=bf16)
+    a_scene = make_synthetic_scene(
+        np.random.RandomState(0), n_cluster=a_cls, points_per_cluster=40, n_ref_frames=24,
+        desc_dim=128, width=a_w, height=a_h, max_kp_per_frame=2048, max_ref_points=4096,
+    )
+    qrng = np.random.RandomState(11)
+    a_queries = [
+        a_scene.render_query(qrng, noise_px=0.5, desc_noise=0.05, max_kpts=a_kpts)
+        for _ in range(a_batch * n_batches)
+    ]
+    a_batches = [a_queries[i * a_batch:(i + 1) * a_batch] for i in range(n_batches)]
+
+    def a_stack(qs, key, dtype=np.float32):
+        return torch.from_numpy(np.stack([q[key] for q in qs]).astype(dtype))
+
+    def a_inputs(qs, device):
+        """(camera, kpts, scores, descs, mask, logits) of queries qs on device;
+        the logits route by the ground truth: -10, and +10 at the true class."""
+        n = len(qs)
+        cls = np.stack([np.where(q["gt_seg"] >= 0, q["gt_seg"] + 1, 0) for q in qs])
+        logits = np.full((n, a_kpts, a_cls + 1), -10.0, np.float32)
+        np.put_along_axis(logits, cls[..., None], 10.0, axis=2)
+        cam = Camera(
+            torch.tensor([500.0, 500.0, a_w / 2, a_h / 2, 0, 0, 0, 0]).repeat(n, 1).to(device),
+            torch.tensor([float(a_w), float(a_h)]).repeat(n, 1).to(device),
+        )
+        return (cam, a_stack(qs, "keypoints").to(device), a_stack(qs, "scores").to(device),
+                a_stack(qs, "descriptors").to(device, bf16), a_stack(qs, "mask", bool).to(device),
+                torch.from_numpy(logits).to(device))
+
+    a_cfg = LocConfig(seg_k=1, min_inliers=32, threshold=8.0, num_hypotheses=128,
+                      do_refinement=True, gn_iters=5, lo_rounds=1)
+    ada_fn = make_adagml_match_fn(ada, ada.config.match_threshold)
+    a_loc = Localizer(to_device(a_scene.map, dev, desc_dtype=bf16), ada_fn, a_cfg)
+    log(f"Aachen scene: {a_scene.map.num_points} points, {a_scene.map.num_frames} frames of "
+        f"{a_scene.map.frame_kp_mask.shape[1]} keypoints, {a_scene.map.vrf_ref_point_idx.shape[1]} "
+        f"refinement points, n_class {a_scene.map.n_class}; {len(a_queries)} queries of {a_kpts} keypoints")
+    phase("aachen_setup", t)
+
+    # ---- 12. kernels 10-12 vs plain versions at the slice's shapes, on the
+    # matcher inputs of batch 0 (recorded on an uncounted run)
+    t = time.perf_counter()
+    ada_inputs = []
+
+    def recording_ada(*args):
+        ada_inputs.append(args)
+        return ada_fn(*args)
+
+    a_loc.match_fn = recording_ada
+    with torch.no_grad():
+        a_loc.localize_batch(torch.Generator().manual_seed(7), *a_inputs(a_batches[0], dev))
+    a_loc.match_fn = ada_fn
+    d0, nk0, _, m0, d1, nk1, _, m1 = ada_inputs[0]
+    n0, n1 = d0.shape[1], d1.shape[1]
+    heads = ada.config.num_heads
+    hd = ada.config.hidden_dim // heads
+    ascale = hd**-0.5
+    # masks with pruned, padded and fully masked tokens
+    km0, km1 = m0.clone(), m1.clone()
+    km0[0, ::7] = False
+    km0[1, 3 * n0 // 4:] = False
+    km0[-1] = False
+    km1[0, ::5] = False
+    km1[1, 3 * n1 // 4:] = False
+    km1[-2] = False
+
+    def rotated_heads(qkv, enc, n):
+        """q, k (rotated, rounded) and v ``[B, H, n, hd]`` of a packed qkv."""
+        t_ = qkv.reshape(a_batch, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        rot = (enc[0][:, None], enc[1][:, None])
+        q_ = attention.apply_rotary(rot, t_[0].float()).to(bf16).contiguous()
+        k_ = attention.apply_rotary(rot, t_[1].float()).to(bf16).contiguous()
+        return q_, k_, t_[2].contiguous()
+
+    with torch.no_grad():
+        x0 = d0 @ ada.input_proj.weight.T + ada.input_proj.bias
+        x1 = d1 @ ada.input_proj.weight.T + ada.input_proj.bias
+        enc0, enc1 = ada.poseenc(nk0), ada.poseenc(nk1)
+        sa = ada.self_attn[0]
+        wp, bp = attention_qkv.permute_qkv_kernel(sa.qkv.weight.T, sa.qkv.bias, heads, hd)
+        k10 = dict(err=0.0, ms=0.0, plain_ms=0.0, lib=0.0, bytes=0.0, ops=0.0)
+        for x, enc, km in ((x0, enc0, km0), (x1, enc1, km1)):
+            n = x.shape[1]
+            qkv = (x @ wp + bp).contiguous()
+            kb = attention.mask_to_bias(km, a_batch, n, dev)
+            s_args = (qkv, enc[0], enc[1], kb, ascale, heads)
+            msg, stat = attention_qkv.self_attention_qkv(*s_args, return_stats=True)
+            rmsg, rstat = attention_qkv.self_attention_qkv_plain(*s_args, return_stats=True)
+            err = check_scaled(f"self_attention_qkv messages ({a_batch} x {n} tokens)", msg, rmsg, ATTN_TOL)
+            check_scaled(f"self_attention_qkv statistics ({a_batch} x {n} tokens)", stat, rstat, STATS_TOL)
+            require(bool((stat[~km.any(-1)] == 0).all()), "a frame without valid queries gave mass")
+            q_, k_, v_ = rotated_heads(qkv, enc, n)
+            # library yardstick: one SDPA call on the rotated q, k and v with
+            # the key mask (the messages without the statistics)
+            side = dict(
+                lib=cuda_ms(torch, lambda: sdpa(q_, k_, v_, attn_mask=km[:, None, None, :], scale=ascale)),
+                ms=cuda_ms(torch, lambda: attention_qkv.self_attention_qkv(*s_args, return_stats=True)),
+                plain_ms=cuda_ms(
+                    torch, lambda: attention_qkv.self_attention_qkv_plain(*s_args, return_stats=True), iters=3),
+                no_stats_ms=cuda_ms(torch, lambda: attention_qkv.self_attention_qkv(*s_args)),
+            )
+            log(f"self_attention_qkv ({a_batch} x {n} tokens): {side['ms']:.4f} ms with statistics, "
+                f"{side['no_stats_ms']:.4f} ms without; plain {side['plain_ms']:.4f} ms; SDPA {side['lib']:.4f} ms")
+            for key in ("lib", "ms", "plain_ms"):
+                k10[key] += side[key]
+            k10["err"] = max(k10["err"], err)
+            tok = a_batch * n
+            # qkv, cos, sin, bias in; messages and statistics out
+            k10["bytes"] += tok * (768 * 2 + 2 * 64 * 4 + 4 + 256 * 2 + 4)
+            k10["ops"] += 4.0 * a_batch * heads * n * n * hd  # QK and PV
+        bnd, by = bound_ms(k10["bytes"], k10["ops"], BF16_TENSOR_FLOPS)
+        rows["self_attention_qkv"] = dict(
+            name="self_attention_qkv", route="cuda", source="pram_tpu_torch/csrc/attention_qkv.cu",
+            replaces="pram_tpu/ops/attention_pallas.py:349",
+            launches=None, max_abs_err=k10["err"], ms=k10["ms"], plain_ms=k10["plain_ms"],
+            bound_ms=bnd, bound_by=by, library_ms=k10["lib"],
+        )
+        log(f"self_attention_qkv, one layer's two sides ({a_batch} x {n0} and {a_batch} x {n1} tokens, "
+            f"statistics): {k10['ms']:.4f} ms")
+
+        # kernel 11 on layer 0's cross-attention input
+        nx0, _ = sa(x0, enc0, km0)
+        nx1, _ = sa(x1, enc1, km1)
+        ca = ada.cross_attn[0]
+        cat = torch.cat([nx0, nx1], 1)
+        qk = cat @ ca.to_qk.weight.T + ca.to_qk.bias
+        vv = cat @ ca.to_v.weight.T + ca.to_v.bias
+        kb0 = attention.mask_to_bias(km0, a_batch, n0, dev)
+        kb1 = attention.mask_to_bias(km1, a_batch, n1, dev)
+        c_args = (qk[:, :n0], qk[:, n0:], vv[:, :n0], vv[:, n0:], kb0, kb1, ascale, heads)
+        got = cross_attention.cross_attention_packed(*c_args, return_stats=True)
+        ref = cross_attention.cross_attention_packed_plain(*c_args, return_stats=True)
+        log(f"cross_attention_packed without statistics: "
+            f"{cuda_ms(torch, lambda: cross_attention.cross_attention_packed(*c_args)):.4f} ms")
+        err = max(check_scaled(f"cross_attention_packed m{i} ({a_batch} x {n0} x {n1})", got[i], ref[i], ATTN_TOL)
+                  for i in (0, 1))
+        for i in (2, 3):
+            check_scaled(f"cross_attention_packed stat{i - 2}", got[i], ref[i], STATS_TOL)
+        qh = qk.reshape(a_batch, n0 + n1, heads, hd).transpose(1, 2)
+        vh = vv.reshape(a_batch, n0 + n1, heads, hd).transpose(1, 2)
+        q0_, q1_ = qh[:, :, :n0].contiguous(), qh[:, :, n0:].contiguous()
+        v0_, v1_ = vh[:, :, :n0].contiguous(), vh[:, :, n0:].contiguous()
+
+        def two_sdpa():
+            sdpa(q0_, q1_, v1_, attn_mask=km1[:, None, None, :], scale=ascale)
+            sdpa(q1_, q0_, v0_, attn_mask=km0[:, None, None, :], scale=ascale)
+
+        tok = a_batch * (n0 + n1)
+        bnd, by = bound_ms(tok * (2 * 256 * 2 + 4 + 256 * 2 + 4),
+                           8.0 * a_batch * heads * n0 * n1 * hd, BF16_TENSOR_FLOPS)
+        rows["cross_attention_packed"] = dict(
+            name="cross_attention_packed", route="cuda",
+            source="pram_tpu_torch/csrc/cross_attention_packed.cu",
+            replaces="pram_tpu/ops/attention_pallas.py:647",
+            launches=None, max_abs_err=err,
+            ms=cuda_ms(torch, lambda: cross_attention.cross_attention_packed(*c_args, return_stats=True)),
+            plain_ms=cuda_ms(
+                torch, lambda: cross_attention.cross_attention_packed_plain(*c_args, return_stats=True), iters=3),
+            bound_ms=bnd, bound_by=by, library_ms=cuda_ms(torch, two_sdpa),
+        )
+
+        # kernel 12 at GML's splits, on the first slice's GML inputs
+        g0, gk0, _, gm0, g1, gk1, _, gm1 = matcher_inputs[0]
+        gn0, gn1 = g0.shape[1], g1.shape[1]
+        gx = gml.input_proj(torch.cat([g0, g1], 1))
+        gcos, gsin = gml.poseenc(torch.cat([gk0, gk1], 1))
+        gm = torch.cat([gm0, gm1], 1)
+        gb = gm.shape[0]
+        gwp, gbp = attention_qkv.permute_qkv_kernel(
+            gml.self_attn[0].qkv.weight.T, gml.self_attn[0].qkv.bias, heads, hd)
+        gqkv = (gx @ gwp + gbp).contiguous()
+        b_args = (gqkv, gcos, gsin, attention.mask_to_bias(gm, gb, gn0 + gn1, dev), gscale, heads)
+        gsplits = (gn0, gn1)
+        err = check_scaled(
+            f"self_attention_qkv_blocked (GML splits {gsplits})",
+            attention_qkv.self_attention_qkv(*b_args, splits=gsplits),
+            attention_qkv.self_attention_qkv_plain(*b_args, splits=gsplits), ATTN_TOL)
+        gq = gqkv.reshape(gb, gn0 + gn1, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        genc = (gcos[:, None], gsin[:, None])
+        gq_ = attention.apply_rotary(genc, gq[0].float()).to(bf16).contiguous()
+        gk_ = attention.apply_rotary(genc, gq[1].float()).to(bf16).contiguous()
+        gv_ = gq[2].contiguous()
+        gside = torch.arange(gn0 + gn1, device=dev) >= gn0
+        gmask = (gside[:, None] == gside[None, :])[None, None] & gm[:, None, None, :]
+        tok = gb * (gn0 + gn1)
+        bnd, by = bound_ms(tok * (768 * 2 + 2 * 64 * 4 + 4 + 256 * 2),
+                           4.0 * gb * heads * hd * (gn0 * gn0 + gn1 * gn1), BF16_TENSOR_FLOPS)
+        rows["self_attention_qkv_blocked"] = dict(
+            name="self_attention_qkv_blocked", route="cuda", source="pram_tpu_torch/csrc/attention_qkv.cu",
+            replaces="pram_tpu/ops/attention_pallas.py:189",
+            launches=None, max_abs_err=err,
+            ms=cuda_ms(torch, lambda: attention_qkv.self_attention_qkv(*b_args, splits=gsplits)),
+            plain_ms=cuda_ms(
+                torch, lambda: attention_qkv.self_attention_qkv_plain(*b_args, splits=gsplits), iters=5),
+            bound_ms=bnd, bound_by=by,
+            library_ms=cuda_ms(torch, lambda: sdpa(gq_, gk_, gv_, attn_mask=gmask, scale=gscale)),
+        )
+        del q_, k_, v_, q0_, q1_, v0_, v1_, got, ref, msg, rmsg, stat, rstat
+    phase("aachen_kernels", t)
+
+    # ---- 13. the AdaGML slice (the main path of this slice), counted
+    t = time.perf_counter()
+    reset_counts()
+    a_results = []
+    with torch.no_grad():
+        for i, qs in enumerate(a_batches):
+            a_results.append(a_loc.localize_batch(torch.Generator().manual_seed(7 + i), *a_inputs(qs, dev)))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    ada_launches = launches
+    log(f"AdaGML slice launches: {launches}")
+    for name in ("self_attention_qkv", "cross_attention_packed", "residual_mlp", "ransac_score",
+                 "gn_polish", "refine_nn"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the AdaGML slice")
+    for name in ("self_attention", "cross_attention", "sinkhorn", "self_attention_qkv_blocked",
+                 "fused_stem", "nms"):
+        require(launches[name] == 0, f"kernel {name} is not on the AdaGML slice but launched")
+
+    def aachen_outcome(qs, res):
+        """(successes within 25 cm / 2 deg, t_err, q_err, matched, precise, median reprojection px)."""
+        require(tuple(res.qvec.shape) == (len(qs), 4), "bad pose batch shape")
+        require(bool(torch.isfinite(res.tvec).all()), "non-finite poses")
+        q_err, t_err = compute_pose_error(res.qvec.cpu(), res.tvec.cpu(), a_stack(qs, "qvec"), a_stack(qs, "tvec"))
+        ok = res.success.cpu() & (t_err < 0.25) & (q_err < 2.0)
+        # match precision: assigned 3-D points reproject within 4 px of their
+        # keypoint through the true pose
+        kpi, kxyz = res.kpt_point_idx.cpu().numpy(), res.kpt_xyz.cpu().double().numpy()
+        R = qvec2rotmat(a_stack(qs, "qvec").double()).numpy()
+        matched = precise = 0
+        medians = []
+        for i, q in enumerate(qs):
+            sel = (kpi[i] >= 0) & q["mask"]
+            if not sel.any():
+                continue
+            xc = kxyz[i][sel] @ R[i].T + np.asarray(q["tvec"], np.float64)
+            z = np.clip(xc[:, 2], 1e-6, None)
+            uv = np.stack([xc[:, 0] / z * 500.0 + a_w / 2, xc[:, 1] / z * 500.0 + a_h / 2], -1)
+            e = np.linalg.norm(uv - q["keypoints"][sel], axis=-1)
+            matched += int(sel.sum())
+            precise += int((e < 4.0).sum())
+            medians.append(float(np.median(e)))
+        return int(ok.sum()), t_err, q_err, matched, precise, medians
+
+    outs = [aachen_outcome(qs, res) for qs, res in zip(a_batches, a_results)]
+    n_q = a_batch * n_batches
+    a_recall = sum(o[0] for o in outs) / n_q
+    t_all = torch.cat([o[1] for o in outs])
+    q_all = torch.cat([o[2] for o in outs])
+    precision = sum(o[4] for o in outs) / max(sum(o[3] for o in outs), 1)
+    log(f"AdaGML slice on card: recall@25cm/2deg {a_recall:.4f} over {n_q} queries, match precision "
+        f"{precision:.4f} ({sum(o[3] for o in outs) / n_q:.1f} matches a query), median t_err "
+        f"{t_all.median().item():.5f} m, median q_err {q_all.median().item():.4f} deg, median reprojection "
+        f"{float(np.median(sum((o[5] for o in outs), []))):.3f} px")
+    require(a_recall >= ADA_RECALL_MIN, f"AdaGML slice recall@25cm/2deg below {ADA_RECALL_MIN}")
+
+    # queries/s: 5 batches of 8 after a warm-up, median; the matcher split
+    # out with CUDA events around its calls
+    m_events = []
+
+    def timed_ada(*args):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = ada_fn(*args)
+        e1.record()
+        m_events.append((e0, e1))
+        return out
+
+    a_loc.match_fn = timed_ada
+    timed = []
+    with torch.no_grad():
+        for i in range(6):
+            args_i = a_inputs(a_batches[i % n_batches], dev)
+            t_b = sync(dev)
+            a_loc.localize_batch(torch.Generator().manual_seed(7), *args_i)
+            timed.append(sync(dev) - t_b)
+    a_loc.match_fn = ada_fn
+    match_ms = sorted(e0.elapsed_time(e1) for e0, e1 in m_events[1:])[2]
+    a_batch_s = sorted(timed[1:])[2]
+    log(f"AdaGML slice: batch {a_batch} in {a_batch_s * 1e3:.2f} ms (median of 5, host clock, synchronized) "
+        f"= {a_batch / a_batch_s:.2f} queries/s; AdaGML matching {match_ms:.2f} ms (CUDA events, median), "
+        f"the rest of localization {a_batch_s * 1e3 - match_ms:.2f} ms")
+
+    # matcher A/B on batch 0: kernel path vs plain path, early exit vs unrolled
+    with torch.no_grad():
+        m_args = (d0, d1, nk0, nk1, m0, m1)
+        out_k = adagml_batched_adaptive_apply(ada, *m_args)
+        full = ada(*m_args)
+        ada.use_kernels = False
+        out_p = adagml_batched_adaptive_apply(ada, *m_args)
+        ada.use_kernels = True
+    mk = mutual_matches(out_k["plan"], ada.config.match_threshold).matches0
+    mp = mutual_matches(out_p["plan"], ada.config.match_threshold).matches0
+    agree = (mk == mp)[m0].float().mean().item()
+    log(f"AdaGML A/B on batch 0 (bf16, kernel path vs plain path, {n0} x {n1} tokens): match agreement "
+        f"{agree:.5f} (min {ADA_AB_AGREE}), matches {int((mk[m0] >= 0).sum())} vs {int((mp[m0] >= 0).sum())}, "
+        f"plan max abs diff {(out_k['plan'] - out_p['plan']).abs().max().item():.5f}, stop layers "
+        f"{out_k['stop_layer'].tolist()} vs {out_p['stop_layer'].tolist()}, tokens whose mask differs "
+        f"{int((out_k['mask0'] != out_p['mask0']).sum() + (out_k['mask1'] != out_p['mask1']).sum())}, alive "
+        f"after pruning {out_k['mask0'].float().mean().item():.3f} / {out_k['mask1'].float().mean().item():.3f}")
+    require(agree >= ADA_AB_AGREE, "AdaGML kernel path disagrees with its plain path")
+    exit_diff = (out_k["plan"] - full["plan"]).abs().max().item()
+    log(f"AdaGML early exit vs unrolled (bf16, kernel path): stop layers {full['stop_layer'].tolist()}, "
+        f"plan max abs diff {exit_diff:.3e}")
+    require(torch.equal(out_k["stop_layer"], full["stop_layer"]), "early exit stops elsewhere than unrolled")
+    require(torch.equal(out_k["mask0"], full["mask0"]) and torch.equal(out_k["mask1"], full["mask1"]),
+            "early exit prunes otherwise than unrolled")
+    require(torch.allclose(out_k["plan"], full["plan"], rtol=ADA_EXIT_RTOL, atol=ADA_EXIT_ATOL),
+            "early exit plan differs from unrolled")
+    del full, out_k, out_p
+
+    ada32 = load_adagml(ada_w, AdaGMLConfig(), device=dev, dtype=torch.float32)
+    with torch.no_grad():
+        m32 = (d0.float(), d1.float(), nk0, nk1, m0, m1)
+        o32 = adagml_batched_adaptive_apply(ada32, *m32)
+        ada32.use_kernels = False
+        p32 = adagml_batched_adaptive_apply(ada32, *m32)
+    diff32 = int((o32["mask0"] != p32["mask0"]).sum() + (o32["mask1"] != p32["mask1"]).sum())
+    log(f"AdaGML A/B on batch 0 (f32, TF32 off, kernel path vs plain path): stop layers "
+        f"{o32['stop_layer'].tolist()} vs {p32['stop_layer'].tolist()}, tokens whose mask differs {diff32}, "
+        f"plan max abs diff {(o32['plan'] - p32['plan']).abs().max().item():.3e}")
+    require(torch.equal(o32["stop_layer"], p32["stop_layer"]) and diff32 == 0,
+            "AdaGML f32 kernel path prunes or stops otherwise than its plain path")
+    del ada32, o32, p32
+
+    # the first 2 queries on the card and on the card machine's CPU (plain
+    # versions), the same RANSAC triplets (drawn on the CPU from one seed)
+    sub = a_batches[0][:2]
+    found = {"card": [], "cpu": []}
+
+    def recording(fn, store):
+        def wrapped(*args):
+            store.append(fn(*args))
+            return store[-1]
+        return wrapped
+
+    with torch.no_grad():
+        a_loc.match_fn = recording(ada_fn, found["card"])
+        res_g = a_loc.localize_batch(torch.Generator().manual_seed(3), *a_inputs(sub, dev))
+        a_loc.match_fn = ada_fn
+        t_cpu = time.perf_counter()
+        ada_cpu = load_adagml(ada_w, AdaGMLConfig(), device="cpu", dtype=bf16)
+        cpu_fn = recording(make_adagml_match_fn(ada_cpu, ada_cpu.config.match_threshold), found["cpu"])
+        res_c = Localizer(to_device(a_scene.map, "cpu", desc_dtype=bf16), cpu_fn, a_cfg).localize_batch(
+            torch.Generator().manual_seed(3), *a_inputs(sub, "cpu"))
+    log(f"AdaGML slice on the CPU: {len(sub)} queries in {time.perf_counter() - t_cpu:.1f} s")
+    both = res_g.success.cpu() & res_c.success
+    dq, dt = compute_pose_error(res_g.qvec.cpu(), res_g.tvec.cpu(), res_c.qvec, res_c.tvec)
+    sub_mask = a_stack(sub, "mask", bool)
+    m_card, m_cpu = found["card"][0].cpu(), found["cpu"][0]
+    log(f"AdaGML slice card vs CPU: matches differ on {int((m_card != m_cpu)[sub_mask].sum())} of "
+        f"{int(sub_mask.sum())} valid query keypoints ({int((m_card[sub_mask] >= 0).sum())} vs "
+        f"{int((m_cpu[sub_mask] >= 0).sum())} matches); success card {res_g.success.tolist()} cpu "
+        f"{res_c.success.tolist()}, pose diff max {dq[both].max().item():.4f} deg, "
+        f"{dt[both].max().item():.5f} m; inliers {res_g.num_inliers.tolist()} vs {res_c.num_inliers.tolist()}")
+    require(bool(torch.equal(res_g.success.cpu(), res_c.success)), "AdaGML slice: success differs card vs CPU")
+    require(bool((dq[both] < SLICE_R_TOL_DEG).all() and (dt[both] < SLICE_T_TOL).all()),
+            "AdaGML slice: pose differs card vs CPU")
+    del ada_cpu
+    phase("aachen_slice", t)
 
     table = []
     for name in ("self_attention", "residual_mlp", "ransac_score", "gn_polish",
-                 "cross_attention", "sinkhorn", "refine_nn", "fused_stem", "nms"):
+                 "cross_attention", "sinkhorn", "refine_nn", "fused_stem", "nms",
+                 "self_attention_qkv", "cross_attention_packed", "self_attention_qkv_blocked"):
         r = rows[name]
-        # kernels 1-7 counted on the GML slice, 8-9 on the image slice
-        r["launches"] = (launches if name in ("fused_stem", "nms") else gml_launches)[name]
+        # kernels 1-7 counted on the GML slice, 8-9 on the image slice, 10-12
+        # on the AdaGML slice (12 is on no path)
+        if name in gml_kernels:
+            r["launches"] = gml_launches[name]
+        elif name in ("fused_stem", "nms"):
+            r["launches"] = image_launches[name]
+        else:
+            r["launches"] = ada_launches[name]
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"{name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {r['launches']} launches")

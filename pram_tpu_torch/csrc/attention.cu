@@ -68,11 +68,6 @@ constexpr size_t SMEM_BYTES =
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int MAX_SPLITS = 8;
-struct Splits {  // side boundaries: side s is tokens [edge[s], edge[s + 1])
-  int n;
-  int edge[MAX_SPLITS + 1];
-};
 
 // copy `rows` rows of DIN bf16 (global row stride src_ld elements) into smem
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
@@ -146,7 +141,7 @@ self_attention_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                       const float* __restrict__ sin,
                       const float* __restrict__ key_bias,
                       bf16* __restrict__ out, int N, int heads, float scale,
-                      Splits sp) {
+                      tile::Sides sp) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ws0 = reinterpret_cast<bf16*>(smem);
   bf16* Ws1 = Ws0 + HD * LDX;
@@ -161,12 +156,8 @@ self_attention_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
-  int lo = 0, hi = N;  // keys of the side this query tile lies in
-  for (int s = 0; s < sp.n; ++s)
-    if (q0 >= sp.edge[s] && q0 < sp.edge[s + 1]) {
-      lo = sp.edge[s];
-      hi = sp.edge[s + 1];
-    }
+  int lo, hi;  // keys of the side this query tile lies in
+  sp.find(q0, lo, hi);
   const int d_model = heads * HD;
   const bf16* xb = x + (size_t)b * N * DIN;
   const float* cosb = cos + (size_t)b * N * HD;
@@ -233,9 +224,9 @@ extern "C" int pram_self_attention(const void* x, const void* w_qkv,
   // splits: n_splits side lengths (host memory), each a multiple of QT and
   // summing to N; one side of N tokens is plain self-attention
   if (N % QT != 0 || heads * HD != DIN || n_splits < 1 ||
-      n_splits > MAX_SPLITS)
+      n_splits > tile::MAX_SIDES)
     return (int)cudaErrorInvalidValue;
-  Splits sp;
+  tile::Sides sp;
   sp.n = n_splits;
   sp.edge[0] = 0;
   for (int s = 0; s < sp.n; ++s) {

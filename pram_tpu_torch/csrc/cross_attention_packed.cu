@@ -1,0 +1,172 @@
+// Symmetric shared-QK cross-attention on packed projections with, optionally,
+// AdaGML's per-token received-attention statistics, for Hopper.
+//
+// Replaces pram_tpu/ops/attention_pallas.py:fused_cross_attention_packed
+// (both regimes: _cross_packed_kernel up to 1024 tokens a side, and
+// _cross_attention_dir / _cross_dir_kernel once per direction above). The
+// to_qk and to_v projections stay outside, as in the JAX package
+// (pram_tpu/models/adagml.py:_CrossAttnStats). Side 0 (qk0, v0, N tokens)
+// and side 1 (qk1, v1, M tokens) share to_qk: side 0's queries attend to
+// side 1's keys (masked by bias1) and side 1's to side 0's (bias0), so the
+// similarity is computed once per direction, as the TPU kernels do.
+//
+// Two launches on one stream:
+//   1. message_kernel: one block per (frame, head, 128 queries of either
+//      side), attention_stats.cuh:message_block over the other side's keys;
+//      both directions in one grid.
+//   2. stats_kernel (with statistics only): one block per (frame, 64 keys of
+//      either side), attention_stats.cuh:stats_block over the other side's
+//      queries. stat0 is the mass side 0's keys receive from side 1's valid
+//      queries (validity from bias1), stat1 the mirror.
+//
+// What bounds it: at the Aachen shape (8 frames, 4096 x 2048 tokens, 4 heads
+// of 64) the two directions' QK and PV products are 137 GFLOP and the
+// statistics' QK products another 69 GFLOP, against ~75 MB in and out: the
+// tensor cores bound it. Scores never reach device memory. Products are
+// bf16 WMMA tiles (16x16x16, f32 accumulate); wgmma and TMA are the next step.
+//
+// Rounding follows _attn_weights: logits qk_q . qk_k * scale + bias in f32,
+// the weights rounded to T for P @ V, 1/sum folded into the f32 output,
+// which is rounded to T; an all-masked key side gives the mean of v. The
+// statistics use the normalized f32 weights.
+//
+// Layouts: qk0, v0 [B, N, 256] and qk1, v1 [B, M, 256] of element type T
+// with row stride 256 and the given frame strides (the tensors may be views
+// into one [B, N + M, 256] projection); bias0 [B, N], bias1 [B, M] f32;
+// m0 [B, N, 256], m1 [B, M, 256] T (contiguous); stat0 [B, N], stat1
+// [B, M] f32. T is bf16, or float for the f32 checks.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "attention_stats.cuh"
+
+namespace {
+
+using pass::HD;
+typedef __nv_bfloat16 bf16;
+
+constexpr int D = 256;  // heads * HD
+
+template <typename T>
+struct Side {  // one side's tensors; frame strides in elements
+  const T* qk;
+  const T* v;
+  size_t qk_stride, v_stride;
+  const float* bias;
+  T* msg;
+  float* stat;
+  int n;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(pass::NTHREADS, 1)
+message_kernel(Side<T> s0, Side<T> s1, float* __restrict__ rows, int heads,
+               float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tiles0 = s0.n / pass::QT;
+  const bool dir1 = (int)blockIdx.x >= tiles0;  // queries of side 1
+  const Side<T>& q = dir1 ? s1 : s0;
+  const Side<T>& k = dir1 ? s0 : s1;
+  const int q0 = (dir1 ? (int)blockIdx.x - tiles0 : (int)blockIdx.x) * pass::QT;
+  const int h = blockIdx.y, b = blockIdx.z, B = gridDim.z;
+  const int nt = s0.n + s1.n;
+  float* row_m = nullptr;
+  float* row_w = nullptr;
+  if (rows != nullptr) {  // [2][B][heads][N + M]: side 0's rows, then side 1's
+    row_m = rows + ((size_t)b * heads + h) * nt + (dir1 ? s0.n : 0) + q0;
+    row_w = row_m + (size_t)B * heads * nt;
+  }
+  pass::message_block<T>(
+      q.qk + b * q.qk_stride + (size_t)q0 * D + h * HD, D,
+      k.qk + b * k.qk_stride + h * HD, D, k.v + b * k.v_stride + h * HD, D,
+      k.bias + (size_t)b * k.n, 0, k.n, scale,
+      q.msg + ((size_t)b * q.n + q0) * D + h * HD, D,
+      q.bias + (size_t)b * q.n + q0, row_m, row_w, smem);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(pass::STHREADS)
+stats_kernel(Side<T> s0, Side<T> s1, const float* __restrict__ rows,
+             int heads, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tiles0 = s0.n / pass::SK;
+  const bool side1 = (int)blockIdx.x >= tiles0;  // keys of side 1
+  const Side<T>& k = side1 ? s1 : s0;
+  const Side<T>& q = side1 ? s0 : s1;
+  const int k0 = (side1 ? (int)blockIdx.x - tiles0 : (int)blockIdx.x) * pass::SK;
+  const int b = blockIdx.y, B = gridDim.y;
+  const int nt = s0.n + s1.n;
+  // the query side's rows of pass 1
+  const float* row_m = rows + (size_t)b * heads * nt + (side1 ? 0 : s0.n);
+  const float* row_w = row_m + (size_t)B * heads * nt;
+  pass::stats_block<T>(q.qk + b * q.qk_stride, D,
+                       k.qk + b * k.qk_stride + (size_t)k0 * D, D,
+                       k.bias + (size_t)b * k.n + k0, row_m, row_w, nt, 0,
+                       q.n, heads, scale, k.stat + (size_t)b * k.n + k0, smem);
+}
+
+template <typename T>
+int launch(Side<T> s0, Side<T> s1, float* rows, int B, int heads,
+           float scale, cudaStream_t stream) {
+  if (heads * HD != D || s0.n <= 0 || s1.n <= 0 || s0.n % pass::QT ||
+      s1.n % pass::QT)
+    return (int)cudaErrorInvalidValue;
+  const bool with_stats = s0.stat != nullptr;
+  constexpr size_t msg_smem = pass::message_smem<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      message_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)msg_smem);
+  if (err != cudaSuccess) return (int)err;
+  message_kernel<T><<<dim3((s0.n + s1.n) / pass::QT, heads, B),
+                      pass::NTHREADS, msg_smem, stream>>>(
+      s0, s1, with_stats ? rows : nullptr, heads, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !with_stats) return (int)err;
+
+  constexpr size_t st_smem = pass::stats_smem<T>();
+  err = cudaFuncSetAttribute(stats_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)st_smem);
+  if (err != cudaSuccess) return (int)err;
+  stats_kernel<T><<<dim3((s0.n + s1.n) / pass::SK, B), pass::STHREADS,
+                    st_smem, stream>>>(s0, s1, rows, heads, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_typed(const void* qk0, const void* qk1, const void* v0,
+                 const void* v1, long long qk0_stride, long long qk1_stride,
+                 long long v0_stride, long long v1_stride, const void* bias0,
+                 const void* bias1, void* m0, void* m1, void* rows,
+                 void* stat0, void* stat1, int B, int N, int M, int heads,
+                 float scale, cudaStream_t stream) {
+  Side<T> s0{(const T*)qk0, (const T*)v0, (size_t)qk0_stride,
+             (size_t)v0_stride, (const float*)bias0, (T*)m0, (float*)stat0, N};
+  Side<T> s1{(const T*)qk1, (const T*)v1, (size_t)qk1_stride,
+             (size_t)v1_stride, (const float*)bias1, (T*)m1, (float*)stat1, M};
+  return launch<T>(s0, s1, (float*)rows, B, heads, scale, stream);
+}
+
+}  // namespace
+
+// rows: scratch f32 [2, B, heads, N + M] (only read and written with
+// statistics); stat0, stat1: f32 [B, N], [B, M], or both null for no
+// statistics. is_f32 selects float over bf16.
+extern "C" int pram_cross_attention_packed(
+    const void* qk0, const void* qk1, const void* v0, const void* v1,
+    long long qk0_stride, long long qk1_stride, long long v0_stride,
+    long long v1_stride, const void* bias0, const void* bias1, void* m0,
+    void* m1, void* rows, void* stat0, void* stat1, int B, int N, int M,
+    int heads, float scale, int is_f32, void* stream) {
+  auto s = (cudaStream_t)stream;
+  if (is_f32)
+    return launch_typed<float>(qk0, qk1, v0, v1, qk0_stride, qk1_stride,
+                               v0_stride, v1_stride, bias0, bias1, m0, m1,
+                               rows, stat0, stat1, B, N, M, heads, scale, s);
+  return launch_typed<bf16>(qk0, qk1, v0, v1, qk0_stride, qk1_stride,
+                            v0_stride, v1_stride, bias0, bias1, m0, m1, rows,
+                            stat0, stat1, B, N, M, heads, scale, s);
+}

@@ -1,6 +1,8 @@
 // Residual concat-MLP for Hopper:
 //   y = x + W3 gelu_erf(LN(W0 [x, Wp msg + bp] + b0)) + b3
-// (bf16 in and out, f32 accumulation, f32 LayerNorm and GELU).
+// (bf16 in and out, f32 accumulation, f32 LayerNorm and GELU; a float
+// instantiation, products on the CUDA cores, serves the f32 A/B checks of
+// the matcher).
 //
 // Replaces pram_tpu/ops/mlp_pallas.py:fused_residual_mlp (_mlp_kernel).
 //
@@ -23,8 +25,9 @@
 // bf16 and added to x in bf16.
 //
 // Layouts (torch Linear, [out, in]): wp [256, 256], w0 [512, 512] whose
-// input columns are [x (256) | proj(msg) (256)], w3 [256, 512], all bf16;
-// biases and LayerNorm weight/bias f32. x, msg, out [tokens, 256] bf16.
+// input columns are [x (256) | proj(msg) (256)], w3 [256, 512], all of the
+// element type E (bf16, or float); biases and LayerNorm weight/bias f32.
+// x, msg, out [tokens, 256] E. With E = float every rounding to E is exact.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,17 +44,25 @@ constexpr int DH = 512;      // hidden width
 constexpr int T = 32;        // tokens per block
 constexpr int NWARP = 8;
 constexpr int NTHREADS = NWARP * 32;
-constexpr int LDA = D + 8;   // bf16 stride of x / msg tiles
-constexpr int LDY = DH + 8;  // bf16 stride of the GELU tile
 constexpr int LDC = DH + 4;  // f32 stride of the accumulator tile
 
-constexpr size_t XS_BYTES = (size_t)T * LDA * 2;
-constexpr size_t MS_BYTES = XS_BYTES;
-constexpr size_t CF_BYTES = (size_t)T * LDC * 4;
-constexpr size_t YS_BYTES = (size_t)T * LDY * 2;
-constexpr size_t SMEM_BYTES = XS_BYTES + MS_BYTES + CF_BYTES + YS_BYTES;
-
 typedef __nv_bfloat16 bf16;
+
+template <typename E> struct Tiles;  // strides of the E tiles: x / msg, GELU
+template <> struct Tiles<bf16> { static constexpr int LDA = D + 8, LDY = DH + 8; };
+template <> struct Tiles<float> { static constexpr int LDA = D + 4, LDY = DH + 4; };
+
+template <typename E>
+constexpr size_t smem_bytes() {
+  return (2ull * T * Tiles<E>::LDA + (size_t)T * Tiles<E>::LDY) * sizeof(E) +
+         (size_t)T * LDC * sizeof(float);
+}
+
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+template <typename E> __device__ __forceinline__ E from_f32(float v);
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16(v); }
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 
 // C[T x n_out] (f32, ld LDC) = [A0 | A1] @ W^T, W global [n_out, k_total]
 // bf16; A0 covers input columns [0, k0) (ld lda0), A1 the rest (ld lda1).
@@ -82,28 +93,56 @@ __device__ __forceinline__ void block_gemm(const bf16* A0, int lda0, int k0,
   }
 }
 
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src) {
-  constexpr int VEC = D / 8;
+// The same product in f32 on the CUDA cores: one thread per output column,
+// its T accumulators in registers, W's row read through L1.
+__device__ __forceinline__ void block_gemm(const float* A0, int lda0, int k0,
+                                           const float* A1, int lda1,
+                                           const float* __restrict__ W,
+                                           int k_total, int n_out, float* C) {
+  for (int c = threadIdx.x; c < n_out; c += NTHREADS) {
+    float acc[T];
+#pragma unroll
+    for (int r = 0; r < T; ++r) acc[r] = 0.f;
+    const float* wrow = W + (size_t)c * k_total;
+    for (int k = 0; k < k_total; ++k) {
+      const float w = __ldg(wrow + k);
+      const float* A = k < k0 ? A0 + k : A1 + (k - k0);
+      const int lda = k < k0 ? lda0 : lda1;
+#pragma unroll
+      for (int r = 0; r < T; ++r) acc[r] = fmaf(A[r * lda], w, acc[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < T; ++r) C[r * LDC + c] = acc[r];
+  }
+}
+
+template <typename E>
+__device__ __forceinline__ void load_tile(E* dst, const E* src) {
+  constexpr int PER = 16 / sizeof(E);  // elements per 16-byte vector
+  constexpr int VEC = D / PER;
+  constexpr int LDA = Tiles<E>::LDA;
   for (int v = threadIdx.x; v < T * VEC; v += NTHREADS) {
-    int r = v / VEC, c = (v % VEC) * 8;
+    int r = v / VEC, c = (v % VEC) * PER;
     *reinterpret_cast<uint4*>(dst + r * LDA + c) =
         *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
   }
 }
 
+template <typename E>
 __global__ void __launch_bounds__(NTHREADS, 1)
-residual_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ msg,
-                    const bf16* __restrict__ wp, const float* __restrict__ bp,
-                    const bf16* __restrict__ w0, const float* __restrict__ b0,
+residual_mlp_kernel(const E* __restrict__ x, const E* __restrict__ msg,
+                    const E* __restrict__ wp, const float* __restrict__ bp,
+                    const E* __restrict__ w0, const float* __restrict__ b0,
                     const float* __restrict__ ln_w,
                     const float* __restrict__ ln_b,
-                    const bf16* __restrict__ w3, const float* __restrict__ b3,
-                    bf16* __restrict__ out, float eps) {
+                    const E* __restrict__ w3, const float* __restrict__ b3,
+                    E* __restrict__ out, float eps) {
+  constexpr int LDA = Tiles<E>::LDA, LDY = Tiles<E>::LDY;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem);
-  bf16* Ms = reinterpret_cast<bf16*>(smem + XS_BYTES);
-  float* Cf = reinterpret_cast<float*>(smem + XS_BYTES + MS_BYTES);
-  bf16* Ys = reinterpret_cast<bf16*>(smem + XS_BYTES + MS_BYTES + CF_BYTES);
+  E* Xs = reinterpret_cast<E*>(smem);
+  E* Ms = Xs + T * LDA;
+  E* Ys = Ms + T * LDA;
+  float* Cf = reinterpret_cast<float*>(Ys + T * LDY);
   const size_t row0 = (size_t)blockIdx.x * T;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
@@ -116,7 +155,7 @@ residual_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ msg,
   __syncthreads();
   for (int i = threadIdx.x; i < T * D; i += NTHREADS) {
     int r = i / D, c = i % D;
-    Ms[r * LDA + c] = __float2bfloat16(Cf[r * LDC + c] + bp[c]);
+    Ms[r * LDA + c] = from_f32<E>(Cf[r * LDC + c] + bp[c]);
   }
   __syncthreads();
 
@@ -152,7 +191,7 @@ residual_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ msg,
       int c = lane + 32 * j;
       float hn = v[j] * inv * ln_w[c] + ln_b[c];
       float g = hn * 0.5f * (1.f + erff(hn * 0.70710678118654752f));
-      Ys[r * LDY + c] = __float2bfloat16(g);
+      Ys[r * LDY + c] = from_f32<E>(g);
     }
   }
   __syncthreads();
@@ -162,29 +201,44 @@ residual_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ msg,
   __syncthreads();
   for (int i = threadIdx.x; i < T * D; i += NTHREADS) {
     int r = i / D, c = i % D;
-    float o = __bfloat162float(__float2bfloat16(Cf[r * LDC + c] + b3[c]));
-    float xr = __bfloat162float(Xs[r * LDA + c]);
-    out[(row0 + r) * D + c] = __float2bfloat16(xr + o);
+    float o = to_f32(from_f32<E>(Cf[r * LDC + c] + b3[c]));
+    float xr = to_f32(Xs[r * LDA + c]);
+    out[(row0 + r) * D + c] = from_f32<E>(xr + o);
   }
+}
+
+template <typename E>
+int launch(const void* x, const void* msg, const void* wp, const void* bp,
+           const void* w0, const void* b0, const void* ln_w, const void* ln_b,
+           const void* w3, const void* b3, void* out, int tokens, float eps,
+           cudaStream_t stream) {
+  if (tokens % T != 0) return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = smem_bytes<E>();
+  cudaError_t err = cudaFuncSetAttribute(
+      residual_mlp_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  residual_mlp_kernel<E><<<tokens / T, NTHREADS, smem, stream>>>(
+      (const E*)x, (const E*)msg, (const E*)wp, (const float*)bp,
+      (const E*)w0, (const float*)b0, (const float*)ln_w, (const float*)ln_b,
+      (const E*)w3, (const float*)b3, (E*)out, eps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// is_f32 selects float over bf16 for x, msg, the weights and out
 extern "C" int pram_residual_mlp(const void* x, const void* msg,
                                  const void* wp, const void* bp,
                                  const void* w0, const void* b0,
                                  const void* ln_w, const void* ln_b,
                                  const void* w3, const void* b3, void* out,
-                                 int tokens, float eps, void* stream) {
-  if (tokens % T != 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      residual_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  residual_mlp_kernel<<<tokens / T, NTHREADS, SMEM_BYTES,
-                        (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)msg, (const bf16*)wp, (const float*)bp,
-      (const bf16*)w0, (const float*)b0, (const float*)ln_w,
-      (const float*)ln_b, (const bf16*)w3, (const float*)b3, (bf16*)out, eps);
-  return (int)cudaGetLastError();
+                                 int tokens, float eps, int is_f32,
+                                 void* stream) {
+  auto s = (cudaStream_t)stream;
+  if (is_f32)
+    return launch<float>(x, msg, wp, bp, w0, b0, ln_w, ln_b, w3, b3, out,
+                         tokens, eps, s);
+  return launch<bf16>(x, msg, wp, bp, w0, b0, ln_w, ln_b, w3, b3, out, tokens,
+                      eps, s);
 }

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from pram_tpu_torch.io.flax_msgpack import read_flax_msgpack
+from pram_tpu_torch.models.adagml import AdaGML, AdaGMLConfig
 from pram_tpu_torch.models.gml import GML, GMLConfig
 from pram_tpu_torch.models.segnetvit import SegNetViT, SegNetViTConfig
 from pram_tpu_torch.models.sfd2 import ResNet4x
@@ -121,6 +122,50 @@ def load_gml(
     tree = read_flax_msgpack(path)
     sd = gml_state_dict(tree.get("params", tree), config.n_layers)
     model = GML(config)
+    model.load_state_dict(sd, strict=True)
+    return model.to(device=device, dtype=dtype).eval()
+
+
+def adagml_state_dict(params: dict, n_layers: int) -> Dict[str, torch.Tensor]:
+    """AdaGML flax params -> AdaGML state dict for its first ``n_layers`` layers.
+
+    ``self_attn_<i>``, ``cross_attn_<i>``, ``pooling_<i>`` and ``out_proj_<i>``
+    become ``self_attn.<i>`` and so on; the scalar ``bin_score`` is kept as
+    is. The qkv columns keep their ``(head, head_dim, 3)`` order, which
+    ``ops/attention_qkv.py:permute_qkv_kernel`` reorders at the call.
+    """
+    params = dict(params)
+    if "bin_score" not in params:
+        raise ValueError("AdaGML params have no bin_score")
+    bin_score = np.asarray(params.pop("bin_score"), np.float32).reshape(())
+    layered = ("self_attn", "cross_attn", "pooling", "out_proj")
+    pattern = r"^(%s)_(\d+)\." % "|".join(layered)
+    sd = {re.sub(pattern, r"\1.\2.", k): v for k, v in flax_to_state_dict(params).items()}
+    have = len({k.split(".")[1] for k in sd if k.startswith("self_attn.")})
+    if have < n_layers:
+        raise ValueError(f"AdaGML params have {have} layers, config wants {n_layers}")
+    sd = {
+        k: v for k, v in sd.items()
+        if k.split(".")[0] not in layered or int(k.split(".")[1]) < n_layers
+    }
+    sd["bin_score"] = torch.from_numpy(bin_score.copy())
+    return sd
+
+
+def load_adagml(
+    path: str, config: AdaGMLConfig = AdaGMLConfig(), device="cuda", dtype=torch.float32
+) -> AdaGML:
+    """AdaGML with weights from a flax msgpack file (random-free).
+
+    With ``config.n_layers`` below the checkpoint's, the first layers are
+    kept. In bf16 every parameter is rounded to bf16, ``bin_score`` and the
+    Fourier encoding's ``Wr`` included, as ``bench.py:cast_tree`` casts every
+    f32 leaf; the encoding, the pooling heads' f32 parts and Sinkhorn then
+    compute in f32 from the rounded values, as flax promotes them.
+    """
+    tree = read_flax_msgpack(path)
+    sd = adagml_state_dict(tree.get("params", tree), config.n_layers)
+    model = AdaGML(config)
     model.load_state_dict(sd, strict=True)
     return model.to(device=device, dtype=dtype).eval()
 

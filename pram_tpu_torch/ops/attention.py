@@ -92,19 +92,28 @@ def self_attention_plain(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads, spli
     return out.permute(0, 2, 1, 3).reshape(b, n, d)
 
 
-def attend_plain(q, k, v, key_bias, scale):
-    """Masked softmax attention ``[B, H, Nq, hd]`` in v's dtype.
+def attend_plain(q, k, v, key_bias, scale, query_bias=None):
+    """Masked softmax attention ``[B, (H,) Nq, hd]`` in v's dtype.
 
-    Logits ``q k^T * scale + key_bias`` in f32; the max-subtracted weights
-    are rounded to v's dtype for the product with v and the f32 1/sum is
-    folded into the output (``_attn_weights`` of the TPU kernels), so an
-    all-masked key row gives the mean of v.
+    Logits ``q k^T * scale + key_bias`` in f32 (key_bias ``[B, Nk]``); the
+    max-subtracted weights are rounded to v's dtype for the product with v
+    and the f32 1/sum is folded into the output (``_attn_weights`` of the
+    TPU kernels), so an all-masked key row gives the mean of v. With
+    ``query_bias [B, Nq]`` it also returns the per-key statistic
+    ``[B, (H,) Nk]`` f32: the normalized f32 weights summed over the
+    queries whose bias is above -0.5 (AdaGML's received attention).
     """
+    lead = (key_bias.shape[0],) + (1,) * (q.dim() - 2)
     logits = (q.float() @ k.float().transpose(-1, -2)) * scale
-    logits = logits + key_bias[:, None, None, :].float()
+    logits = logits + key_bias.float().reshape(*lead, key_bias.shape[-1])
     e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    del logits
     r = 1.0 / e.sum(dim=-1, keepdim=True)
-    return ((e.to(v.dtype).float() @ v.float()) * r).to(v.dtype)
+    msg = ((e.to(v.dtype).float() @ v.float()) * r).to(v.dtype)
+    if query_bias is None:
+        return msg
+    valid = (query_bias > -0.5).to(torch.float32).reshape(*lead[:-1], query_bias.shape[-1], 1)
+    return msg, ((e * r) * valid).sum(dim=-2)
 
 
 def self_attention(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads, splits=None):

@@ -8,6 +8,13 @@ side 1's keys (masked by ``bias1``) and side 1's to side 0's (``bias0``).
 A CPU tensor takes :func:`cross_attention_plain`; a CUDA tensor launches
 ``csrc/cross_attention.cu`` or raises. Weights are in torch ``Linear``
 layout (``[out, in]``).
+
+:func:`cross_attention_packed` replaces
+``pram_tpu/ops/attention_pallas.py:fused_cross_attention_packed``: the same
+symmetric attention on projections made outside (AdaGML's blocks), with
+optionally each side's received-attention statistics. A CPU tensor takes
+:func:`cross_attention_packed_plain`; a CUDA tensor launches
+``csrc/cross_attention_packed.cu`` or raises.
 """
 
 from __future__ import annotations
@@ -16,10 +23,10 @@ import ctypes
 
 import torch
 
-from pram_tpu_torch._build import check_status, check_tensor, library, ptr, stream_of
+from pram_tpu_torch._build import check_status, check_tensor, library, ptr, ptr_or_null, stream_of
 from pram_tpu_torch.ops.attention import attend_plain
 
-LAUNCHES = {"cross_attention": 0}
+LAUNCHES = {"cross_attention": 0, "cross_attention_packed": 0}
 
 # shapes the CUDA kernel is written for
 KERNEL_D = 256
@@ -94,3 +101,88 @@ def cross_attention(x_cat, w_qk, b_qk, w_v, b_v, bias0, bias1, scale, heads, n0)
     )
     LAUNCHES["cross_attention"] += 1
     return out
+
+
+def cross_attention_packed_plain(qk0, qk1, v0, v1, bias0, bias1, scale, heads, return_stats=False):
+    """``(m0 [B, N, d], m1 [B, M, d])`` in qk0's dtype, and with
+    ``return_stats`` also ``(stat0 [B, N], stat1 [B, M])`` f32.
+
+    qk0, v0 ``[B, N, d]`` and qk1, v1 ``[B, M, d]`` are the raw to_qk /
+    to_v outputs of the two sides (the scale applies to the similarity);
+    bias0 ``[B, N]``, bias1 ``[B, M]`` f32 mask the keys and give the
+    queries' validity. stat0 is the mass side 0's tokens receive from side
+    1's valid queries, summed over heads; stat1 the mirror. One head at a
+    time (``attend_plain``).
+    """
+    b, n, d = qk0.shape
+    m = qk1.shape[1]
+    hd = d // heads
+    m0 = torch.empty((b, n, d), dtype=qk0.dtype, device=qk0.device)
+    m1 = torch.empty((b, m, d), dtype=qk1.dtype, device=qk1.device)
+    stat0 = torch.zeros((b, n), dtype=torch.float32, device=qk0.device)
+    stat1 = torch.zeros((b, m), dtype=torch.float32, device=qk0.device)
+    qb0, qb1 = (bias0, bias1) if return_stats else (None, None)
+    for h in range(heads):
+        s = slice(h * hd, (h + 1) * hd)
+        r0 = attend_plain(qk0[:, :, s], qk1[:, :, s], v1[:, :, s], bias1, scale, qb0)
+        r1 = attend_plain(qk1[:, :, s], qk0[:, :, s], v0[:, :, s], bias0, scale, qb1)
+        if return_stats:
+            (r0, st1), (r1, st0) = r0, r1
+            stat0 += st0
+            stat1 += st1
+        m0[:, :, s], m1[:, :, s] = r0, r1
+    return (m0, m1, stat0, stat1) if return_stats else (m0, m1)
+
+
+def cross_attention_packed(qk0, qk1, v0, v1, bias0, bias1, scale, heads, return_stats=False):
+    """:func:`cross_attention_packed_plain` on the CPU;
+    ``csrc/cross_attention_packed.cu`` on CUDA, in bf16 or f32.
+
+    The four inputs may be views into one ``[B, N + M, d]`` projection:
+    the kernel takes any frame stride with rows of ``d`` contiguous elements.
+    """
+    if qk0.device.type == "cpu":
+        return cross_attention_packed_plain(qk0, qk1, v0, v1, bias0, bias1, scale, heads, return_stats)
+    b, n, d = qk0.shape
+    m = qk1.shape[1]
+    dev = qk0.device
+    dt = qk0.dtype
+    f32 = torch.float32
+    if dt not in (torch.bfloat16, f32):
+        raise ValueError(f"CUDA cross-attention takes bf16 or f32, got {dt}")
+    if d != KERNEL_D or heads * KERNEL_HEAD_DIM != d:
+        raise ValueError(
+            f"CUDA cross-attention is built for d={KERNEL_D} and head_dim="
+            f"{KERNEL_HEAD_DIM}; got d={d}, heads={heads}"
+        )
+    if n <= 0 or m <= 0 or n % KERNEL_QUERY_TILE or m % KERNEL_QUERY_TILE:
+        raise ValueError(
+            f"CUDA cross-attention needs both sides a positive multiple of "
+            f"{KERNEL_QUERY_TILE} tokens; got {n} and {m}"
+        )
+    for name, t, rows in (("qk0", qk0, n), ("qk1", qk1, m), ("v0", v0, n), ("v1", v1, m)):
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != (b, rows, d):
+            raise ValueError(f"{name} must be {dt} [{b}, {rows}, {d}] on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if t.stride(2) != 1 or t.stride(1) != d or t.stride(0) % 8 or t.data_ptr() % 16:
+            raise ValueError(f"{name} needs contiguous 16-byte aligned rows of {d} elements")
+    check_tensor(bias0, "bias0", (b, n), f32, dev)
+    check_tensor(bias1, "bias1", (b, m), f32, dev)
+    m0 = torch.empty((b, n, d), dtype=dt, device=dev)
+    m1 = torch.empty((b, m, d), dtype=dt, device=dev)
+    rows = stat0 = stat1 = None
+    if return_stats:
+        rows = torch.empty((2, b, heads, n + m), dtype=f32, device=dev)
+        stat0 = torch.empty((b, n), dtype=f32, device=dev)
+        stat1 = torch.empty((b, m), dtype=f32, device=dev)
+    check_status(
+        library().pram_cross_attention_packed(
+            ptr(qk0), ptr(qk1), ptr(v0), ptr(v1), qk0.stride(0), qk1.stride(0),
+            v0.stride(0), v1.stride(0), ptr(bias0), ptr(bias1), ptr(m0), ptr(m1),
+            ptr_or_null(rows), ptr_or_null(stat0), ptr_or_null(stat1), b, n, m,
+            heads, ctypes.c_float(scale), int(dt == f32), stream_of(dev),
+        ),
+        "pram_cross_attention_packed",
+    )
+    LAUNCHES["cross_attention_packed"] += 1
+    return (m0, m1, stat0, stat1) if return_stats else (m0, m1)

@@ -3,7 +3,9 @@
 :func:`residual_mlp` replaces ``pram_tpu/ops/mlp_pallas.py:fused_residual_mlp``.
 A CPU tensor takes :func:`residual_mlp_plain`; a CUDA tensor launches
 ``csrc/mlp.cu`` or raises. Weights are in torch ``Linear`` layout
-(``[out, in]``); ``w0``'s input columns are ``[x | proj(msg)]``.
+(``[out, in]``); ``w0``'s input columns are ``[x | proj(msg)]``. The kernel
+takes bf16, the working type, or f32 (products on the CUDA cores), which
+the f32 A/B checks of the matcher use.
 """
 
 from __future__ import annotations
@@ -49,14 +51,14 @@ def residual_mlp(x, msg, wp, bp, w0, b0, ln_w, ln_b, w3, b3, eps=1e-6):
         )
     if tokens % KERNEL_TOKEN_TILE:
         raise ValueError(f"CUDA residual MLP needs tokens % {KERNEL_TOKEN_TILE} == 0")
-    bf = torch.bfloat16
+    dt = x.dtype if x.dtype == torch.float32 else torch.bfloat16
     f32 = [t.to(torch.float32).contiguous() for t in (bp, b0, ln_w, ln_b, b3)]
     bp, b0, ln_w, ln_b, b3 = f32
-    check_tensor(x, "x", x.shape, bf, dev)
-    check_tensor(msg, "msg", x.shape, bf, dev)
-    check_tensor(wp, "wp", (d, d), bf, dev)
-    check_tensor(w0, "w0", (KERNEL_HIDDEN, 2 * d), bf, dev)
-    check_tensor(w3, "w3", (d, KERNEL_HIDDEN), bf, dev)
+    check_tensor(x, "x", x.shape, dt, dev)
+    check_tensor(msg, "msg", x.shape, dt, dev)
+    check_tensor(wp, "wp", (d, d), dt, dev)
+    check_tensor(w0, "w0", (KERNEL_HIDDEN, 2 * d), dt, dev)
+    check_tensor(w3, "w3", (d, KERNEL_HIDDEN), dt, dev)
     check_tensor(bp, "bp", (d,), torch.float32, dev)
     check_tensor(b0, "b0", (KERNEL_HIDDEN,), torch.float32, dev)
     check_tensor(ln_w, "ln_w", (KERNEL_HIDDEN,), torch.float32, dev)
@@ -70,7 +72,7 @@ def residual_mlp(x, msg, wp, bp, w0, b0, ln_w, ln_b, w3, b3, eps=1e-6):
         library().pram_residual_mlp(
             ptr(x), ptr(msg), ptr(wp), ptr(bp), ptr(w0), ptr(b0),
             ptr(ln_w), ptr(ln_b), ptr(w3), ptr(b3), ptr(out), tokens,
-            ctypes.c_float(eps), stream_of(dev),
+            ctypes.c_float(eps), int(dt == torch.float32), stream_of(dev),
         ),
         "pram_residual_mlp",
     )

@@ -14,7 +14,12 @@ sums in another order flip near-ties of the 0.995 ratio test) and d1 within
 map descriptors, where d1 ~ 1e-3 and its slope in the similarity is 1/d1;
 the noisy copies here keep d1 above 0.1); the stem within 2% of the
 output's scale in bf16 and within rtol = atol = 1e-4 in f32 (cuDNN's TF32
-off); NMS bit for bit in both types.
+off); NMS bit for bit in both types. Kernels 10-12 (packed self- and
+cross-attention with AdaGML's statistics): messages within 2% of their
+scale in bf16 and 1e-4 in f32 (products on the CUDA cores; summation order
+only), statistics within 1e-3 of their scale in bf16 and 1e-4 in f32
+(both sides sum the same normalized f32 weights; the logits are summed in
+another order). The f32 residual MLP within 1e-4 of its scale.
 """
 
 import pytest
@@ -22,7 +27,7 @@ import torch
 
 from pram_tpu_torch.geometry.camera import Camera, project
 from pram_tpu_torch.geometry.rotations import so3_exp
-from pram_tpu_torch.ops import attention, cross_attention, mlp, nms, pnp, refine, sinkhorn, stem
+from pram_tpu_torch.ops import attention, attention_qkv, cross_attention, mlp, nms, pnp, refine, sinkhorn, stem
 
 pytestmark = pytest.mark.cuda
 
@@ -282,3 +287,122 @@ def test_extractor_wrappers_refuse_what_the_kernels_do_not_take(dev):
     image = torch.rand(1, 3, 16, 16, device=dev).permute(0, 2, 3, 1)  # NHWC view, not contiguous
     with pytest.raises(ValueError, match="contiguous"):
         stem.fused_stem(image, *args)
+
+
+def _masks(g, b, n, p_valid):
+    """Validity with a pruned token and, in the last frame, an all-masked side."""
+    mask = torch.rand(b, n, generator=g) < p_valid
+    mask[0, 3] = False
+    mask[-1] = False
+    return mask
+
+
+def _rel_err(got, ref):
+    return (got.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("b,n,dtype", [(2, 256, torch.bfloat16), (2, 4096, torch.bfloat16),
+                                       (2, 384, torch.float32)])
+def test_self_attention_qkv_kernel(dev, b, n, dtype):
+    """Kernel 10 with statistics, at a small and at the Aachen query side's shape."""
+    g = torch.Generator().manual_seed(n)
+    qkv = _rand(g, b, n, 768).to(dev, dtype)
+    ang = _rand(g, b, n, 32)
+    cos = torch.cos(ang).repeat_interleave(2, -1).to(dev)
+    sin = torch.sin(ang).repeat_interleave(2, -1).to(dev)
+    kb = attention.mask_to_bias(_masks(g, b, n, 0.7), b, n, "cpu").to(dev)
+    args = (qkv, cos, sin, kb, 64**-0.5, 4)
+    before = attention_qkv.LAUNCHES["self_attention_qkv"]
+    msg, stat = attention_qkv.self_attention_qkv(*args, return_stats=True)
+    torch.cuda.synchronize()
+    assert attention_qkv.LAUNCHES["self_attention_qkv"] == before + 1
+    ref_msg, ref_stat = attention_qkv.self_attention_qkv_plain(*args, return_stats=True)
+    tol = (0.02, 1e-3) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+    assert _rel_err(msg, ref_msg) <= tol[0]
+    assert _rel_err(stat, ref_stat) <= tol[1]
+    assert (stat[-1] == 0).all()  # no valid queries, no mass
+    assert torch.equal(attention_qkv.self_attention_qkv(*args), msg)  # the statistics change nothing
+
+
+@pytest.mark.parametrize("b,splits", [(2, (128, 256)), (4, (512, 1024))])
+def test_self_attention_qkv_blocked_kernel(dev, b, splits):
+    """Kernel 12: independent sides, GML's splits among them."""
+    n = sum(splits)
+    g = torch.Generator().manual_seed(n + 3)
+    qkv = _rand(g, b, n, 768).to(dev, torch.bfloat16)
+    ang = _rand(g, b, n, 32)
+    cos = torch.cos(ang).repeat_interleave(2, -1).to(dev)
+    sin = torch.sin(ang).repeat_interleave(2, -1).to(dev)
+    mask = torch.rand(b, n, generator=g) > 0.2
+    mask[1, splits[0]:] = False  # an all-padded side
+    kb = attention.mask_to_bias(mask, b, n, "cpu").to(dev)
+    args = (qkv, cos, sin, kb, 64**-0.5, 4)
+    before = attention_qkv.LAUNCHES["self_attention_qkv_blocked"]
+    got = attention_qkv.self_attention_qkv(*args, splits=splits)
+    torch.cuda.synchronize()
+    assert attention_qkv.LAUNCHES["self_attention_qkv_blocked"] == before + 1
+    ref = attention_qkv.self_attention_qkv_plain(*args, splits=splits)
+    assert _rel_err(got, ref) <= 0.02
+    assert _rel_err(attention_qkv.self_attention_qkv_plain(*args), ref) > 0.1
+
+
+@pytest.mark.parametrize("b,n0,n1,dtype", [(2, 128, 256, torch.bfloat16), (2, 4096, 2048, torch.bfloat16),
+                                           (2, 256, 128, torch.float32)])
+def test_cross_attention_packed_kernel(dev, b, n0, n1, dtype):
+    """Kernel 11 with statistics, on views into one projection of both sides."""
+    g = torch.Generator().manual_seed(n0 + n1 + 1)
+    qk = _rand(g, b, n0 + n1, 256).to(dev, dtype)
+    v = _rand(g, b, n0 + n1, 256).to(dev, dtype)
+    b0 = attention.mask_to_bias(torch.rand(b, n0, generator=g) > 0.1, b, n0, "cpu").to(dev)
+    b1 = attention.mask_to_bias(_masks(g, b, n1, 0.7), b, n1, "cpu").to(dev)
+    args = (qk[:, :n0], qk[:, n0:], v[:, :n0], v[:, n0:], b0, b1, 64**-0.5, 4)
+    before = cross_attention.LAUNCHES["cross_attention_packed"]
+    got = cross_attention.cross_attention_packed(*args, return_stats=True)
+    torch.cuda.synchronize()
+    assert cross_attention.LAUNCHES["cross_attention_packed"] == before + 1
+    ref = cross_attention.cross_attention_packed_plain(*args, return_stats=True)
+    tol = (0.02, 1e-3) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+    for i, (a, r) in enumerate(zip(got, ref)):
+        assert _rel_err(a, r) <= tol[i // 2], i
+    # side 0 of the last frame attends to an all-masked side 1: mean of v1,
+    # and side 1's keys receive 1/n1 from every valid side-0 query and head
+    assert torch.allclose(got[0][-1].float(), v[-1, n0:].float().mean(0).expand(n0, -1), atol=0.02)
+    valid0 = (b0[-1] > -0.5).sum().item()
+    assert torch.allclose(got[3][-1], torch.full_like(got[3][-1], 4 * valid0 / n1), rtol=1e-3)
+
+
+def test_residual_mlp_kernel_f32(dev):
+    g = torch.Generator().manual_seed(5)
+    d = 256
+    x = _rand(g, 2, 64, d).to(dev)
+    msg = _rand(g, 2, 64, d, scale=0.1).to(dev)
+
+    def w(o, i):
+        return _rand(g, o, i, scale=i**-0.5).to(dev)
+
+    args = (
+        x, msg, w(d, d), _rand(g, d, scale=0.1).to(dev), w(2 * d, 2 * d),
+        _rand(g, 2 * d, scale=0.1).to(dev), (1 + _rand(g, 2 * d, scale=0.1)).to(dev),
+        _rand(g, 2 * d, scale=0.1).to(dev), w(d, 2 * d), _rand(g, d, scale=0.1).to(dev),
+    )
+    got = mlp.residual_mlp(*args)
+    assert got.dtype == torch.float32
+    assert _rel_err(got, mlp.residual_mlp_plain(*args)) <= 1e-4
+
+
+def test_packed_attention_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    cs = torch.zeros(1, 200, 64, device=dev)
+    kb = torch.zeros(1, 200, device=dev)
+    qkv = torch.zeros(1, 200, 768, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="N %"):
+        attention_qkv.self_attention_qkv(qkv, cs, cs, kb, 0.125, 4)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        attention_qkv.self_attention_qkv(qkv[:, :128].half(), cs[:, :128], cs[:, :128], kb[:, :128], 0.125, 4)
+    qk = torch.zeros(1, 256, 256, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple"):
+        cross_attention.cross_attention_packed(qk[:, :100], qk[:, 100:], qk[:, :100], qk[:, 100:],
+                                               kb[:, :100], kb[:, :156], 0.125, 4)
+    kb256 = torch.zeros(1, 256, device=dev)
+    with pytest.raises(ValueError, match="rows"):  # a transposed view
+        cross_attention.cross_attention_packed(qk.transpose(1, 2), qk[:, :128], qk, qk[:, :128],
+                                               kb256, kb[:, :128], 0.125, 4)

@@ -4,9 +4,11 @@ The card's machine has torch, triton, numpy, scipy and einops, but no jax,
 flax, msgpack, ml_dtypes, yaml or ninja. A fresh interpreter refuses those
 (and the JAX package itself) through a ``sys.meta_path`` finder, then
 imports every module of ``pram_tpu_torch`` and ``chip_smoke``, reads the
-flax weights, and runs the three slices on the CPU: a 2-layer SegNetViT
-with the NN matcher, then a 2-layer GML with projection refinement, then
-SFD2 extraction (weights/sfd2_rendered.msgpack) on one small rendered view.
+flax weights, and runs the four slices on the CPU: a 2-layer SegNetViT
+with the NN matcher, then a 2-layer GML with projection refinement, the
+same with the first 2 layers of the trained Aachen AdaGML
+(weights/adagml_aachen.msgpack), then SFD2 extraction
+(weights/sfd2_rendered.msgpack) on one small rendered view.
 """
 
 import os
@@ -92,6 +94,17 @@ SCRIPT = textwrap.dedent(
     assert res.qvec.shape == (2, 4) and torch.isfinite(res.tvec).all()
     assert res.kpt_point_idx.shape == (2, 512) and torch.isfinite(res.kpt_xyz).all()
     compute_pose_error(res.qvec, res.tvec, st("qvec").float(), st("tvec"))
+
+    from pram_tpu_torch.engine.matching import make_adagml_match_fn
+    from pram_tpu_torch.models.adagml import AdaGMLConfig
+    from pram_tpu_torch.models.convert import load_adagml
+
+    ada_weights = "weights/adagml_aachen.msgpack"
+    assert len(read_flax_msgpack(ada_weights)) == 3 + 4 * 9  # input_proj, poseenc, bin; 4 per layer
+    ada = load_adagml(ada_weights, AdaGMLConfig(n_layers=2), device="cpu")
+    loc = Localizer(to_device(scene.map, "cpu"), make_adagml_match_fn(ada), cfg)
+    res = loc.localize_batch(torch.Generator().manual_seed(7), cam, kp, sc, de, mk, logits)
+    assert res.qvec.shape == (2, 4) and torch.isfinite(res.tvec).all()
 
     from pram_tpu_torch.maps.rendered import make_world, ref_poses
     from pram_tpu_torch.models.convert import load_sfd2
