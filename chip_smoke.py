@@ -73,6 +73,32 @@ Phases, each printed with its elapsed seconds:
                 bf16 by match agreement, and in f32 by masks and stop
                 layers), early exit vs the unrolled module, and the first 2
                 queries on the card against the card machine's CPU.
+14. train setup the recognition-training slice at scripts/bench_train.py's
+                operating point: SegNetViT (15 layers, d=256, nc113) in f32
+                master parameters from weights/segnetvit_rendered.msgpack,
+                the frozen SFD2 in bf16 from weights/sfd2_rendered.msgpack,
+                and one batch made from --seed with numpy (32 images of
+                480 x 640, 512 keypoints each, 113 classes, some padded
+                tokens), kept on the card across the steps.
+15. train kernels
+                kernels 13-15 (the backward kernels) against their plain
+                versions on the card: self-attention backward (13) and the
+                residual MLP backward (15) on SegNetViT layer 0's inputs of
+                the batch, with the layer's real output cotangent; 13 also
+                at GML's splits (512, 1024) and the cross-attention backward
+                (14) on GML layer 0's activations of phase 6, with padded
+                and masked tokens; the SDPA-backward yardsticks.
+16. train slice the gradient A/B at the loaded weights: one step's f32
+                master gradients by the kernel path and the plain path in
+                bf16 (and the plain path in f32 as the reference of both),
+                per tensor and as a whole; then the augmented step (jitter,
+                frozen SFD2, mid_features sampled at the keypoints, bf16
+                recognition forward and backward over f32 masters, AdamW)
+                through Trainer's step on the fixed batch: 20 steps counted
+                (kernels 8, 1, 2, 13, 15 exactly 1, 15, 15, 15, 15 times a
+                step; no other), the loss finite and falling; steps/s
+                (median of 3 runs of 8) with the stages by CUDA events; the
+                A/B again after the steps, reported.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Any failed
@@ -82,6 +108,7 @@ CUDA device and the repository beside it.
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -147,6 +174,20 @@ ADA_AB_AGREE = 0.99
 # point, so plans within tests/test_adagml_fused.py's rtol / atol
 ADA_EXIT_RTOL, ADA_EXIT_ATOL = 5e-4, 5e-5
 ADA_RECALL_MIN = 31 / 32  # recall@25cm/2deg on the 32 Aachen queries
+# backward kernels 13-15 vs their plain versions: the bf16 outputs (dqkv,
+# dqk, dv, dx, dpm) as the forward kernels, 2% of scale: both sides round
+# p and dlogit (dh in the MLP) to bf16 before their products, and an f32 sum
+# in another order moves a value across a rounding boundary now and then.
+# The f32 reductions (dcos, dsin, the bias and weight gradients) sum the
+# same rounded products in another order: 1% of scale (PERF.md)
+BWD_TOL = 0.02
+BWD_F32_TOL = 0.01
+# gradient A/B of one training step, kernel path vs plain path in bf16: each
+# f32 master gradient within 3% of its scale (the JAX package's bf16
+# backward is held to 3e-2 in tests/test_train_vjp.py and measured 0.9-1.0%
+# on its chip, ROUND_NOTES.md)
+GRAD_AB_TOL = 0.03
+TRAIN_STEPS = 20
 
 
 def log(msg: str) -> None:
@@ -215,7 +256,14 @@ def check_scaled(name: str, got, ref, tol: float) -> float:
 
 
 def main() -> int:
+    import argparse
+
     import torch
+    import torch.nn.functional as F
+
+    args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    args.add_argument("--seed", type=int, default=0, help="seed of the training batch")
+    args = args.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -256,13 +304,18 @@ def main() -> int:
     from pram_tpu_torch.models.gml import GMLConfig
     from pram_tpu_torch.models.segnetvit import SegNetViTConfig
     from pram_tpu_torch.models.sfd2 import preprocess_image
+    from pram_tpu_torch.train.augmented import make_augmented_train_step
+    from pram_tpu_torch.train.losses import seg_loss_weighted
+    from pram_tpu_torch.train.trainer import TrainConfig, Trainer, cast_forward, seg_metrics
     from pram_tpu_torch.ops.matching import mutual_matches
     from pram_tpu_torch.ops import (
         attention,
+        attention_bwd,
         attention_qkv,
         cross_attention,
         keypoints,
         mlp,
+        mlp_bwd,
         nms,
         pnp,
         refine,
@@ -274,13 +327,15 @@ def main() -> int:
     counters = (
         attention.LAUNCHES, mlp.LAUNCHES, pnp.LAUNCHES, cross_attention.LAUNCHES,
         sinkhorn.LAUNCHES, refine.LAUNCHES, stem.LAUNCHES, nms.LAUNCHES,
-        attention_qkv.LAUNCHES,
+        attention_qkv.LAUNCHES, attention_bwd.LAUNCHES, mlp_bwd.LAUNCHES,
     )
     gml_kernels = ("self_attention", "residual_mlp", "ransac_score", "gn_polish",
                    "cross_attention", "sinkhorn", "refine_nn")
     # kernels 10-12: AdaGML's (10, 11) and the blocked form (12), on no
     # earlier slice's path
     ada_kernels = ("self_attention_qkv", "cross_attention_packed", "self_attention_qkv_blocked")
+    # kernels 13-15: the backward kernels, on the training slice only (14 on no path)
+    train_kernels = ("self_attention_bwd", "cross_attention_bwd", "residual_mlp_bwd")
 
     def reset_counts():
         for c in counters:
@@ -680,6 +735,8 @@ def main() -> int:
             plain_ms=cuda_ms(torch, lambda: refine.refine_nn_plain(*r_args), iters=5),
             bound_ms=bnd, bound_by=by, library_ms=None,
         )
+        # GML layer 0's activations, for the backward kernels of phase 15
+        gml_l0 = dict(x=x, cos=cos, sin=sin, m0=m0, m1=m1, y=y, splits=splits)
     phase("gml_kernels", t)
 
     # ---- 7. the second slice: recognition -> GML -> PnP -> refinement, counted
@@ -693,7 +750,7 @@ def main() -> int:
     launches = read_counts()
     log(f"GML slice launches: {launches}")
     for name, count in launches.items():
-        if name not in ("fused_stem", "nms") + ada_kernels:  # later slices' kernels
+        if name not in ("fused_stem", "nms") + ada_kernels + train_kernels:  # later slices' kernels
             require(count > 0, f"kernel {name} was not launched on the GML slice")
     require(tuple(gres_gpu.qvec.shape) == (batch, 4), "bad pose batch shape")
     require(bool(torch.isfinite(gres_gpu.tvec).all()), "non-finite poses")
@@ -826,7 +883,7 @@ def main() -> int:
     launches = read_counts()
     log(f"image slice launches: {launches}")
     for name, count in launches.items():
-        if name not in ada_kernels:
+        if name not in ada_kernels + train_kernels:
             require(count > 0, f"kernel {name} was not launched on the image slice")
     log(f"image slice on card: {json.dumps(metrics)}")
     require(metrics["n_queries"] == batch, "image slice did not localize every query")
@@ -1105,7 +1162,7 @@ def main() -> int:
                  "gn_polish", "refine_nn"):
         require(launches[name] > 0, f"kernel {name} was not launched on the AdaGML slice")
     for name in ("self_attention", "cross_attention", "sinkhorn", "self_attention_qkv_blocked",
-                 "fused_stem", "nms"):
+                 "fused_stem", "nms") + train_kernels:
         require(launches[name] == 0, f"kernel {name} is not on the AdaGML slice but launched")
 
     def aachen_outcome(qs, res):
@@ -1250,17 +1307,284 @@ def main() -> int:
     del ada_cpu
     phase("aachen_slice", t)
 
+    # ---- 14. the training slice at scripts/bench_train.py's operating point
+    t = time.perf_counter()
+    del a_loc, a_results, ada
+    tb, th, tw, tn, t_cls = 32, 480, 640, 512, 113
+    trng = np.random.RandomState(args.seed)
+    t_mask = np.ones((tb, tn), bool)
+    t_mask[::4, tn - 32:] = False  # padded tokens in every 4th frame
+    t_batch = {
+        "image": torch.from_numpy(trng.rand(tb, th, tw, 3).astype(np.float32)).to(dev),
+        "keypoints": torch.from_numpy((trng.rand(tb, tn, 2) * [tw - 8, th - 8] + 4).astype(np.float32)).to(dev),
+        "norm_keypoints": torch.from_numpy((trng.rand(tb, tn, 2) * 2 - 1).astype(np.float32)).to(dev),
+        "gt_seg": torch.from_numpy(trng.randint(0, t_cls, (tb, tn))).to(dev),
+        "mask": torch.from_numpy(t_mask).to(dev),
+    }
+    t_m = t_batch["mask"]
+    rec = load_segnetvit(str(root / "weights" / "segnetvit_rendered.msgpack"), SegNetViTConfig(n_class=t_cls),
+                         device=dev).train()
+    t_sfd2 = load_sfd2(SFD2_W, device=dev, dtype=bf16).requires_grad_(False)
+    t_cfg = TrainConfig(batch_size=tb)
+    n_layers = rec.config.n_layers
+    log(f"training batch (seed {args.seed}): {tb} images of {th} x {tw} on the card, {tn} keypoints a frame, "
+        f"{int(t_mask.sum())} valid tokens, {t_cls} classes; SegNetViT of {n_layers} layers, "
+        f"{sum(p.numel() for p in rec.parameters())} f32 master parameters; SFD2 in bf16")
+    phase("train_setup", t)
+
+    # ---- 15. kernels 13-15 vs plain versions: 13 and 15 on SegNetViT layer
+    # 0's inputs of the batch with the layer's real output cotangent, 13 at
+    # GML's splits and 14 on GML layer 0's activations of phase 6
+    t = time.perf_counter()
+    with torch.no_grad():
+        mid = t_sfd2(preprocess_image(t_batch["image"]).to(bf16).contiguous())["mid_features"]
+        t_descs = sampling.sample_descriptors(
+            t_batch["keypoints"], mid.permute(0, 3, 1, 2), 4, normalize=False).to(bf16)
+        del mid
+    nk16 = t_batch["norm_keypoints"].to(bf16)
+    rec16 = copy.deepcopy(rec).to(bf16)
+    l0 = {}
+
+    def keep_layer0(mod, inp, out):
+        out.retain_grad()
+        l0.update(x=inp[0], y=out)
+
+    hook = rec16.gnn[0].register_forward_hook(keep_layer0)
+    seg_loss_weighted(rec16(t_descs, nk16, t_m)["prediction"].float(), t_batch["gt_seg"], t_m).backward()
+    hook.remove()
+    blk = rec16.gnn[0]
+    heads, hd = blk.num_heads, blk.head_dim
+    tscale = hd**-0.5
+    tok = tb * tn
+
+    def check_outputs(name, got, ref, names, n_bf16):
+        """Each output against the plain version's: the first n_bf16 (bf16)
+        to BWD_TOL, the f32 ones to BWD_F32_TOL; returns the bf16 outputs'
+        max error."""
+        errs = [check_scaled(f"{name} {n}", a, r, BWD_TOL if i < n_bf16 else BWD_F32_TOL)
+                for i, (n, a, r) in enumerate(zip(names, got, ref))]
+        return max(errs[:n_bf16])
+
+    with torch.no_grad():
+        x0, ct = l0["x"].detach(), l0["y"].grad.detach()
+        cos_t, sin_t = rec16.kenc(nk16)
+        kb_t = attention.mask_to_bias(t_m, tb, tn, dev)
+        qkv = F.linear(x0, blk.qkv.weight, blk.qkv.bias).contiguous()
+        msg = attention.self_attention(x0, blk.qkv.weight, blk.qkv.bias, cos_t, sin_t, kb_t, tscale, heads)
+        pm = F.linear(msg, blk.proj.weight, blk.proj.bias).contiguous()
+
+        # kernel 15 on layer 0 (16384 tokens)
+        m15 = (x0, pm, ct, blk.mlp_0.weight, blk.mlp_0.bias, blk.mlp_ln.weight, blk.mlp_ln.bias,
+               blk.mlp_3.weight, blk.mlp_ln.eps)
+        ref15 = mlp_bwd.residual_mlp_bwd_plain(*m15)
+        err = check_outputs("residual_mlp_bwd", mlp_bwd.residual_mlp_bwd(*m15), ref15,
+                            ("dx", "dpm", "dw0", "db0", "dln_w", "dln_b", "dw3", "db3"), 2)
+        w_elems = 2 * 512 * 512 + 256 * 512
+        b15 = (3 * tok * 256 * 2 + w_elems * 2 + 3 * 512 * 4 + 2 * tok * 256 * 2
+               + (512 * 512 + 256 * 512) * 4 + (3 * 512 + 256) * 4)
+        bnd, by = bound_ms(b15, 2.0 * tok * (3 * 512 * 512 + 2 * 256 * 512), BF16_TENSOR_FLOPS)
+        rows["residual_mlp_bwd"] = dict(
+            name="residual_mlp_bwd", route="cuda", source="pram_tpu_torch/csrc/mlp_bwd.cu",
+            replaces="pram_tpu/ops/mlp_bwd_pallas.py:171",
+            launches=None, max_abs_err=err,
+            ms=cuda_ms(torch, lambda: mlp_bwd.residual_mlp_bwd(*m15)),
+            plain_ms=cuda_ms(torch, lambda: mlp_bwd.residual_mlp_bwd_plain(*m15), iters=5),
+            bound_ms=bnd, bound_by=by, library_ms=None,
+        )
+
+        # kernel 13 on layer 0 (32 x 512 tokens), the attention cotangent
+        # through the MLP's plain backward (dmsg = dpm wp)
+        g13 = (ref15[1].float() @ blk.proj.weight.float()).to(bf16).contiguous()
+        a13 = (qkv, cos_t, sin_t, kb_t, g13, tscale, heads)
+        names13 = ("dqkv", "dcos", "dsin", "dbias")
+        err = check_outputs("self_attention_bwd (SegNetViT)", attention_bwd.self_attention_bwd(*a13),
+                            attention_bwd.self_attention_bwd_plain(*a13), names13, 1)
+        # library yardstick: the backward of one SDPA call on the rotated q, k
+        # and v with the key mask
+        t3 = qkv.reshape(tb, tn, heads, hd, 3).permute(4, 0, 2, 1, 3)
+        enc = (cos_t[:, None], sin_t[:, None])
+        sd_in = [attention.apply_rotary(enc, t3[0].float()).to(bf16), attention.apply_rotary(enc, t3[1].float()).to(bf16),
+                 t3[2].contiguous()]
+        g_heads = g13.reshape(tb, tn, heads, hd).transpose(1, 2)
+    with torch.enable_grad():
+        sd_in = [a.detach().contiguous().requires_grad_() for a in sd_in]
+        sd_out = sdpa(*sd_in, attn_mask=t_m[:, None, None, :], scale=tscale)
+        lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(sd_out, sd_in, g_heads, retain_graph=True))
+    del sd_in, sd_out
+    b13 = tok * (768 * 2 + 256 * 2 + 2 * 64 * 4 + 4 + 768 * 2 + 2 * 64 * 4 + 4)
+    bnd, by = bound_ms(b13, 10.0 * hd * tb * heads * tn * tn, BF16_TENSOR_FLOPS)
+    rows["self_attention_bwd"] = dict(
+        name="self_attention_bwd", route="cuda", source="pram_tpu_torch/csrc/attention_bwd.cu",
+        replaces="pram_tpu/ops/attention_bwd_pallas.py:330",
+        launches=None, max_abs_err=err,
+        ms=cuda_ms(torch, lambda: attention_bwd.self_attention_bwd(*a13)),
+        plain_ms=cuda_ms(torch, lambda: attention_bwd.self_attention_bwd_plain(*a13), iters=5),
+        bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+    )
+
+    with torch.no_grad():
+        # kernel 13 at GML's splits and kernel 14, on GML layer 0's
+        # activations with more padded and masked tokens; unit cotangents
+        gen = torch.Generator().manual_seed(args.seed + 1)
+        gm0, gm1 = gml_l0["m0"].clone(), gml_l0["m1"].clone()
+        gm0[0, ::7] = False
+        gm0[1, 3 * gm0.shape[1] // 4:] = False
+        gm1[0, ::5] = False
+        gm1[2] = False
+        gn0, gn1 = gm0.shape[1], gm1.shape[1]
+        gb = gm0.shape[0]
+        gs = gml.self_attn[0]
+        gx = gml_l0["x"]
+        gqkv = F.linear(gx, gs.qkv.weight, gs.qkv.bias).contiguous()
+        gkb = attention.mask_to_bias(torch.cat([gm0, gm1], 1), gb, gn0 + gn1, dev)
+        gg = torch.randn(gx.shape, generator=gen).to(dev, bf16)
+        a13g = (gqkv, gml_l0["cos"], gml_l0["sin"], gkb, gg, gscale, heads)
+        check_outputs(f"self_attention_bwd (GML, splits {gml_l0['splits']})",
+                      attention_bwd.self_attention_bwd(*a13g, splits=gml_l0["splits"]),
+                      attention_bwd.self_attention_bwd_plain(*a13g, splits=gml_l0["splits"]), names13, 1)
+        log(f"self_attention_bwd (GML, {gb} x {gml_l0['splits']}): "
+            f"{cuda_ms(torch, lambda: attention_bwd.self_attention_bwd(*a13g, splits=gml_l0['splits'])):.4f} ms")
+
+        cb = gml.cross_attn[0]
+        gy = gml_l0["y"]
+        gqk = F.linear(gy, cb.to_qk.weight, cb.to_qk.bias).contiguous()
+        gv = F.linear(gy, cb.to_v.weight, cb.to_v.bias).contiguous()
+        gbias0 = attention.mask_to_bias(gm0, gb, gn0, dev)
+        gbias1 = attention.mask_to_bias(gm1, gb, gn1, dev)
+        a14 = (gqk, gv, gbias0, gbias1, gg, gscale, heads, gn0)
+        err = check_outputs("cross_attention_bwd", attention_bwd.cross_attention_bwd(*a14),
+                            attention_bwd.cross_attention_bwd_plain(*a14), ("dqk", "dv", "db0", "db1"), 2)
+        qh = gqk.reshape(gb, gn0 + gn1, heads, hd).transpose(1, 2)
+        vh = gv.reshape(gb, gn0 + gn1, heads, hd).transpose(1, 2)
+        c_in = [qh[:, :, :gn0], qh[:, :, gn0:], vh[:, :, :gn0], vh[:, :, gn0:]]
+        gh = gg.reshape(gb, gn0 + gn1, heads, hd).transpose(1, 2)
+    with torch.enable_grad():
+        # library yardstick: the backward of kernel 5's two SDPA calls
+        c_in = [a.contiguous().requires_grad_() for a in c_in]
+        q0_, q1_, v0_, v1_ = c_in
+        c_out = (sdpa(q0_, q1_, v1_, attn_mask=gm1[:, None, None, :], scale=gscale),
+                 sdpa(q1_, q0_, v0_, attn_mask=gm0[:, None, None, :], scale=gscale))
+        lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            c_out, c_in, (gh[:, :, :gn0], gh[:, :, gn0:]), retain_graph=True))
+    del c_in, c_out
+    ctok = gb * (gn0 + gn1)
+    bnd, by = bound_ms(ctok * (3 * 256 * 2 + 2 * 256 * 2 + 2 * 4), 14.0 * gb * heads * gn0 * gn1 * hd,
+                       BF16_TENSOR_FLOPS)
+    rows["cross_attention_bwd"] = dict(
+        name="cross_attention_bwd", route="cuda", source="pram_tpu_torch/csrc/cross_attention_bwd.cu",
+        replaces="pram_tpu/ops/attention_bwd_pallas.py:274",
+        launches=None, max_abs_err=err,
+        ms=cuda_ms(torch, lambda: attention_bwd.cross_attention_bwd(*a14)),
+        plain_ms=cuda_ms(torch, lambda: attention_bwd.cross_attention_bwd_plain(*a14), iters=3),
+        bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+    )
+    del rec16, l0, x0, ct, qkv, msg, pm, m15, ref15, a13, a13g, a14, gml_l0
+    phase("train_kernels", t)
+
+    # ---- 16. the training slice: augmented steps through Trainer's step, counted
+    t = time.perf_counter()
+
+    def grad_ab():
+        """One step's f32 master gradients on the batch (jitter-free
+        descriptors of phase 15) by the kernel path and the plain path in
+        bf16, and by the plain path in f32: per tensor max |diff| / max |ref|
+        and the global relative L2 of each pair against its second member."""
+        def master_grads(kernels, dtype):
+            rec.use_kernels = kernels
+            rec.zero_grad(set_to_none=True)
+            out = cast_forward(rec, dtype, t_descs.to(dtype or torch.float32), nk16, t_m)
+            seg_metrics(out["prediction"].float(), t_batch, t_cfg)[0].backward()
+            return {k: p.grad.detach().clone() for k, p in rec.named_parameters()}
+
+        g = {"kernel": master_grads(True, bf16), "plain": master_grads(False, bf16),
+             "f32": master_grads(False, None)}
+        rec.use_kernels = True
+        rec.zero_grad(set_to_none=True)
+        out = {}
+        for a, b in (("kernel", "plain"), ("kernel", "f32"), ("plain", "f32")):
+            ga, gb = g[a], g[b]
+            rel = {k: ((ga[k] - gb[k]).abs().max() / gb[k].abs().max()).item() for k in gb}
+            l2 = (sum(((ga[k] - gb[k]) ** 2).sum() for k in gb) / sum((gb[k] ** 2).sum() for k in gb)).sqrt()
+            worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+            out[f"{a} vs {b}"] = dict(l2=round(l2.item(), 5), max=round(worst[0][1], 5),
+                                      median=round(sorted(rel.values())[len(rel) // 2], 5),
+                                      worst=[k for k, _ in worst])
+        return out
+
+    # gradient A/B at the loaded weights: one step's gradients, kernel path
+    # vs plain path in bf16, each against the f32 plain path too
+    ab = grad_ab()
+    log(f"gradient A/B (bf16, {len(list(rec.parameters()))} tensors, max |diff| / max |ref| per tensor, "
+        f"tol {GRAD_AB_TOL} kernel vs plain): {json.dumps(ab)}")
+    require(ab["kernel vs plain"]["max"] <= GRAD_AB_TOL,
+            "training gradients of the kernel path disagree with the plain path")
+
+    trainer = Trainer(rec, t_cfg, log_fn=log,
+                      step_fn=make_augmented_train_step(rec, t_sfd2, t_cfg, compute_dtype=bf16))
+    reset_counts()
+    losses = [trainer.step_fn(trainer.state, t_batch)["loss"] for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    train_launches = launches
+    losses = torch.stack(losses).float().cpu()
+    log(f"training slice launches over {TRAIN_STEPS} steps: {launches}")
+    per_step = {"fused_stem": 1, "self_attention": n_layers, "residual_mlp": n_layers,
+                "self_attention_bwd": n_layers, "residual_mlp_bwd": n_layers}
+    for name, count in launches.items():
+        want = TRAIN_STEPS * per_step.get(name, 0)
+        require(count == want, f"kernel {name}: {count} launches in {TRAIN_STEPS} training steps, expected {want}")
+    log(f"training losses: {[round(v, 5) for v in losses.tolist()]}")
+    require(bool(torch.isfinite(losses).all()), "non-finite training loss")
+    require(bool(losses[-1] < losses[0]), "the training loss did not fall over the steps")
+
+    def timed_steps(n=8):
+        """steps/s (host clock, synchronized) over n steps, and the stages'
+        mean ms by CUDA events."""
+        events = []
+
+        def mark(stage):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events[-1].append((stage, e))
+
+        t_s = sync(dev)
+        for _ in range(n):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events.append([("start", e)])
+            trainer.step_fn(trainer.state, t_batch, mark=mark)
+        t_e = sync(dev)
+        stages = {}
+        for ev in events:
+            for (_, a), (stage, b) in zip(ev[:-1], ev[1:]):
+                stages[stage] = stages.get(stage, 0.0) + a.elapsed_time(b) / n
+        return n / (t_e - t_s), stages
+
+    timed = sorted((timed_steps() for _ in range(3)), key=lambda r: r[0])
+    sps, stages = timed[1]
+    log(f"training slice on card: {sps:.3f} steps/s = {sps * tb:.1f} frames/s (median of 3 runs of 8 steps, "
+        f"host clock, synchronized; runs {[round(r[0], 3) for r in timed]}); stages of a step by CUDA events "
+        f"(ms, mean over the median run): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + f"; card: {smi}")
+
+    log(f"gradient A/B after the {TRAIN_STEPS + 24} steps: {json.dumps(grad_ab())}")
+    phase("train_slice", t)
+
     table = []
     for name in ("self_attention", "residual_mlp", "ransac_score", "gn_polish",
                  "cross_attention", "sinkhorn", "refine_nn", "fused_stem", "nms",
-                 "self_attention_qkv", "cross_attention_packed", "self_attention_qkv_blocked"):
+                 "self_attention_qkv", "cross_attention_packed", "self_attention_qkv_blocked",
+                 "self_attention_bwd", "cross_attention_bwd", "residual_mlp_bwd"):
         r = rows[name]
         # kernels 1-7 counted on the GML slice, 8-9 on the image slice, 10-12
-        # on the AdaGML slice (12 is on no path)
+        # on the AdaGML slice (12 is on no path), 13-15 on the training slice
+        # (14 is on no path)
         if name in gml_kernels:
             r["launches"] = gml_launches[name]
         elif name in ("fused_stem", "nms"):
             r["launches"] = image_launches[name]
+        elif name in train_kernels:
+            r["launches"] = train_launches[name]
         else:
             r["launches"] = ada_launches[name]
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"

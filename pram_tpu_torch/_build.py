@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
-library with a plain C interface, which ``ctypes`` loads. The library goes
-to ``_build/`` beside this file, named by a hash of the sources and flags,
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc`` process,
+all started together, and one more ``nvcc`` call links the objects into one
+shared library with a plain C interface, which ``ctypes`` loads. The library
+goes to ``_build/`` beside this file, named by a hash of the sources and flags,
 so an edited source rebuilds and an unchanged one is reused. Nothing here
 runs at import time: the first call of :func:`library` builds.
 """
@@ -25,7 +26,7 @@ CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -63,10 +64,19 @@ _SIGNATURES = {
     "pram_stem": [_P] * 6 + [_I] * 4 + [_P],
     # scores, out, B, H, W, radius, num_iters, is_bf16, stream
     "pram_nms": [_P] * 2 + [_I] * 6 + [_P],
+    # qkv, cos, sin, key_bias, g, dqkv, dcos, dsin, dbias, stats scratch, B,
+    # N, heads, scale, side lengths (host int array), n_sides, stream
+    "pram_self_attention_bwd": [_P] * 10 + [_I, _I, _I, _F, _P, _I, _P],
+    # qk, v, bias0, bias1, g, dqk, dv, db0, db1, stats scratch, B, N, n0,
+    # heads, scale, stream
+    "pram_cross_attention_bwd": [_P] * 10 + [_I] * 4 + [_F, _P],
+    # x, pm, ct, w0, b0, ln_w, ln_b, w3, dx, dpm, dw0, db0, dln_w, dln_b, dw3,
+    # db3, y, dh, colsums and partial scratch, tokens, splits, eps, stream
+    "pram_residual_mlp_bwd": [_P] * 20 + [_I, _I, _F, _P],
 }
 
 _LIB = None
-BUILD_SECONDS = None  # wall time of the nvcc call in this process (0.0 if cached)
+BUILD_SECONDS = None  # wall time of the nvcc calls in this process (0.0 if cached)
 
 
 def _nvcc() -> str:
@@ -99,16 +109,30 @@ def library() -> ctypes.CDLL:
     else:
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-        cmd += [str(s) for s in sorted(CSRC.glob("*.cu"))]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = so.with_name(f"{so.stem}.{src.stem}.{os.getpid()}.o")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            jobs.append((cmd, obj, proc))
+        failed = []
+        for cmd, _, proc in jobs:
+            out, err = proc.communicate()
+            if proc.returncode:
+                failed.append((cmd, proc.returncode, out, err))
+        objs = [str(obj) for _, obj, _ in jobs]
+        if not failed:
+            cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode:
+                failed.append((cmd, proc.returncode, proc.stdout, proc.stderr))
         BUILD_SECONDS = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
+        if failed:
+            cmd, code, out, err = failed[0]
+            raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{out}\n{err}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

@@ -14,14 +14,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from pram_tpu_torch.ops.attention import (
-    apply_rotary,
-    mask_to_bias,
-    rotate_half,
-    self_attention,
-)
-from pram_tpu_torch.ops.cross_attention import cross_attention
-from pram_tpu_torch.ops.mlp import residual_mlp
+from pram_tpu_torch.ops.attention import apply_rotary, mask_to_bias, rotate_half
+from pram_tpu_torch.ops.train_vjp import cross_attention_proj, residual_mlp, self_attention_proj
 
 __all__ = [
     "CrossAttentionBlock",
@@ -65,9 +59,12 @@ def masked_softmax(
 class SelfAttentionBlock(nn.Module):
     """Self-attention with rotary encoding, then the residual concat-MLP.
 
-    Both halves go through kernel wrappers: ``ops/attention.py`` (qkv
-    projection, rotary, masked attention) and ``ops/mlp.py``
-    (``x + mlp_3(gelu(LN(mlp_0([x, proj(msg)]))))``).
+    Both halves go through the differentiable kernel wrappers of
+    ``ops/train_vjp.py``: ``ops/attention.py`` (qkv projection, rotary,
+    masked attention) and ``ops/mlp.py``
+    (``x + mlp_3(gelu(LN(mlp_0([x, proj(msg)]))))``) forward, kernels 13
+    and 15 backward. ``kernels=False`` sends both ways through the plain
+    versions (the A/B check on the card).
     """
 
     def __init__(self, feat_dim: int, hidden_dim: int, num_heads: int):
@@ -83,18 +80,19 @@ class SelfAttentionBlock(nn.Module):
         encoding: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         mask: Optional[torch.Tensor] = None,
         splits: Optional[Sequence[int]] = None,
+        kernels: bool = True,
     ) -> torch.Tensor:
         """``splits``: x is a token concatenation of independent sides (GML
         runs both keypoint sets through shared weights); the projections and
         the MLP run over all tokens, attention stays within each side."""
         b, n, _ = x.shape
         cos, sin = encoding if encoding is not None else (None, None)
-        msg = self_attention(
+        msg = self_attention_proj(
             x, self.qkv.weight, self.qkv.bias, cos, sin,
             mask_to_bias(mask, b, n, x.device), self.head_dim**-0.5,
-            self.num_heads, splits,
+            self.num_heads, splits, kernels,
         )
-        return _apply_residual_mlp(self, x, msg)
+        return _apply_residual_mlp(self, x, msg, kernels)
 
 
 class CrossAttentionBlock(nn.Module):
@@ -102,9 +100,10 @@ class CrossAttentionBlock(nn.Module):
     residual concat-MLP, in the cat form GML uses: x is the token
     concatenation ``[x0 | x1]`` with ``splits = (n0, n1)``.
 
-    Both halves go through kernel wrappers: ``ops/cross_attention.py``
-    (to_qk / to_v projections, one similarity softmaxed along each axis)
-    and ``ops/mlp.py`` over all tokens.
+    Both halves go through the differentiable kernel wrappers of
+    ``ops/train_vjp.py``: ``ops/cross_attention.py`` (to_qk / to_v
+    projections, one similarity softmaxed along each axis) and ``ops/mlp.py``
+    over all tokens forward, kernels 14 and 15 backward.
     """
 
     def __init__(self, feat_dim: int, hidden_dim: int, num_heads: int):
@@ -126,7 +125,7 @@ class CrossAttentionBlock(nn.Module):
         n0, n1 = splits
         if n0 + n1 != n:
             raise ValueError(f"splits {tuple(splits)} do not sum to {n} tokens")
-        msg = cross_attention(
+        msg = cross_attention_proj(
             x, self.to_qk.weight, self.to_qk.bias, self.to_v.weight, self.to_v.bias,
             mask_to_bias(mask0, b, n0, x.device), mask_to_bias(mask1, b, n1, x.device),
             self.head_dim**-0.5, self.num_heads, n0,
@@ -142,10 +141,12 @@ def _add_residual_mlp(block: nn.Module, feat_dim: int, hidden_dim: int) -> None:
     block.mlp_3 = nn.Linear(2 * feat_dim, feat_dim)
 
 
-def _apply_residual_mlp(block: nn.Module, x: torch.Tensor, msg: torch.Tensor) -> torch.Tensor:
+def _apply_residual_mlp(
+    block: nn.Module, x: torch.Tensor, msg: torch.Tensor, kernels: bool = True
+) -> torch.Tensor:
     """``x + mlp_3(gelu(LN(mlp_0([x, proj(msg)]))))`` through ``ops/mlp.py``."""
     return residual_mlp(
         x, msg, block.proj.weight, block.proj.bias, block.mlp_0.weight,
         block.mlp_0.bias, block.mlp_ln.weight, block.mlp_ln.bias,
-        block.mlp_3.weight, block.mlp_3.bias, eps=block.mlp_ln.eps,
+        block.mlp_3.weight, block.mlp_3.bias, eps=block.mlp_ln.eps, kernels=kernels,
     )

@@ -31,7 +31,11 @@ class SegNetViTConfig:
 
 
 class SegNetViT(nn.Module):
-    """Per-keypoint landmark classifier (recognition head)."""
+    """Per-keypoint landmark classifier (recognition head).
+
+    ``use_kernels = False`` sends every block, forward and backward, through
+    the kernels' plain versions (the A/B check on the card).
+    """
 
     def __init__(self, config: SegNetViTConfig = SegNetViTConfig()):
         super().__init__()
@@ -46,6 +50,7 @@ class SegNetViT(nn.Module):
         self.seg_0 = nn.Linear(c.hidden_dim, c.output_dim)
         self.seg_ln = nn.LayerNorm(c.output_dim, eps=1e-6)
         self.seg_3 = nn.Linear(c.output_dim, c.n_class)
+        self.use_kernels = True
 
     def forward(
         self,
@@ -56,7 +61,7 @@ class SegNetViT(nn.Module):
         enc = self.kenc(norm_keypoints)
         x = self.input_proj(descriptors)
         for block in self.gnn:
-            x = block(x, enc, mask)
+            x = block(x, enc, mask, kernels=self.use_kernels)
         y = self.seg_0(x)
         y = F.layer_norm(
             y.float(), (y.shape[-1],), self.seg_ln.weight.float(),

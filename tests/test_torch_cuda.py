@@ -19,7 +19,10 @@ cross-attention with AdaGML's statistics): messages within 2% of their
 scale in bf16 and 1e-4 in f32 (products on the CUDA cores; summation order
 only), statistics within 1e-3 of their scale in bf16 and 1e-4 in f32
 (both sides sum the same normalized f32 weights; the logits are summed in
-another order). The f32 residual MLP within 1e-4 of its scale.
+another order). The f32 residual MLP within 1e-4 of its scale. Backward
+kernels 13-15: bf16 outputs within 2% of their scale, f32 reductions
+within 1%; a training step's f32 master gradients, kernel path against
+plain path, within 3% of each tensor's scale.
 """
 
 import pytest
@@ -27,7 +30,19 @@ import torch
 
 from pram_tpu_torch.geometry.camera import Camera, project
 from pram_tpu_torch.geometry.rotations import so3_exp
-from pram_tpu_torch.ops import attention, attention_qkv, cross_attention, mlp, nms, pnp, refine, sinkhorn, stem
+from pram_tpu_torch.ops import (
+    attention,
+    attention_bwd,
+    attention_qkv,
+    cross_attention,
+    mlp,
+    mlp_bwd,
+    nms,
+    pnp,
+    refine,
+    sinkhorn,
+    stem,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -406,3 +421,116 @@ def test_packed_attention_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="rows"):  # a transposed view
         cross_attention.cross_attention_packed(qk.transpose(1, 2), qk[:, :128], qk, qk[:, :128],
                                                kb256, kb[:, :128], 0.125, 4)
+
+
+def _check_bwd(got, ref, n_bf16):
+    """Backward outputs: the first n_bf16 (bf16) within 2% of their scale,
+    the f32 reductions within 1% (chip_smoke.py's BWD_TOL, BWD_F32_TOL)."""
+    for i, (a, r) in enumerate(zip(got, ref)):
+        assert _rel_err(a, r) <= (0.02 if i < n_bf16 else 0.01), i
+
+
+@pytest.mark.parametrize("b,splits", [(32, (512,)), (2, (512, 1024)), (3, (64, 192))])
+def test_self_attention_bwd_kernel(dev, b, splits):
+    n = sum(splits)
+    g = torch.Generator().manual_seed(n + 7)
+    qkv = _rand(g, b, n, 768).to(dev, torch.bfloat16)
+    ang = _rand(g, b, n, 32)
+    cos = torch.cos(ang).repeat_interleave(2, -1).to(dev)
+    sin = torch.sin(ang).repeat_interleave(2, -1).to(dev)
+    mask = torch.rand(b, n, generator=g) > 0.2
+    mask[1, splits[0]:] = False  # padded tokens to the end of the frame
+    kb = attention.mask_to_bias(mask, b, n, "cpu").to(dev)
+    args = (qkv, cos, sin, kb, _rand(g, b, n, 256).to(dev, torch.bfloat16), 64**-0.5, 4)
+    before = attention_bwd.LAUNCHES["self_attention_bwd"]
+    got = attention_bwd.self_attention_bwd(*args, splits=splits)
+    torch.cuda.synchronize()
+    assert attention_bwd.LAUNCHES["self_attention_bwd"] == before + 1
+    _check_bwd(got, attention_bwd.self_attention_bwd_plain(*args, splits=splits), 1)
+
+
+@pytest.mark.parametrize("b,n0,n1", [(2, 128, 192), (4, 512, 1024)])
+def test_cross_attention_bwd_kernel(dev, b, n0, n1):
+    g = torch.Generator().manual_seed(n0 + n1 + 7)
+    n = n0 + n1
+    qk, v, gg = (_rand(g, b, n, 256).to(dev, torch.bfloat16) for _ in range(3))
+    m0 = torch.rand(b, n0, generator=g) > 0.1
+    m1 = torch.rand(b, n1, generator=g) > 0.3
+    m1[1] = False  # an all-masked key side
+    b0 = attention.mask_to_bias(m0, b, n0, "cpu").to(dev)
+    b1 = attention.mask_to_bias(m1, b, n1, "cpu").to(dev)
+    args = (qk, v, b0, b1, gg, 64**-0.5, 4, n0)
+    before = attention_bwd.LAUNCHES["cross_attention_bwd"]
+    got = attention_bwd.cross_attention_bwd(*args)
+    torch.cuda.synchronize()
+    assert attention_bwd.LAUNCHES["cross_attention_bwd"] == before + 1
+    _check_bwd(got, attention_bwd.cross_attention_bwd_plain(*args), 2)
+
+
+@pytest.mark.parametrize("tokens", [96, 16384])
+def test_residual_mlp_bwd_kernel(dev, tokens):
+    g = torch.Generator().manual_seed(tokens)
+    d = 256
+    x, pm, ct = (_rand(g, 2, tokens // 2, d).to(dev, torch.bfloat16) for _ in range(3))
+    args = (
+        x, pm, ct, _rand(g, 2 * d, 2 * d, scale=(2 * d) ** -0.5).to(dev, torch.bfloat16),
+        _rand(g, 2 * d, scale=0.1).to(dev), (1 + _rand(g, 2 * d, scale=0.1)).to(dev),
+        _rand(g, 2 * d, scale=0.1).to(dev), _rand(g, d, 2 * d, scale=(2 * d) ** -0.5).to(dev, torch.bfloat16),
+    )
+    before = mlp_bwd.LAUNCHES["residual_mlp_bwd"]
+    got = mlp_bwd.residual_mlp_bwd(*args)
+    torch.cuda.synchronize()
+    assert mlp_bwd.LAUNCHES["residual_mlp_bwd"] == before + 1
+    _check_bwd(got, mlp_bwd.residual_mlp_bwd_plain(*args), 2)
+
+
+def test_backward_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    bf = torch.bfloat16
+    qkv = torch.zeros(1, 96, 768, device=dev, dtype=bf)
+    cs = torch.zeros(1, 96, 64, device=dev)
+    kb = torch.zeros(1, 96, device=dev)
+    gg = torch.zeros(1, 96, 256, device=dev, dtype=bf)
+    with pytest.raises(ValueError, match="N %"):
+        attention_bwd.self_attention_bwd(qkv, cs, cs, kb, gg, 0.125, 4)
+    with pytest.raises(ValueError, match="cos/sin"):
+        attention_bwd.self_attention_bwd(qkv[:, :64], None, None, kb[:, :64], gg[:, :64], 0.125, 4)
+    with pytest.raises(ValueError, match="multiple"):
+        attention_bwd.cross_attention_bwd(gg, gg, kb[:, :32], kb[:, 32:], gg, 0.125, 4, 32)
+    with pytest.raises(ValueError, match="tokens %"):
+        x = torch.zeros(1, 40, 256, device=dev, dtype=bf)
+        w0 = torch.zeros(512, 512, device=dev, dtype=bf)
+        v = torch.zeros(512, device=dev)
+        mlp_bwd.residual_mlp_bwd(x, x, x, w0, v, v, v, torch.zeros(256, 512, device=dev, dtype=bf))
+
+
+def test_training_gradients_kernels_vs_plain(dev):
+    """One bf16 step's f32 master gradients of a 2-layer SegNetViT, kernel
+    path against plain path, each within 3% of its scale."""
+    from pram_tpu_torch.models.segnetvit import SegNetViT, SegNetViTConfig
+    from pram_tpu_torch.train.trainer import TrainConfig, cast_forward, seg_metrics
+
+    torch.manual_seed(0)
+    model = SegNetViT(SegNetViTConfig(n_class=17, n_layers=2)).to(dev)
+    g = torch.Generator().manual_seed(5)
+    b, n = 4, 256
+    mask = torch.rand(b, n, generator=g) > 0.1
+    batch = {"gt_seg": torch.randint(0, 17, (b, n), generator=g).to(dev), "mask": mask.to(dev)}
+    descs = _rand(g, b, n, 256).to(dev, torch.bfloat16)
+    nk = (torch.rand(b, n, 2, generator=g) * 2 - 1).to(dev, torch.bfloat16)
+
+    def grads(kernels):
+        model.use_kernels = kernels
+        model.zero_grad(set_to_none=True)
+        out = cast_forward(model, torch.bfloat16, descs, nk, batch["mask"])
+        seg_metrics(out["prediction"].float(), batch, TrainConfig())[0].backward()
+        return {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    before = dict(attention_bwd.LAUNCHES, **mlp_bwd.LAUNCHES)
+    gk = grads(True)
+    after = dict(attention_bwd.LAUNCHES, **mlp_bwd.LAUNCHES)
+    assert after["self_attention_bwd"] - before["self_attention_bwd"] == 2
+    assert after["residual_mlp_bwd"] - before["residual_mlp_bwd"] == 2
+    gp = grads(False)
+    for k in gp:
+        assert gk[k].dtype == torch.float32
+        assert _rel_err(gk[k], gp[k]) <= 0.03, k

@@ -8,7 +8,9 @@ flax weights, and runs the four slices on the CPU: a 2-layer SegNetViT
 with the NN matcher, then a 2-layer GML with projection refinement, the
 same with the first 2 layers of the trained Aachen AdaGML
 (weights/adagml_aachen.msgpack), then SFD2 extraction
-(weights/sfd2_rendered.msgpack) on one small rendered view.
+(weights/sfd2_rendered.msgpack) on one small rendered view, then two
+augmented training steps of the first layer of the rendered SegNetViT on
+that view through ``Trainer``.
 """
 
 import os
@@ -34,6 +36,12 @@ SCRIPT = textwrap.dedent(
             if name.split(".")[0] in BLOCKED:
                 raise ImportError(f"fenced: {name}")
             return None
+
+    # torch's optimizers import torch._dynamo, which asks find_spec about
+    # optional packages (sklearn among them): a missing package answers None
+    # there, the fence would raise, so it is imported first; the check
+    # below still sees anything it loads
+    import torch._dynamo
 
     sys.meta_path.insert(0, Fence())
     preloaded = BLOCKED & {m.split(".")[0] for m in sys.modules}
@@ -121,6 +129,20 @@ SCRIPT = textwrap.dedent(
     assert feats["score_map"].shape == (1, 120, 160)
     assert feats["descriptors"].shape == (1, 64, 128) and feats["seg_descriptors"].shape == (1, 64, 256)
     assert int(feats["keypoints"].mask.sum()) > 0 and torch.isfinite(feats["descriptors"]).all()
+
+    from pram_tpu_torch.train.augmented import make_augmented_train_step
+    from pram_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    rec = load_segnetvit("weights/segnetvit_rendered.msgpack", SegNetViTConfig(n_class=113, n_layers=1),
+                         device="cpu")
+    tcfg = TrainConfig(lr=1e-3)
+    trainer = Trainer(rec, tcfg, log_fn=lambda s: None, step_fn=make_augmented_train_step(rec, sfd2, tcfg))
+    kp = feats["keypoints"]
+    batch = {"image": torch.from_numpy(img[None]), "keypoints": kp.xy,
+             "norm_keypoints": kp.xy / torch.tensor([160.0, 120.0]) - 0.5,
+             "gt_seg": torch.arange(64)[None], "mask": kp.mask}
+    means = trainer.process_epoch([batch, batch])
+    assert trainer.state.iteration == 2 and np.isfinite(means["loss"])
     leaked = BLOCKED & {m.split(".")[0] for m in sys.modules}
     assert not leaked, leaked
     print("FENCE OK", len(names))
