@@ -99,6 +99,31 @@ Phases, each printed with its elapsed seconds:
                 step; no other), the loss finite and falling; steps/s
                 (median of 3 runs of 8) with the stages by CUDA events; the
                 A/B again after the steps, reported.
+17. int8 setup  the int8 image slice's RenderedGuard in bf16 (bench.py's
+                default, BENCH_INT8=1 with PRAM_INT8_CONV, PRAM_INT8_MLP and
+                PRAM_INT8_PROJ on): the int8 SFD2 calibrated on the 4
+                calibration views from the bf16 weights, SegNetViT and GML
+                with int8 projections and MLPs, the map built on the card
+                through the int8 extractor.
+18. int8 kernels
+                kernels 16-19 against their plain versions on the card, on
+                the real inputs of one uncounted int8 pipeline pass of the
+                32 noisy queries: the int8 MLP (16) at 32 x 512 and 32 x 1536
+                tokens, the int8 self-attention projection (17) at 32 x 512
+                and at GML's splits, the cross-attention one at 32 x (512 +
+                1024), the int8 conv (18) on each of the extractor's 14
+                int8 3x3 layers with both tails; the conv pair (19) on the
+                float extractor's conv3a + conv3b at 32 x 120 x 160; the
+                yardsticks (SDPA, cuDNN).
+19. int8 slice  RenderedGuard.recall on the 32 noisy queries through the
+                int8 path, counted: kernels 16, 17 (self, cross) and 18
+                exactly 33, 24, 9 and 14 launches (12 at the TPU kernel's
+                gates, conv2a and convPa_3 with the XLA route's tail), 1, 2
+                and 5 none, 3, 4, 6-9 as on the float image slice;
+                recall@5cm/5deg 1.0; timed by stage.
+20. int8 A/B    the int8 extractor's kernel path against its plain path on
+                4 views (the extraction A/B bounds in bf16), and against the
+                float extractor (descriptor cosine >= 0.99).
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Any failed
@@ -121,6 +146,7 @@ PHASES = {}
 # card peaks (NVIDIA H100 SXM data sheet, dense): bytes/s and ops/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
+INT8_TENSOR_OPS = 1979e12
 F32_FLOPS = 67e12
 
 # tolerances of kernel vs plain version (reasons in PERF.md)
@@ -188,6 +214,15 @@ BWD_F32_TOL = 0.01
 # on its chip, ROUND_NOTES.md)
 GRAD_AB_TOL = 0.03
 TRAIN_STEPS = 20
+# int8 kernels vs their plain versions: the integer sums are exact on both
+# sides and the quantizers divide alike; the MLP's and the attention's f32
+# statistics are summed in another order (a GELU output or a softmax
+# weight one bf16 step apart), so 2% of scale as for their bf16 twins; the
+# conv kernel's tails round each operation as the plain version does, so
+# its outputs are equal but for rare FMA-free rounding ties: >= 99.9% equal
+INT8_TOL = 0.02
+CONV_EQUAL_SHARE = 0.999
+INT8_FLOAT_COS = 0.99  # int8 extractor vs float extractor, descriptor cosine min
 
 
 def log(msg: str) -> None:
@@ -226,6 +261,12 @@ def bound_ms(n_bytes: float, ops: float, peak_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_mixed_ms(n_bytes: float, int8_ops: float, bf16_ops: float):
+    """bound_ms for work whose products are partly int8 and partly bf16: the
+    operations take int8_ops / the int8 peak + bf16_ops / the bf16 peak."""
+    return bound_ms(n_bytes, int8_ops * BF16_TENSOR_FLOPS / INT8_TENSOR_OPS + bf16_ops, BF16_TENSOR_FLOPS)
 
 
 def require(cond: bool, what: str) -> None:
@@ -293,6 +334,8 @@ def main() -> int:
         RenderedGuard,
         apply_noise,
         extraction_ab_check,
+        extraction_agreement,
+        load_extractor,
         render_views,
     )
     from pram_tpu_torch.geometry.camera import Camera, project
@@ -303,6 +346,8 @@ def main() -> int:
     from pram_tpu_torch.models.convert import load_adagml, load_gml, load_segnetvit, load_sfd2
     from pram_tpu_torch.models.gml import GMLConfig
     from pram_tpu_torch.models.segnetvit import SegNetViTConfig
+    from pram_tpu_torch.models import sfd2_int8
+    from pram_tpu_torch.models.sfd2 import extract as sfd2_extract
     from pram_tpu_torch.models.sfd2 import preprocess_image
     from pram_tpu_torch.train.augmented import make_augmented_train_step
     from pram_tpu_torch.train.losses import seg_loss_weighted
@@ -312,6 +357,8 @@ def main() -> int:
         attention,
         attention_bwd,
         attention_qkv,
+        conv_int8,
+        convpair,
         cross_attention,
         keypoints,
         mlp,
@@ -328,6 +375,7 @@ def main() -> int:
         attention.LAUNCHES, mlp.LAUNCHES, pnp.LAUNCHES, cross_attention.LAUNCHES,
         sinkhorn.LAUNCHES, refine.LAUNCHES, stem.LAUNCHES, nms.LAUNCHES,
         attention_qkv.LAUNCHES, attention_bwd.LAUNCHES, mlp_bwd.LAUNCHES,
+        conv_int8.LAUNCHES, convpair.LAUNCHES,
     )
     gml_kernels = ("self_attention", "residual_mlp", "ransac_score", "gn_polish",
                    "cross_attention", "sinkhorn", "refine_nn")
@@ -336,6 +384,9 @@ def main() -> int:
     ada_kernels = ("self_attention_qkv", "cross_attention_packed", "self_attention_qkv_blocked")
     # kernels 13-15: the backward kernels, on the training slice only (14 on no path)
     train_kernels = ("self_attention_bwd", "cross_attention_bwd", "residual_mlp_bwd")
+    # kernels 16-19: the int8 image slice's (16-18) and the conv pair (19, on no path)
+    int8_kernels = ("residual_mlp_int8", "self_attention_int8", "cross_attention_int8",
+                    "conv3x3_int8", "fused_conv_pair")
 
     def reset_counts():
         for c in counters:
@@ -750,7 +801,7 @@ def main() -> int:
     launches = read_counts()
     log(f"GML slice launches: {launches}")
     for name, count in launches.items():
-        if name not in ("fused_stem", "nms") + ada_kernels + train_kernels:  # later slices' kernels
+        if name not in ("fused_stem", "nms") + ada_kernels + train_kernels + int8_kernels:  # later slices' kernels
             require(count > 0, f"kernel {name} was not launched on the GML slice")
     require(tuple(gres_gpu.qvec.shape) == (batch, 4), "bad pose batch shape")
     require(bool(torch.isfinite(gres_gpu.tvec).all()), "non-finite poses")
@@ -798,6 +849,7 @@ def main() -> int:
     t = time.perf_counter()
     guard = RenderedGuard(batch=batch, device=dev, dtype=bf16)
     torch.cuda.synchronize()
+    image_map_points = guard.scene.map.num_points
     log(f"rendered map: {guard.scene.map.num_points} points, {guard.scene.map.num_frames} frames, "
         f"n_class {guard.n_class}")
     q_imgs, q_qvecs, q_tvecs = render_views(batch, 11, guard.scene.world)
@@ -883,7 +935,7 @@ def main() -> int:
     launches = read_counts()
     log(f"image slice launches: {launches}")
     for name, count in launches.items():
-        if name not in ada_kernels + train_kernels:
+        if name not in ada_kernels + train_kernels + int8_kernels:
             require(count > 0, f"kernel {name} was not launched on the image slice")
     log(f"image slice on card: {json.dumps(metrics)}")
     require(metrics["n_queries"] == batch, "image slice did not localize every query")
@@ -1162,7 +1214,7 @@ def main() -> int:
                  "gn_polish", "refine_nn"):
         require(launches[name] > 0, f"kernel {name} was not launched on the AdaGML slice")
     for name in ("self_attention", "cross_attention", "sinkhorn", "self_attention_qkv_blocked",
-                 "fused_stem", "nms") + train_kernels:
+                 "fused_stem", "nms") + train_kernels + int8_kernels:
         require(launches[name] == 0, f"kernel {name} is not on the AdaGML slice but launched")
 
     def aachen_outcome(qs, res):
@@ -1570,21 +1622,294 @@ def main() -> int:
     log(f"gradient A/B after the {TRAIN_STEPS + 24} steps: {json.dumps(grad_ab())}")
     phase("train_slice", t)
 
+    # ---- 17. the int8 image slice's guard: bench.py's default extractor
+    t = time.perf_counter()
+    del trainer, rec, t_sfd2
+    torch.cuda.empty_cache()
+    guard8 = RenderedGuard(batch=batch, device=dev, dtype=bf16, int8=True, int8_mlp=True, int8_proj=True)
+    torch.cuda.synchronize()
+    log(f"int8 rendered map: {guard8.scene.map.num_points} points, {guard8.scene.map.num_frames} frames "
+        f"(float guard: {image_map_points} points)")
+    phase("int8_setup", t)
+
+    # ---- 18. kernels 16-19 vs plain versions on the real inputs of one
+    # uncounted int8 pipeline pass of the 32 queries
+    t = time.perf_counter()
+    recorded = {}
+
+    def record(module, name):
+        real = getattr(module, name)
+        calls = recorded.setdefault(name, [])
+
+        def wrapped(*a, **kw):
+            calls.append((a, kw))
+            return real(*a, **kw)
+
+        setattr(module, name, wrapped)
+        return module, name, real
+
+    patched = [record(sfd2_int8, "conv3x3_int8"), record(mlp, "residual_mlp_int8"),
+               record(attention, "self_attention_int8"), record(cross_attention, "cross_attention_int8")]
+    try:
+        guard8.pipeline(torch.Generator().manual_seed(7), q_imgs)
+    finally:
+        for module, name, real in patched:
+            setattr(module, name, real)
+    torch.cuda.synchronize()
+
+    def first(name, pred):
+        return next((a, kw) for a, kw in recorded[name] if pred(a, kw))
+
+    with torch.no_grad():
+        # kernel 16 at SegNetViT's 32 x 512 and GML's 32 x 1536 tokens
+        w_elems = 256 * 256 + 512 * 512 + 256 * 512
+        mlp_ms = {}
+        for n_tok in (512, 1536):
+            m8, mkw = first("residual_mlp_int8", lambda a, kw, n=n_tok: a[0].shape[1] == n)
+            err = check_scaled(f"residual_mlp_int8 ({batch} x {n_tok})", mlp.residual_mlp_int8(*m8, **mkw),
+                               mlp.residual_mlp_int8_plain(*m8, **mkw), INT8_TOL)
+            mlp_ms[n_tok] = cuda_ms(torch, lambda: mlp.residual_mlp_int8(*m8, **mkw))
+        tok8 = batch * 1536
+        bnd, by = bound_ms(3 * tok8 * 256 * 2 + w_elems + (256 * 2 + 512 * 4 + 256 * 2) * 4,
+                           2.0 * tok8 * w_elems, INT8_TENSOR_OPS)
+        rows["residual_mlp_int8"] = dict(
+            name="residual_mlp_int8", route="cuda", source="pram_tpu_torch/csrc/mlp_int8.cu",
+            replaces="pram_tpu/ops/mlp_pallas.py:241",
+            launches=None, max_abs_err=err, ms=mlp_ms[1536],
+            plain_ms=cuda_ms(torch, lambda: mlp.residual_mlp_int8_plain(*m8, **mkw), iters=5),
+            bound_ms=bnd, bound_by=by, library_ms=None,
+        )
+        log(f"residual_mlp_int8: {mlp_ms[512]:.4f} ms at {batch} x 512 tokens, {mlp_ms[1536]:.4f} ms at "
+            f"{batch} x 1536")
+
+        # kernel 17, self-attention: SegNetViT (32 x 512) and GML's splits
+        self_ms = {}
+        for label, pred in (("512", lambda a, kw: a[9] is None),
+                            ("(512, 1024)", lambda a, kw: a[9] is not None)):
+            s8 = first("self_attention_int8", pred)[0]
+            err = check_scaled(f"self_attention_int8 ({batch} x {label})", attention.self_attention_int8(*s8),
+                               attention.self_attention_int8_plain(*s8), INT8_TOL)
+            self_ms[label] = cuda_ms(torch, lambda: attention.self_attention_int8(*s8))
+        xs8, wq8, ws8, b8, cos8, sin8, kb8, sc8, heads8, splits8 = s8
+        n8 = xs8.shape[1]
+        hd8 = 256 // heads8
+        qkv8 = attention.int8_projection_plain(xs8, wq8, ws8, b8)
+        qkv8 = qkv8.reshape(batch, n8, heads8, hd8, 3).permute(0, 2, 1, 3, 4)
+        enc8 = (cos8[:, None], sin8[:, None])
+        q8 = attention.apply_rotary(enc8, qkv8[..., 0].float()).to(bf16).contiguous()
+        k8 = attention.apply_rotary(enc8, qkv8[..., 1].float()).to(bf16).contiguous()
+        v8 = qkv8[..., 2].contiguous()
+        side8 = torch.arange(n8, device=dev) >= splits8[0]
+        am8 = (side8[:, None] == side8[None, :])[None, None] & (kb8 > -0.5)[:, None, None, :]
+        lib_ms = cuda_ms(torch, lambda: sdpa(q8, k8, v8, attn_mask=am8, scale=sc8))
+        tok8 = batch * n8
+        s_bytes = tok8 * 256 * 2 * 2 + 768 * 256 + 768 * 4 * 2 + 2 * tok8 * 64 * 4 + tok8 * 4
+        bnd, by = bound_mixed_ms(s_bytes, 2 * tok8 * 256 * 768,
+                                 2 * 2 * batch * heads8 * hd8 * sum(n * n for n in splits8))
+        rows["self_attention_int8"] = dict(
+            name="self_attention_int8", route="cuda", source="pram_tpu_torch/csrc/proj_int8.cu",
+            replaces="pram_tpu/ops/attention_pallas.py:780",
+            launches=None, max_abs_err=err, ms=self_ms["(512, 1024)"],
+            plain_ms=cuda_ms(torch, lambda: attention.self_attention_int8_plain(*s8), iters=5),
+            bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+        )
+        log(f"self_attention_int8: {self_ms['512']:.4f} ms at {batch} x 512, {self_ms['(512, 1024)']:.4f} ms "
+            f"at {batch} x (512 + 1024)")
+
+        # kernel 17, cross-attention at GML's 32 x (512 + 1024)
+        c8 = first("cross_attention_int8", lambda a, kw: True)[0]
+        err = check_scaled(f"cross_attention_int8 ({batch} x (512 + 1024))",
+                           cross_attention.cross_attention_int8(*c8),
+                           cross_attention.cross_attention_int8_plain(*c8), INT8_TOL)
+        xc, wqk8, wsqk8, bqk8, wv8, wsv8, bv8, bb0, bb1, csc, cheads, cn0 = c8
+        cn1 = xc.shape[1] - cn0
+        qkc = attention.int8_projection_plain(xc, wqk8, wsqk8, bqk8).reshape(batch, -1, cheads, 64).transpose(1, 2)
+        vc = attention.int8_projection_plain(xc, wv8, wsv8, bv8).reshape(batch, -1, cheads, 64).transpose(1, 2)
+        qc0, qc1 = qkc[:, :, :cn0].contiguous(), qkc[:, :, cn0:].contiguous()
+        vc0, vc1 = vc[:, :, :cn0].contiguous(), vc[:, :, cn0:].contiguous()
+        mc0, mc1 = (bb0 > -0.5)[:, None, None, :], (bb1 > -0.5)[:, None, None, :]
+
+        def two_sdpa8():
+            sdpa(qc0, qc1, vc1, attn_mask=mc1, scale=csc)
+            sdpa(qc1, qc0, vc0, attn_mask=mc0, scale=csc)
+
+        tokc = batch * (cn0 + cn1)
+        c_bytes = 2 * tokc * 256 * 2 + 2 * 256 * 256 + 4 * 256 * 4 + tokc * 4
+        bnd, by = bound_mixed_ms(c_bytes, 2 * tokc * 256 * 512, 3 * 2 * batch * cheads * 64 * cn0 * cn1)
+        rows["cross_attention_int8"] = dict(
+            name="cross_attention_int8", route="cuda", source="pram_tpu_torch/csrc/proj_int8.cu",
+            replaces="pram_tpu/ops/attention_pallas.py:929",
+            launches=None, max_abs_err=err,
+            ms=cuda_ms(torch, lambda: cross_attention.cross_attention_int8(*c8)),
+            plain_ms=cuda_ms(torch, lambda: cross_attention.cross_attention_int8_plain(*c8), iters=5),
+            bound_ms=bnd, bound_by=by, library_ms=cuda_ms(torch, two_sdpa8),
+        )
+
+        # kernel 18 on each int8 3x3 layer of one extraction, with both tails
+        conv_calls = recorded["conv3x3_int8"]
+        conv = torch.nn.functional.conv2d
+        k_ms = p_ms = c_lib_ms = 0.0
+        c_bytes = c_ops = 0.0
+        worst = 0.0
+        log(f"conv3x3_int8: {len(conv_calls)} launches in one extraction")
+        for (xc8, wqc, sac, wsc, bc), kw in conv_calls:
+            stride, relu, own_tail = kw["stride"], kw["relu"], kw["bf16_tail"]
+            x_coff = kw.get("x_coff", 0)
+            cin, cout = wqc.shape[2], wqc.shape[3]
+            xin = xc8[..., x_coff:x_coff + cin]
+            for tail in (own_tail, not own_tail):
+                ckw = dict(stride=stride, relu=relu, bf16_tail=tail)
+                got = conv_int8.conv3x3_int8(xc8, wqc, sac, wsc, bc, x_coff=x_coff, **ckw)
+                ref = conv_int8.conv3x3_int8_plain(xin, wqc, sac, wsc, bc, **ckw)
+                equal = (got == ref).float().mean().item()
+                e = (got.float() - ref.float()).abs().max().item()
+                worst = max(worst, e)
+                require(equal >= CONV_EQUAL_SHARE and e <= INT8_TOL * ref.float().abs().max().item(),
+                        f"conv3x3_int8 {tuple(xin.shape)} -> {cout} (stride {stride}, "
+                        f"{'bf16' if tail else 'f32'} tail) disagrees with its plain version: "
+                        f"{equal:.5f} equal, max abs err {e:.3e}")
+            own = dict(stride=stride, relu=relu, bf16_tail=own_tail)
+            k_ms += cuda_ms(torch, lambda: conv_int8.conv3x3_int8(xc8, wqc, sac, wsc, bc, x_coff=x_coff, **own),
+                            iters=10)
+            p_ms += cuda_ms(torch, lambda: conv_int8.conv3x3_int8_plain(xin, wqc, sac, wsc, bc, **own),
+                            iters=2, warmup=1)
+            # yardstick: cuDNN's bf16 conv of the same shape (dequantized weights), bias and ReLU
+            wf = (wqc.float() * wsc.float()).permute(3, 2, 0, 1).to(bf16).contiguous(memory_format=torch.channels_last)
+            xnchw = xin.contiguous().permute(0, 3, 1, 2)
+            bfb = bc.to(bf16)
+            c_lib_ms += cuda_ms(torch, lambda: torch.relu(conv(xnchw, wf, bfb, stride=stride, padding=1)),
+                                iters=10)
+            b_, h_, w_ = xin.shape[:3]
+            ho_, wo_ = (h_ - 1) // stride + 1, (w_ - 1) // stride + 1
+            c_bytes += b_ * h_ * w_ * cin * 2 + b_ * ho_ * wo_ * cout * 2 + 9 * cin * cout + 8 * cout
+            c_ops += 2.0 * b_ * ho_ * wo_ * cout * 9 * cin
+            log(f"  {tuple(xin.shape)} -> {cout}, stride {stride}, {'bf16' if own_tail else 'f32'} tail: "
+                f"both tails equal to the plain version")
+        bnd, by = bound_ms(c_bytes, c_ops, INT8_TENSOR_OPS)
+        rows["conv3x3_int8"] = dict(
+            name="conv3x3_int8", route="cuda", source="pram_tpu_torch/csrc/conv_int8.cu",
+            replaces="pram_tpu/ops/conv_int8_pallas.py:269",
+            launches=None, max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
+            bound_ms=bnd, bound_by=by, library_ms=None,
+        )
+        log(f"conv3x3_int8: {k_ms:.4f} ms for the {len(conv_calls)} layers of a batch; cuDNN's bf16 "
+            f"convolutions of the same shapes {c_lib_ms:.4f} ms (a footnote, not library_ms: no PyTorch "
+            f"call computes the s8 function)")
+        del recorded, conv_calls
+
+        # kernel 19 on the float extractor's conv3a + conv3b at 32 x 120 x 160
+        sf = load_sfd2(SFD2_W, device=dev, dtype=bf16)
+        xq8 = preprocess_image(torch.from_numpy(q_imgs).to(dev)).to(bf16).contiguous()
+        st = stem.fused_stem(xq8, *sf.conv1a.stem_args(), *sf.conv1b.stem_args())
+        xin = sf.conv2b(sf.conv2a(st.permute(0, 3, 1, 2))).permute(0, 2, 3, 1).contiguous()
+        p_args = (xin, *sf.conv3a.stem_args(), *sf.conv3b.stem_args())
+        err = check_scaled(f"fused_conv_pair ({tuple(xin.shape)})", convpair.fused_conv_pair(*p_args),
+                           convpair.fused_conv_pair_plain(*p_args), INT8_TOL)
+        k3a, b3a = stem.fold_bn(*sf.conv3a.stem_args()[:2], *sf.conv3a.stem_args()[2])
+        k3b, b3b = stem.fold_bn(*sf.conv3b.stem_args()[:2], *sf.conv3b.stem_args()[2])
+        cl = torch.channels_last
+        k3a, k3b = k3a.to(bf16).contiguous(memory_format=cl), k3b.to(bf16).contiguous(memory_format=cl)
+        b3a, b3b = b3a.to(bf16), b3b.to(bf16)
+        xinc = xin.permute(0, 3, 1, 2)
+
+        def cudnn_pair():
+            return torch.relu(conv(torch.relu(conv(xinc, k3a, b3a, padding=1)), k3b, b3b, padding=1))
+
+        px = xin.shape[0] * xin.shape[1] * xin.shape[2]
+        bnd, by = bound_ms(px * (128 + 256) * 2 + 9 * (128 * 256 + 256 * 256) * 2 + 2 * 256 * 4,
+                           2.0 * px * 9 * (128 * 256 + 256 * 256), BF16_TENSOR_FLOPS)
+        rows["fused_conv_pair"] = dict(
+            name="fused_conv_pair", route="cuda", source="pram_tpu_torch/csrc/conv_pair.cu",
+            replaces="pram_tpu/ops/convpair_pallas.py:123",
+            launches=None, max_abs_err=err,
+            ms=cuda_ms(torch, lambda: convpair.fused_conv_pair(*p_args)),
+            plain_ms=cuda_ms(torch, lambda: convpair.fused_conv_pair_plain(*p_args), iters=5),
+            bound_ms=bnd, bound_by=by, library_ms=cuda_ms(torch, cudnn_pair),
+        )
+        del sf, xq8, st, xin, p_args, xinc
+    phase("int8_kernels", t)
+
+    # ---- 19. the int8 image slice, counted
+    t = time.perf_counter()
+    reset_counts()
+    metrics8 = guard8.recall(n_queries=batch, noise=True, seed=11)
+    torch.cuda.synchronize()
+    int8_launches = read_counts()
+    log(f"int8 image slice launches: {int8_launches}")
+    want = {name: image_launches[name] for name in ("ransac_score", "gn_polish", "sinkhorn", "refine_nn",
+                                                      "fused_stem", "nms")}
+    n_rec, n_gml = guard8.rec.config.n_layers, guard8.gml.config.n_layers
+    want.update(residual_mlp_int8=n_rec + 2 * n_gml, self_attention_int8=n_rec + n_gml,
+                cross_attention_int8=n_gml, conv3x3_int8=14)
+    for name, count in int8_launches.items():
+        require(count == want.get(name, 0),
+                f"kernel {name}: {count} launches on the int8 image slice, expected {want.get(name, 0)}")
+    log(f"int8 image slice on card: {json.dumps(metrics8)}")
+    require(metrics8["n_queries"] == batch, "int8 image slice did not localize every query")
+    require(metrics8["recall"] == 1.0, "int8 image slice recall@5cm/5deg below 1.0")
+
+    def one_batch8():
+        guard8.pipeline(gen.manual_seed(7), q_imgs)
+        torch.cuda.synchronize()
+
+    def one_extract8():
+        guard8.extract(q_imgs, 512)
+        torch.cuda.synchronize()
+
+    def one_front8():
+        guard8.front(q_imgs)
+        torch.cuda.synchronize()
+
+    batch8_s, ext8_s, front8_s = median_s(one_batch8), median_s(one_extract8), median_s(one_front8)
+    with torch.no_grad():
+        x_dev = preprocess_image(torch.as_tensor(q_imgs).to(dev, torch.float32)).to(bf16).contiguous()
+        fwd8_ms = cuda_ms(torch, lambda: guard8.sfd2(x_dev), iters=5)
+    log(f"int8 image slice: batch {batch} in {batch8_s * 1e3:.2f} ms (median of 5, host clock, synchronized) "
+        f"= {batch / batch8_s:.1f} queries/s; extraction {ext8_s * 1e3:.2f} ms (the int8 SFD2 forward "
+        f"{fwd8_ms:.3f} ms by CUDA events), recognition {(front8_s - ext8_s) * 1e3:.2f} ms, localization "
+        f"{(batch8_s - front8_s) * 1e3:.2f} ms; float image slice of this run {batch_s * 1e3:.2f} ms "
+        f"(extraction {ext_s * 1e3:.2f}, recognition {(front_s - ext_s) * 1e3:.2f}, localization "
+        f"{(batch_s - front_s) * 1e3:.2f}; SFD2 forward {fwd_ms:.3f} ms)")
+    phase("int8_slice", t)
+
+    # ---- 20. the int8 extractor's A/B: kernel path vs plain path, int8 vs float
+    t = time.perf_counter()
+    ab8 = extraction_ab_check(n_images=4, seed=13, device=dev, dtype=bf16, int8=True)
+    log(f"int8 extraction A/B (bf16, kernel path vs plain path): {json.dumps(ab8)}")
+    require(ab8["kpt_set_agreement"] >= AB_BF16[0] and ab8["desc_cos_min"] >= AB_BF16[1],
+            f"int8 extraction A/B below {AB_BF16}")
+    with torch.no_grad():
+        ab_imgs, _, _ = render_views(4, 13)
+        ab_x = preprocess_image(torch.from_numpy(ab_imgs).to(dev)).to(bf16)
+        kw8 = dict(max_keypoints=512, conf_th=1e-4)
+        f_int8 = sfd2_extract(guard8.sfd2, ab_x, **kw8)
+        f_float = sfd2_extract(load_extractor(dev, bf16), ab_x, **kw8)
+    vs_float = extraction_agreement(f_int8, f_float)
+    log(f"int8 extractor vs float extractor (bf16, 4 views): {json.dumps(vs_float)}")
+    require(vs_float["desc_cos_min"] >= INT8_FLOAT_COS,
+            f"int8 extractor's descriptors below cosine {INT8_FLOAT_COS} of the float extractor's")
+    del guard8
+    phase("int8_ab", t)
+
     table = []
     for name in ("self_attention", "residual_mlp", "ransac_score", "gn_polish",
                  "cross_attention", "sinkhorn", "refine_nn", "fused_stem", "nms",
                  "self_attention_qkv", "cross_attention_packed", "self_attention_qkv_blocked",
-                 "self_attention_bwd", "cross_attention_bwd", "residual_mlp_bwd"):
+                 "self_attention_bwd", "cross_attention_bwd", "residual_mlp_bwd",
+                 "residual_mlp_int8", "self_attention_int8", "cross_attention_int8", "conv3x3_int8",
+                 "fused_conv_pair"):
         r = rows[name]
         # kernels 1-7 counted on the GML slice, 8-9 on the image slice, 10-12
         # on the AdaGML slice (12 is on no path), 13-15 on the training slice
-        # (14 is on no path)
+        # (14 is on no path), 16-19 on the int8 image slice (19 is on no path)
         if name in gml_kernels:
             r["launches"] = gml_launches[name]
         elif name in ("fused_stem", "nms"):
             r["launches"] = image_launches[name]
         elif name in train_kernels:
             r["launches"] = train_launches[name]
+        elif name in int8_kernels:
+            r["launches"] = int8_launches[name]
         else:
             r["launches"] = ada_launches[name]
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"

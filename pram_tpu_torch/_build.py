@@ -73,6 +73,21 @@ _SIGNATURES = {
     # x, pm, ct, w0, b0, ln_w, ln_b, w3, dx, dpm, dw0, db0, dln_w, dln_b, dw3,
     # db3, y, dh, colsums and partial scratch, tokens, splits, eps, stream
     "pram_residual_mlp_bwd": [_P] * 20 + [_I, _I, _F, _P],
+    # x, msg, wpq, wps, bp, w0q, w0s, b0, ln_w, ln_b, w3q, w3s, b3, out,
+    # tokens, eps, stream
+    "pram_residual_mlp_int8": [_P] * 14 + [_I, _F, _P],
+    # x, wq, ws, b, cos, sin, key_bias, qkv, qr and kr scratch, out, B, N,
+    # heads, scale, side lengths (host int array), n_sides, stream
+    "pram_self_attention_int8": [_P] * 11 + [_I, _I, _I, _F, _P, _I, _P],
+    # x, wq, ws, b, bias0, bias1, qk and v scratch, out, B, N, n0, heads,
+    # scale, stream
+    "pram_cross_attention_int8": [_P] * 9 + [_I] * 4 + [_F, _P],
+    # x, wq, scale, bias, in_scale, out, B, H, W, cin, x channel stride,
+    # x channel offset, cout, out channel stride, out channel offset,
+    # stride, bf16_tail, relu, stream
+    "pram_conv3x3_int8": [_P] * 4 + [_F, _P] + [_I] * 12 + [_P],
+    # x, w1, b1, w2, b2, mid scratch, out, B, H, W, cin, cmid, cout, stream
+    "pram_conv_pair": [_P] * 7 + [_I] * 6 + [_P],
 }
 
 _LIB = None

@@ -188,6 +188,26 @@ cross_attention_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
 
 }  // namespace
 
+// the attention pass alone, on projections made outside (the int8
+// projections of csrc/proj_int8.cu): qk, v [B, N, 256] bf16
+extern "C" int pram_cross_attention_tail(const void* qk, const void* v,
+                                         const void* bias0, const void* bias1,
+                                         void* out, int B, int N, int n0,
+                                         int heads, float scale, void* stream) {
+  if (heads * HD != DIN || n0 <= 0 || n0 >= N || n0 % QT != 0 ||
+      (N - n0) % QT != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      cross_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)ATTN_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  cross_attention_kernel<<<dim3(N / QT, heads, B), NTHREADS, ATTN_SMEM,
+                           (cudaStream_t)stream>>>(
+      (const bf16*)qk, (const bf16*)v, (const float*)bias0,
+      (const float*)bias1, (bf16*)out, N, n0, scale);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int pram_cross_attention(const void* x, const void* w_qk,
                                     const void* b_qk, const void* w_v,
                                     const void* b_v, const void* bias0,
@@ -202,10 +222,6 @@ extern "C" int pram_cross_attention(const void* x, const void* w_qk,
       cross_proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)PROJ_SMEM);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(cross_attention_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)ATTN_SMEM);
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   const long tokens = (long)B * N;
   cross_proj_kernel<<<dim3((unsigned)(tokens / PT), 8), PTHREADS, PROJ_SMEM,
@@ -215,8 +231,6 @@ extern "C" int pram_cross_attention(const void* x, const void* w_qk,
                            (bf16*)v_scratch);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  cross_attention_kernel<<<dim3(N / QT, heads, B), NTHREADS, ATTN_SMEM, s>>>(
-      (const bf16*)qk_scratch, (const bf16*)v_scratch, (const float*)bias0,
-      (const float*)bias1, (bf16*)out, N, n0, scale);
-  return (int)cudaGetLastError();
+  return pram_cross_attention_tail(qk_scratch, v_scratch, bias0, bias1, out, B,
+                                   N, n0, heads, scale, stream);
 }

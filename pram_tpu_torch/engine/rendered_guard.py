@@ -8,6 +8,13 @@ the renderer's exact ground-truth poses. The map is built by the same
 extractor, on the same device, from 12 rendered reference views. Rendering
 is numpy on the host; nothing is cached to disk.
 
+``int8=True`` swaps the extractor for the int8 one
+(``models/sfd2_int8.py``, the JAX bench's default, ``bench.py:236``): the
+map build and the queries both run through it. ``int8_conv``,
+``int8_mlp`` and ``int8_proj`` stand for ``PRAM_INT8_CONV``,
+``PRAM_INT8_MLP`` and ``PRAM_INT8_PROJ``: the extractor's f32-tail conv
+kernel, and SegNetViT's and GML's int8 MLPs and projections.
+
 Also provides the kernel-vs-plain extraction A/B check
 (:func:`extraction_ab_check`).
 """
@@ -24,8 +31,8 @@ from pram_tpu_torch.geometry.camera import Camera
 from pram_tpu_torch.geometry.rotations import compute_pose_error
 from pram_tpu_torch.maps.device import to_device
 from pram_tpu_torch.maps.packed import _qvec2rotmat_np
-from pram_tpu_torch.maps.rendered import RenderedScene, build_rendered_scene, make_world
-from pram_tpu_torch.models.convert import load_gml, load_segnetvit, load_sfd2
+from pram_tpu_torch.maps.rendered import RenderedScene, build_rendered_scene, make_world, query_pose
+from pram_tpu_torch.models.convert import load_gml, load_segnetvit, load_sfd2, load_sfd2_int8
 from pram_tpu_torch.models.gml import GMLConfig
 from pram_tpu_torch.models.segnetvit import SegNetViTConfig
 from pram_tpu_torch.models.sfd2 import extract, preprocess_image
@@ -53,6 +60,25 @@ def render_views(n: int, seed: int, world=None) -> tuple:
     return tuple(np.stack([q[k] for q in qs]) for k in ("image", "qvec", "tvec"))
 
 
+def calibration_views(world=None) -> np.ndarray:
+    """The int8 extractor's 4 calibration images ``[4, H, W, 3]`` f32 in [0,
+    1]: views at ``query_pose(RandomState(99))``, as the JAX guard renders
+    them (``pram_tpu/engine/rendered_guard.py``)."""
+    world = world if world is not None else make_world(np.random.RandomState(0))
+    rng = np.random.RandomState(99)
+    cam = (FOCAL, FOCAL, WIDTH / 2, HEIGHT / 2)
+    return np.stack([world.render(*query_pose(rng), cam, WIDTH, HEIGHT) for _ in range(4)]).astype(np.float32)
+
+
+def load_extractor(device, dtype, int8: bool = False, int8_conv: bool = True):
+    """The guard's SFD2: float, or int8 calibrated on :func:`calibration_views`
+    (preprocessed in f32) from the weights as cast to ``dtype``."""
+    if not int8:
+        return load_sfd2(SFD2_W, device=device, dtype=dtype)
+    calib = preprocess_image(torch.from_numpy(calibration_views()))
+    return load_sfd2_int8(SFD2_W, calib, device=device, dtype=dtype, conv_kernel=int8_conv)
+
+
 def apply_noise(images: np.ndarray, rng) -> np.ndarray:
     """Eval-time photometric perturbation (brightness/contrast/pixel)."""
     out = np.empty_like(images)
@@ -68,16 +94,24 @@ class RenderedGuard:
     with the port's extractor, and localizes rendered queries.
 
     ``batch`` is the number of queries a pipeline call takes (and the chunk
-    of reference views the map build extracts at once).
+    of reference views the map build extracts at once). ``int8`` and the
+    three switches as in the module's note; all off is the float guard.
     """
 
-    def __init__(self, batch: int = 32, device="cuda", dtype: torch.dtype = torch.bfloat16):
+    def __init__(
+        self, batch: int = 32, device="cuda", dtype: torch.dtype = torch.bfloat16,
+        int8: bool = False, int8_mlp: bool = False, int8_proj: bool = False,
+        int8_conv: bool = True,
+    ):
         self.batch = batch
         self.device = torch.device(device)
         self.dtype = dtype
-        self.sfd2 = load_sfd2(SFD2_W, device=device, dtype=dtype)
+        self.int8 = int8
+        self.sfd2 = load_extractor(device, dtype, int8, int8_conv)
         self.rec = load_segnetvit(REC_W, SegNetViTConfig(n_class=113), device=device, dtype=dtype)
         self.gml = load_gml(GML_W, GMLConfig(), device=device, dtype=dtype)
+        for model in (self.rec, self.gml):
+            model.int8_mlp, model.int8_proj = int8_mlp, int8_proj
 
         def extract_np(images):
             out = [
@@ -235,18 +269,24 @@ def extraction_agreement(fa: dict, fb: dict) -> dict:
 
 @torch.no_grad()
 def extraction_ab_check(
-    n_images: int = 4, seed: int = 13, device="cuda", dtype: torch.dtype = torch.bfloat16
+    n_images: int = 4, seed: int = 13, device="cuda", dtype: torch.dtype = torch.bfloat16,
+    int8: bool = False,
 ) -> dict:
-    """Kernel path (stem and NMS kernels) vs plain path (unfused ConvBNReLU
-    stem, plain NMS) of the extractor on the same ``device``, on ``n_images``
-    rendered views: :func:`extraction_agreement`. On CUDA tensors this is the
-    only caller that asks for the plain path."""
-    model = load_sfd2(SFD2_W, device=device, dtype=dtype)
+    """Kernel path vs plain path of the extractor on the same ``device``, on
+    ``n_images`` rendered views: :func:`extraction_agreement`. The float
+    extractor's kernel path has the stem and NMS kernels, its plain path the
+    unfused ConvBNReLU stem and plain NMS; the int8 extractor's kernel path
+    has the stem, conv and NMS kernels, its plain path their plain versions.
+    On CUDA tensors this is the only caller that asks for the plain path."""
+    model = load_extractor(device, dtype, int8)
     imgs, _, _ = render_views(n_images, seed)
     x = preprocess_image(torch.from_numpy(imgs).to(device)).to(dtype)
     kw = dict(max_keypoints=N_KPTS, conf_th=1e-4)
     fa = extract(model, x, use_nms_kernel=True, **kw)
-    model.use_stem_kernel = False
+    if int8:
+        model.use_kernels = False
+    else:
+        model.use_stem_kernel = False
     fb = extract(model, x, use_nms_kernel=False, **kw)
     out = extraction_agreement(fa, fb)
     out["device"] = str(torch.device(device))

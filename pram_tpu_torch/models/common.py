@@ -14,7 +14,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from pram_tpu_torch.ops import attention, cross_attention, mlp
 from pram_tpu_torch.ops.attention import apply_rotary, mask_to_bias, rotate_half
+from pram_tpu_torch.ops.quant import quant_linear
 from pram_tpu_torch.ops.train_vjp import cross_attention_proj, residual_mlp, self_attention_proj
 
 __all__ = [
@@ -65,6 +67,11 @@ class SelfAttentionBlock(nn.Module):
     (``x + mlp_3(gelu(LN(mlp_0([x, proj(msg)]))))``) forward, kernels 13
     and 15 backward. ``kernels=False`` sends both ways through the plain
     versions (the A/B check on the card).
+
+    ``int8_proj`` and ``int8_mlp`` (inference only) take the int8 kernels
+    (16, 17) instead, where the JAX package takes them
+    (``pram_tpu/models/common.py``): the projection where every side has at
+    most 1024 tokens, the MLP where ``fused_mlp_int8_supported`` holds.
     """
 
     def __init__(self, feat_dim: int, hidden_dim: int, num_heads: int):
@@ -81,18 +88,23 @@ class SelfAttentionBlock(nn.Module):
         mask: Optional[torch.Tensor] = None,
         splits: Optional[Sequence[int]] = None,
         kernels: bool = True,
+        int8_proj: bool = False,
+        int8_mlp: bool = False,
     ) -> torch.Tensor:
         """``splits``: x is a token concatenation of independent sides (GML
         runs both keypoint sets through shared weights); the projections and
         the MLP run over all tokens, attention stays within each side."""
         b, n, _ = x.shape
         cos, sin = encoding if encoding is not None else (None, None)
-        msg = self_attention_proj(
-            x, self.qkv.weight, self.qkv.bias, cos, sin,
-            mask_to_bias(mask, b, n, x.device), self.head_dim**-0.5,
-            self.num_heads, splits, kernels,
-        )
-        return _apply_residual_mlp(self, x, msg, kernels)
+        args = (cos, sin, mask_to_bias(mask, b, n, x.device), self.head_dim**-0.5, self.num_heads, splits)
+        if int8_proj and max(splits if splits is not None else (n,)) <= 1024:
+            _inference_only()
+            wq, ws = _quantized(self, "qkv")
+            fn = attention.self_attention_int8 if kernels else attention.self_attention_int8_plain
+            msg = fn(x, wq, ws, self.qkv.bias, *args)
+        else:
+            msg = self_attention_proj(x, self.qkv.weight, self.qkv.bias, *args, kernels)
+        return _apply_residual_mlp(self, x, msg, kernels, int8_mlp)
 
 
 class CrossAttentionBlock(nn.Module):
@@ -103,7 +115,9 @@ class CrossAttentionBlock(nn.Module):
     Both halves go through the differentiable kernel wrappers of
     ``ops/train_vjp.py``: ``ops/cross_attention.py`` (to_qk / to_v
     projections, one similarity softmaxed along each axis) and ``ops/mlp.py``
-    over all tokens forward, kernels 14 and 15 backward.
+    over all tokens forward, kernels 14 and 15 backward. ``int8_proj`` and
+    ``int8_mlp`` as in :class:`SelfAttentionBlock` (the projections where
+    both sides have at most 1024 tokens).
     """
 
     def __init__(self, feat_dim: int, hidden_dim: int, num_heads: int):
@@ -120,17 +134,26 @@ class CrossAttentionBlock(nn.Module):
         splits: Tuple[int, int],
         mask0: Optional[torch.Tensor] = None,
         mask1: Optional[torch.Tensor] = None,
+        int8_proj: bool = False,
+        int8_mlp: bool = False,
     ) -> torch.Tensor:
         b, n, _ = x.shape
         n0, n1 = splits
         if n0 + n1 != n:
             raise ValueError(f"splits {tuple(splits)} do not sum to {n} tokens")
-        msg = cross_attention_proj(
-            x, self.to_qk.weight, self.to_qk.bias, self.to_v.weight, self.to_v.bias,
-            mask_to_bias(mask0, b, n0, x.device), mask_to_bias(mask1, b, n1, x.device),
-            self.head_dim**-0.5, self.num_heads, n0,
-        )
-        return _apply_residual_mlp(self, x, msg)
+        biases = (mask_to_bias(mask0, b, n0, x.device), mask_to_bias(mask1, b, n1, x.device))
+        args = (*biases, self.head_dim**-0.5, self.num_heads, n0)
+        if int8_proj and max(n0, n1) <= 1024:
+            _inference_only()
+            (wq_qk, ws_qk), (wq_v, ws_v) = _quantized(self, "to_qk", "to_v")
+            msg = cross_attention.cross_attention_int8(
+                x, wq_qk, ws_qk, self.to_qk.bias, wq_v, ws_v, self.to_v.bias, *args
+            )
+        else:
+            msg = cross_attention_proj(
+                x, self.to_qk.weight, self.to_qk.bias, self.to_v.weight, self.to_v.bias, *args
+            )
+        return _apply_residual_mlp(self, x, msg, int8_mlp=int8_mlp)
 
 
 def _add_residual_mlp(block: nn.Module, feat_dim: int, hidden_dim: int) -> None:
@@ -141,10 +164,43 @@ def _add_residual_mlp(block: nn.Module, feat_dim: int, hidden_dim: int) -> None:
     block.mlp_3 = nn.Linear(2 * feat_dim, feat_dim)
 
 
+def _inference_only() -> None:
+    """The int8 kernels have no backward (the JAX package's fail at grad time)."""
+    if torch.is_grad_enabled():
+        raise RuntimeError("the int8 blocks are inference only: call them under torch.no_grad()")
+
+
+def _quantized(block: nn.Module, *names: str):
+    """``quant_linear`` of the named ``Linear`` weights of ``block``, as the
+    block holds them (in its working type), cached on the block until a
+    weight changes."""
+    cache = block.__dict__.setdefault("_int8_cache", {})
+    out = []
+    for name in names:
+        w = getattr(block, name).weight
+        key = (w.data_ptr(), w._version, w.dtype, w.device)
+        hit = cache.get(name)
+        if hit is None or hit[0] != key:
+            hit = cache[name] = (key, quant_linear(w.detach()))
+        out.append(hit[1])
+    return out[0] if len(out) == 1 else out
+
+
 def _apply_residual_mlp(
-    block: nn.Module, x: torch.Tensor, msg: torch.Tensor, kernels: bool = True
+    block: nn.Module, x: torch.Tensor, msg: torch.Tensor, kernels: bool = True,
+    int8_mlp: bool = False,
 ) -> torch.Tensor:
     """``x + mlp_3(gelu(LN(mlp_0([x, proj(msg)]))))`` through ``ops/mlp.py``."""
+    d = x.shape[-1]
+    if int8_mlp and mlp.fused_mlp_int8_supported(x.shape[-2], d, 2 * d, x.element_size()):
+        _inference_only()
+        (wpq, wps), (w0q, w0s), (w3q, w3s) = _quantized(block, "proj", "mlp_0", "mlp_3")
+        fn = mlp.residual_mlp_int8 if kernels else mlp.residual_mlp_int8_plain
+        return fn(
+            x, msg, wpq, wps, block.proj.bias, w0q, w0s, block.mlp_0.bias,
+            block.mlp_ln.weight, block.mlp_ln.bias, w3q, w3s, block.mlp_3.bias,
+            eps=block.mlp_ln.eps,
+        )
     return residual_mlp(
         x, msg, block.proj.weight, block.proj.bias, block.mlp_0.weight,
         block.mlp_0.bias, block.mlp_ln.weight, block.mlp_ln.bias,

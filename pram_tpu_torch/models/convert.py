@@ -22,6 +22,7 @@ from pram_tpu_torch.models.adagml import AdaGML, AdaGMLConfig
 from pram_tpu_torch.models.gml import GML, GMLConfig
 from pram_tpu_torch.models.segnetvit import SegNetViT, SegNetViTConfig
 from pram_tpu_torch.models.sfd2 import ResNet4x
+from pram_tpu_torch.models.sfd2_int8 import Int8ResNet4x, cast_stem, quantize_extractor
 
 
 def flax_to_state_dict(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -193,3 +194,40 @@ def load_sfd2(path: str, device="cuda", dtype=torch.float32) -> ResNet4x:
     model.load_state_dict(sfd2_state_dict(read_flax_msgpack(path)), strict=True)
     model = model.to(device=device, dtype=dtype).to(memory_format=torch.channels_last)
     return model.eval()
+
+
+def int8_extractor_state(qparams: dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's int8 SFD2 qparams (``{"int8": {...}}`` of
+    ``pram_tpu/models/sfd2_int8.py:quantize_extractor``, as numpy arrays) ->
+    the state of :class:`Int8ResNet4x`, the same scales and integers, not
+    recalibrated: the stem's HWIO kernels become ``[O, I, 3, 3]`` and its BN
+    tuples four tensors; a residual block's list of dense conv2 splits is
+    stacked."""
+    qp = qparams.get("int8", qparams)
+    state: Dict[str, torch.Tensor] = {}
+    for name, value in qp.items():
+        if name.endswith("_bn"):
+            for p, v in zip(("scale", "bias", "mean", "var"), value):
+                state[f"{name}_{p}"] = torch.from_numpy(np.array(v, np.float32))
+        elif isinstance(value, (list, tuple)):
+            state[name] = torch.from_numpy(np.stack([np.asarray(v) for v in value]))
+        elif name in ("conv1a_kernel", "conv1b_kernel"):
+            state[name] = torch.from_numpy(np.array(value, np.float32).transpose(3, 2, 0, 1).copy())
+        else:
+            arr = np.asarray(value)
+            arr = arr if arr.dtype == np.int8 else arr.astype(np.float32)
+            state[name] = torch.from_numpy(arr.copy())
+    return state
+
+
+def load_sfd2_int8(
+    path: str, calib_images: torch.Tensor, device="cuda", dtype=torch.float32,
+    conv_kernel: bool = False,
+) -> Int8ResNet4x:
+    """The int8 extractor of the SFD2 weights in ``path``: the float model
+    in ``dtype`` (every parameter and statistic rounded to it), quantized
+    and calibrated from those values in f32 on ``calib_images [B, H, W, 3]``
+    (preprocessed), then its stem cast to ``dtype``
+    (``pram_tpu/engine/rendered_guard.py``'s int8 extractor)."""
+    model = load_sfd2(path, device=device, dtype=dtype)
+    return cast_stem(quantize_extractor(model, calib_images, conv_kernel), dtype).eval()

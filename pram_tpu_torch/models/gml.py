@@ -51,6 +51,9 @@ class GML(nn.Module):
     Of the reference's per-layer output projections only the last one is
     applied at inference, so only it is declared (``out_proj``); the flax
     checkpoint, likewise, holds only ``out_proj_{n_layers - 1}``.
+    ``int8_proj`` and ``int8_mlp`` (``PRAM_INT8_PROJ`` / ``PRAM_INT8_MLP`` of
+    the JAX package; inference only) run the blocks' projections and MLPs in
+    int8.
     """
 
     def __init__(self, config: GMLConfig = GMLConfig()):
@@ -69,6 +72,8 @@ class GML(nn.Module):
         )
         self.out_proj = nn.Linear(c.hidden_dim, c.hidden_dim)
         self.bin_score = nn.Parameter(torch.tensor(1.0))
+        self.int8_proj = False
+        self.int8_mlp = False
 
     def forward(
         self,
@@ -92,8 +97,9 @@ class GML(nn.Module):
             m1 = mask1 if mask1 is not None else desc1.new_ones((b, n1), dtype=torch.bool)
             mask_cat = torch.cat([m0, m1], dim=1)
         for self_blk, cross_blk in zip(self.self_attn, self.cross_attn):
-            x = self_blk(x, enc, mask_cat, splits=splits)
-            x = cross_blk(x, splits, mask0, mask1)
+            x = self_blk(x, enc, mask_cat, splits=splits, int8_proj=self.int8_proj,
+                         int8_mlp=self.int8_mlp)
+            x = cross_blk(x, splits, mask0, mask1, int8_proj=self.int8_proj, int8_mlp=self.int8_mlp)
 
         d = x.shape[-1]
         md = self.out_proj(x) / d**0.25

@@ -34,7 +34,9 @@ class SegNetViT(nn.Module):
     """Per-keypoint landmark classifier (recognition head).
 
     ``use_kernels = False`` sends every block, forward and backward, through
-    the kernels' plain versions (the A/B check on the card).
+    the kernels' plain versions (the A/B check on the card). ``int8_proj``
+    and ``int8_mlp`` (``PRAM_INT8_PROJ`` / ``PRAM_INT8_MLP`` of the JAX
+    package; inference only) run the blocks' projections and MLPs in int8.
     """
 
     def __init__(self, config: SegNetViTConfig = SegNetViTConfig()):
@@ -51,6 +53,8 @@ class SegNetViT(nn.Module):
         self.seg_ln = nn.LayerNorm(c.output_dim, eps=1e-6)
         self.seg_3 = nn.Linear(c.output_dim, c.n_class)
         self.use_kernels = True
+        self.int8_proj = False
+        self.int8_mlp = False
 
     def forward(
         self,
@@ -61,7 +65,8 @@ class SegNetViT(nn.Module):
         enc = self.kenc(norm_keypoints)
         x = self.input_proj(descriptors)
         for block in self.gnn:
-            x = block(x, enc, mask, kernels=self.use_kernels)
+            x = block(x, enc, mask, kernels=self.use_kernels, int8_proj=self.int8_proj,
+                      int8_mlp=self.int8_mlp)
         y = self.seg_0(x)
         y = F.layer_norm(
             y.float(), (y.shape[-1],), self.seg_ln.weight.float(),

@@ -7,6 +7,10 @@ sides and each query attends only to the keys of its own side. A CPU tensor
 takes :func:`self_attention_plain`; a CUDA tensor launches
 ``csrc/attention.cu`` or raises.
 
+:func:`self_attention_int8` is the same function with the projection in
+int8 (``int8=True`` of the JAX function, kernel 17): x quantized per row,
+the weights per output column, the product exact in s32.
+
 Weights are in torch ``Linear`` layout: ``w_qkv [3 * d, d_in]`` whose output
 index is ``(head * head_dim + i) * 3 + c`` for c in (q, k, v), the flax
 kernel transposed and nothing else.
@@ -20,8 +24,9 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from pram_tpu_torch._build import check_status, check_tensor, library, ptr, stream_of
+from pram_tpu_torch.ops.quant import int_matmul, quant_rows
 
-LAUNCHES = {"self_attention": 0}
+LAUNCHES = {"self_attention": 0, "self_attention_int8": 0}
 
 # shapes the CUDA kernel is written for
 KERNEL_D_IN = 256
@@ -70,11 +75,17 @@ def self_attention_plain(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads, spli
     are f32, and the probabilities are rounded to x's dtype for the product
     with v, as the kernel does.
     """
-    b, n, _ = x.shape
-    d = w_qkv.shape[0] // 3
+    qkv = (x.float() @ w_qkv.float().T + b_qkv.float()).to(x.dtype)
+    return _attend_qkv_plain(qkv, cos, sin, key_bias, scale, heads, splits)
+
+
+def _attend_qkv_plain(qkv, cos, sin, key_bias, scale, heads, splits):
+    """The attention of :func:`self_attention_plain` on its projected qkv
+    ``[B, N, 3 * d]`` (the interleaved column order)."""
+    b, n, d3 = qkv.shape
+    d = d3 // 3
     hd = d // heads
-    dt = x.dtype
-    qkv = (x.float() @ w_qkv.float().T + b_qkv.float()).to(dt)
+    dt = qkv.dtype
     qkv = qkv.reshape(b, n, heads, hd, 3).permute(0, 2, 1, 3, 4)
     q, k, v = qkv.unbind(-1)  # [B, H, N, hd]
     if cos is not None:
@@ -116,12 +127,9 @@ def attend_plain(q, k, v, key_bias, scale, query_bias=None):
     return msg, ((e * r) * valid).sum(dim=-2)
 
 
-def self_attention(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads, splits=None):
-    """:func:`self_attention_plain` on the CPU; ``csrc/attention.cu`` on CUDA."""
-    if x.device.type == "cpu":
-        return self_attention_plain(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads, splits)
+def _cuda_sides(x, cos, sin, heads, splits) -> List[int]:
+    """The side lengths, after checking that the CUDA kernels take x's shape."""
     b, n, d_in = x.shape
-    dev = x.device
     if cos is None or sin is None:
         raise ValueError("the CUDA self-attention kernel needs the rotary cos/sin")
     if d_in != KERNEL_D_IN or heads * KERNEL_HEAD_DIM != d_in:
@@ -135,6 +143,16 @@ def self_attention(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads, splits=Non
             f"CUDA self-attention needs N % {KERNEL_QUERY_TILE} == 0 on each of at "
             f"most {KERNEL_MAX_SPLITS} sides; got sides {tuple(sides)}"
         )
+    return sides
+
+
+def self_attention(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads, splits=None):
+    """:func:`self_attention_plain` on the CPU; ``csrc/attention.cu`` on CUDA."""
+    if x.device.type == "cpu":
+        return self_attention_plain(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads, splits)
+    b, n, d_in = x.shape
+    dev = x.device
+    sides = _cuda_sides(x, cos, sin, heads, splits)
     b_qkv = b_qkv.to(torch.float32).contiguous()
     check_tensor(x, "x", (b, n, d_in), torch.bfloat16, dev)
     check_tensor(w_qkv, "w_qkv", (3 * d_in, d_in), torch.bfloat16, dev)
@@ -156,4 +174,66 @@ def self_attention(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads, splits=Non
         "pram_self_attention",
     )
     LAUNCHES["self_attention"] += 1
+    return out
+
+
+def int8_projection_plain(x, wq, ws, b):
+    """``bf16((acc * rs) * ws + b)`` in x's dtype: x quantized per row
+    (``quant_rows``), ``wq [out, in]`` int8 with ``ws [out]`` f32 scales,
+    ``acc`` the exact integer product."""
+    xq, xrs = quant_rows(x)
+    return ((int_matmul(xq, wq.T) * xrs) * ws.float() + b.float()).to(x.dtype)
+
+
+def qkv_block_order(d: int, device) -> torch.Tensor:
+    """Row indices that take the interleaved qkv order ``(h * hd + i) * 3 +
+    c`` to the ``[q heads | k heads | v heads]`` blocks of kernel 12."""
+    return (torch.arange(d, device=device)[None, :] * 3 + torch.arange(3, device=device)[:, None]).reshape(-1)
+
+
+def self_attention_int8_plain(x, wq, ws, b_qkv, cos, sin, key_bias, scale, heads, splits=None):
+    """:func:`self_attention_plain` with the projection in int8
+    (:func:`int8_projection_plain`): ``wq [3 * d, d_in]`` int8 and ``ws [3 *
+    d]`` f32 are ``quant_linear`` of the interleaved ``w_qkv``."""
+    qkv = int8_projection_plain(x, wq, ws, b_qkv)
+    return _attend_qkv_plain(qkv, cos, sin, key_bias, scale, heads, splits)
+
+
+def self_attention_int8(x, wq, ws, b_qkv, cos, sin, key_bias, scale, heads, splits=None):
+    """:func:`self_attention_int8_plain` on the CPU; on CUDA
+    ``csrc/proj_int8.cu`` (kernel 17) then kernel 12's blocked attention pass.
+
+    The rows of wq, their scales and the bias are gathered into kernel 12's
+    column order here, each scale with its row. Inference only.
+    """
+    if x.device.type == "cpu":
+        return self_attention_int8_plain(x, wq, ws, b_qkv, cos, sin, key_bias, scale, heads, splits)
+    b, n, d_in = x.shape
+    dev = x.device
+    sides = _cuda_sides(x, cos, sin, heads, splits)
+    order = qkv_block_order(d_in, dev)
+    wq = wq.index_select(0, order).contiguous()
+    ws = ws.float().index_select(0, order).contiguous()
+    bq = b_qkv.float().index_select(0, order).contiguous()
+    check_tensor(x, "x", (b, n, d_in), torch.bfloat16, dev)
+    check_tensor(wq, "wq", (3 * d_in, d_in), torch.int8, dev)
+    check_tensor(ws, "ws", (3 * d_in,), torch.float32, dev)
+    check_tensor(cos, "cos", (b, n, KERNEL_HEAD_DIM), torch.float32, dev)
+    check_tensor(sin, "sin", (b, n, KERNEL_HEAD_DIM), torch.float32, dev)
+    check_tensor(key_bias, "key_bias", (b, n), torch.float32, dev)
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned")
+    qkv = torch.empty((b, n, 3 * d_in), dtype=torch.bfloat16, device=dev)
+    qr = torch.empty((b, n, d_in), dtype=torch.bfloat16, device=dev)
+    kr, out = torch.empty_like(qr), torch.empty_like(qr)
+    side_lengths = (ctypes.c_int * len(sides))(*sides)
+    check_status(
+        library().pram_self_attention_int8(
+            ptr(x), ptr(wq), ptr(ws), ptr(bq), ptr(cos), ptr(sin), ptr(key_bias),
+            ptr(qkv), ptr(qr), ptr(kr), ptr(out), b, n, heads, ctypes.c_float(scale),
+            ctypes.cast(side_lengths, ctypes.c_void_p), len(sides), stream_of(dev),
+        ),
+        "pram_self_attention_int8",
+    )
+    LAUNCHES["self_attention_int8"] += 1
     return out

@@ -7,7 +7,9 @@ rest); both sides share ``to_qk`` and ``to_v``, side 0's queries attend to
 side 1's keys (masked by ``bias1``) and side 1's to side 0's (``bias0``).
 A CPU tensor takes :func:`cross_attention_plain`; a CUDA tensor launches
 ``csrc/cross_attention.cu`` or raises. Weights are in torch ``Linear``
-layout (``[out, in]``).
+layout (``[out, in]``). :func:`cross_attention_int8` is the same function
+with both projections in int8 (``int8=True`` of the JAX function, kernel
+17).
 
 :func:`cross_attention_packed` replaces
 ``pram_tpu/ops/attention_pallas.py:fused_cross_attention_packed``: the same
@@ -24,9 +26,9 @@ import ctypes
 import torch
 
 from pram_tpu_torch._build import check_status, check_tensor, library, ptr, ptr_or_null, stream_of
-from pram_tpu_torch.ops.attention import attend_plain
+from pram_tpu_torch.ops.attention import attend_plain, int8_projection_plain
 
-LAUNCHES = {"cross_attention": 0, "cross_attention_packed": 0}
+LAUNCHES = {"cross_attention": 0, "cross_attention_packed": 0, "cross_attention_int8": 0}
 
 # shapes the CUDA kernel is written for
 KERNEL_D = 256
@@ -41,19 +43,80 @@ def cross_attention_plain(x_cat, w_qk, b_qk, w_v, b_v, bias0, bias1, scale, head
     ``qk_q . qk_k * scale + bias`` and the softmax are f32, and the weights
     are rounded to x_cat's dtype for the product with v (``attend_plain``).
     """
-    b, n, _ = x_cat.shape
-    d = w_qk.shape[0]
-    hd = d // heads
     dt = x_cat.dtype
+    qk = (x_cat.float() @ w_qk.float().T + b_qk.float()).to(dt)
+    v = (x_cat.float() @ w_v.float().T + b_v.float()).to(dt)
+    return _cross_attend_plain(qk, v, bias0, bias1, scale, heads, n0)
 
-    def proj(w, bias):
-        t = (x_cat.float() @ w.float().T + bias.float()).to(dt)
-        return t.reshape(b, n, heads, hd).permute(0, 2, 1, 3)  # [B, H, N, hd]
 
-    qk, v = proj(w_qk, b_qk), proj(w_v, b_v)
+def _cross_attend_plain(qk, v, bias0, bias1, scale, heads, n0):
+    """The attention of :func:`cross_attention_plain` on its projections
+    ``qk, v [B, N, d]``."""
+    b, n, d = qk.shape
+    hd = d // heads
+    qk = qk.reshape(b, n, heads, hd).permute(0, 2, 1, 3)  # [B, H, N, hd]
+    v = v.reshape(b, n, heads, hd).permute(0, 2, 1, 3)
     m0 = attend_plain(qk[:, :, :n0], qk[:, :, n0:], v[:, :, n0:], bias1, scale)
     m1 = attend_plain(qk[:, :, n0:], qk[:, :, :n0], v[:, :, :n0], bias0, scale)
     return torch.cat([m0, m1], dim=2).permute(0, 2, 1, 3).reshape(b, n, d)
+
+
+def cross_attention_int8_plain(x_cat, wq_qk, ws_qk, b_qk, wq_v, ws_v, b_v, bias0, bias1, scale, heads, n0):
+    """:func:`cross_attention_plain` with both projections in int8 from one
+    per-row quantization of x_cat (``int8_projection_plain``): ``wq_* [d,
+    d]`` int8 and ``ws_* [d]`` f32 are ``quant_linear`` of to_qk and to_v."""
+    qk = int8_projection_plain(x_cat, wq_qk, ws_qk, b_qk)
+    v = int8_projection_plain(x_cat, wq_v, ws_v, b_v)
+    return _cross_attend_plain(qk, v, bias0, bias1, scale, heads, n0)
+
+
+def cross_attention_int8(x_cat, wq_qk, ws_qk, b_qk, wq_v, ws_v, b_v, bias0, bias1, scale, heads, n0):
+    """:func:`cross_attention_int8_plain` on the CPU; on CUDA
+    ``csrc/proj_int8.cu`` (kernel 17) then kernel 5's attention pass.
+    Inference only."""
+    if x_cat.device.type == "cpu":
+        return cross_attention_int8_plain(
+            x_cat, wq_qk, ws_qk, b_qk, wq_v, ws_v, b_v, bias0, bias1, scale, heads, n0
+        )
+    b, n, d = x_cat.shape
+    n1 = n - n0
+    dev = x_cat.device
+    _check_cuda_shape(d, heads, n0, n1)
+    f32 = torch.float32
+    wq = torch.cat([wq_qk, wq_v]).contiguous()
+    ws = torch.cat([ws_qk.float(), ws_v.float()]).contiguous()
+    bias = torch.cat([b_qk.float(), b_v.float()]).contiguous()
+    check_tensor(x_cat, "x_cat", (b, n, d), torch.bfloat16, dev)
+    check_tensor(wq, "wq", (2 * d, d), torch.int8, dev)
+    check_tensor(ws, "ws", (2 * d,), f32, dev)
+    check_tensor(bias0, "bias0", (b, n0), f32, dev)
+    check_tensor(bias1, "bias1", (b, n1), f32, dev)
+    if x_cat.data_ptr() % 16:
+        raise ValueError("x_cat must be 16-byte aligned")
+    qk, v, out = torch.empty_like(x_cat), torch.empty_like(x_cat), torch.empty_like(x_cat)
+    check_status(
+        library().pram_cross_attention_int8(
+            ptr(x_cat), ptr(wq), ptr(ws), ptr(bias), ptr(bias0), ptr(bias1),
+            ptr(qk), ptr(v), ptr(out), b, n, n0, heads, ctypes.c_float(scale),
+            stream_of(dev),
+        ),
+        "pram_cross_attention_int8",
+    )
+    LAUNCHES["cross_attention_int8"] += 1
+    return out
+
+
+def _check_cuda_shape(d, heads, n0, n1):
+    if d != KERNEL_D or heads * KERNEL_HEAD_DIM != d:
+        raise ValueError(
+            f"CUDA cross-attention is built for d={KERNEL_D} and head_dim="
+            f"{KERNEL_HEAD_DIM}; got d={d}, heads={heads}"
+        )
+    if n0 <= 0 or n1 <= 0 or n0 % KERNEL_QUERY_TILE or n1 % KERNEL_QUERY_TILE:
+        raise ValueError(
+            f"CUDA cross-attention needs both sides a positive multiple of "
+            f"{KERNEL_QUERY_TILE} tokens; got {n0} and {n1}"
+        )
 
 
 def cross_attention(x_cat, w_qk, b_qk, w_v, b_v, bias0, bias1, scale, heads, n0):
@@ -65,16 +128,7 @@ def cross_attention(x_cat, w_qk, b_qk, w_v, b_v, bias0, bias1, scale, heads, n0)
     b, n, d = x_cat.shape
     n1 = n - n0
     dev = x_cat.device
-    if d != KERNEL_D or heads * KERNEL_HEAD_DIM != d:
-        raise ValueError(
-            f"CUDA cross-attention is built for d={KERNEL_D} and head_dim="
-            f"{KERNEL_HEAD_DIM}; got d={d}, heads={heads}"
-        )
-    if n0 <= 0 or n1 <= 0 or n0 % KERNEL_QUERY_TILE or n1 % KERNEL_QUERY_TILE:
-        raise ValueError(
-            f"CUDA cross-attention needs both sides a positive multiple of "
-            f"{KERNEL_QUERY_TILE} tokens; got {n0} and {n1}"
-        )
+    _check_cuda_shape(d, heads, n0, n1)
     f32 = torch.float32
     b_qk = b_qk.to(f32).contiguous()
     b_v = b_v.to(f32).contiguous()

@@ -22,7 +22,11 @@ only), statistics within 1e-3 of their scale in bf16 and 1e-4 in f32
 another order). The f32 residual MLP within 1e-4 of its scale. Backward
 kernels 13-15: bf16 outputs within 2% of their scale, f32 reductions
 within 1%; a training step's f32 master gradients, kernel path against
-plain path, within 3% of each tensor's scale.
+plain path, within 3% of each tensor's scale. Kernels 16-19 (int8 MLP,
+int8 projections, int8 conv, conv pair): bf16 outputs within 2% of their
+scale, the int8 conv equal on >= 99.9% of its elements; the int8
+extractor's kernel path against its plain path by the extraction A/B
+bounds.
 """
 
 import pytest
@@ -534,3 +538,166 @@ def test_training_gradients_kernels_vs_plain(dev):
     for k in gp:
         assert gk[k].dtype == torch.float32
         assert _rel_err(gk[k], gp[k]) <= 0.03, k
+
+
+# ---- the int8 kernels (16-18) and the conv pair (19) --------------------------
+# The integer sums are exact on both sides and every division is a true f32
+# division, so kernel and plain version quantize alike; they differ where the
+# f32 statistics (LayerNorm, the row maxima of an f32 GELU output, softmax)
+# are summed in another order: bf16 outputs within 2% of their scale, and the
+# conv kernels' outputs equal on >= 99.9% of the elements (their tails round
+# each operation as the plain version does).
+
+
+def _i8_linear(g, out_f, in_f, dev):
+    from pram_tpu_torch.ops.quant import quant_linear
+
+    return quant_linear(_rand(g, out_f, in_f, scale=in_f**-0.5).to(dev, torch.bfloat16))
+
+
+@pytest.mark.parametrize("tokens", [96, 16384])
+def test_residual_mlp_int8_kernel(dev, tokens):
+    g = torch.Generator().manual_seed(tokens + 7)
+    x = _rand(g, tokens, 256).to(dev, torch.bfloat16)
+    msg = _rand(g, tokens, 256).to(dev, torch.bfloat16)
+    (wpq, wps), (w0q, w0s), (w3q, w3s) = (_i8_linear(g, o, i, dev) for o, i in ((256, 256), (512, 512), (256, 512)))
+    vec = [_rand(g, n, scale=0.1).to(dev) for n in (256, 512, 512, 512, 256)]
+    bp, b0, ln_b, b3 = vec[0], vec[1], vec[3], vec[4]
+    ln_w = 1.0 + vec[2]
+    args = (x, msg, wpq, wps, bp, w0q, w0s, b0, ln_w, ln_b, w3q, w3s, b3)
+    before = mlp.LAUNCHES["residual_mlp_int8"]
+    got = mlp.residual_mlp_int8(*args)
+    torch.cuda.synchronize()
+    assert mlp.LAUNCHES["residual_mlp_int8"] == before + 1
+    ref = mlp.residual_mlp_int8_plain(*args)
+    assert _rel_err(got, ref) <= 0.02
+    assert (got == ref).float().mean().item() >= 0.9
+
+
+def _attn_inputs(g, b, n, dev):
+    x = _rand(g, b, n, 256).to(dev, torch.bfloat16)
+    ang = _rand(g, b, n, 32)
+    cos = torch.cos(ang).repeat_interleave(2, -1).to(dev)
+    sin = torch.sin(ang).repeat_interleave(2, -1).to(dev)
+    return x, cos, sin
+
+
+@pytest.mark.parametrize("b,splits", [(2, (512,)), (2, (512, 1024)), (3, (128, 256))])
+def test_self_attention_int8_kernel(dev, b, splits):
+    n = sum(splits)
+    g = torch.Generator().manual_seed(n + 11)
+    x, cos, sin = _attn_inputs(g, b, n, dev)
+    wq, ws = _i8_linear(g, 768, 256, dev)
+    bias = _rand(g, 768, scale=0.1).to(dev)
+    mask = _masks(g, b, n, 0.8)
+    kb = attention.mask_to_bias(mask, b, n, "cpu").to(dev)
+    args = (x, wq, ws, bias, cos, sin, kb, 64**-0.5, 4, splits)
+    before = attention.LAUNCHES["self_attention_int8"]
+    got = attention.self_attention_int8(*args)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES["self_attention_int8"] == before + 1
+    assert _rel_err(got, attention.self_attention_int8_plain(*args)) <= 0.02
+
+
+@pytest.mark.parametrize("b,n0,n1", [(2, 128, 256), (2, 512, 1024)])
+def test_cross_attention_int8_kernel(dev, b, n0, n1):
+    g = torch.Generator().manual_seed(n0 + n1 + 13)
+    x = _rand(g, b, n0 + n1, 256).to(dev, torch.bfloat16)
+    (wq_qk, ws_qk), (wq_v, ws_v) = _i8_linear(g, 256, 256, dev), _i8_linear(g, 256, 256, dev)
+    m0, m1 = torch.rand(b, n0, generator=g) > 0.1, torch.rand(b, n1, generator=g) > 0.3
+    m1[1] = False  # an all-masked key side
+    b0 = attention.mask_to_bias(m0, b, n0, "cpu").to(dev)
+    b1 = attention.mask_to_bias(m1, b, n1, "cpu").to(dev)
+    args = (x, wq_qk, ws_qk, _rand(g, 256, scale=0.1).to(dev), wq_v, ws_v,
+            _rand(g, 256, scale=0.1).to(dev), b0, b1, 64**-0.5, 4, n0)
+    before = cross_attention.LAUNCHES["cross_attention_int8"]
+    got = cross_attention.cross_attention_int8(*args)
+    torch.cuda.synchronize()
+    assert cross_attention.LAUNCHES["cross_attention_int8"] == before + 1
+    assert _rel_err(got, cross_attention.cross_attention_int8_plain(*args)) <= 0.02
+
+
+def _conv_i8_case(g, b, h, w, cin, cout, dev):
+    from pram_tpu_torch.ops.quant import quant_w
+
+    x = _rand(g, b, h, w, cin).abs().to(dev, torch.bfloat16)
+    wq, ws = quant_w(_rand(g, 3, 3, cin, cout, scale=0.05))
+    bias = _rand(g, cout, scale=0.1)
+    sa = float(x.float().abs().max().item() / 127.0)
+    return x, wq.to(dev), sa, ws.to(dev), bias.to(dev)
+
+
+@pytest.mark.parametrize("stride,b,h,w,cin,cout,bf16_tail,relu", [
+    (1, 2, 24, 40, 128, 256, False, True),
+    (1, 2, 21, 37, 256, 128, False, False),
+    (1, 2, 30, 50, 64, 128, True, True),
+    (1, 1, 60, 80, 256, 256, True, False),
+    (2, 2, 48, 64, 128, 128, False, True),
+    (2, 2, 25, 35, 256, 256, True, True),
+])
+def test_conv3x3_int8_kernel(dev, stride, b, h, w, cin, cout, bf16_tail, relu):
+    from pram_tpu_torch.ops import conv_int8
+
+    g = torch.Generator().manual_seed(h * w + cin)
+    x, wq, sa, ws, bias = _conv_i8_case(g, b, h, w, cin, cout, dev)
+    kw = dict(stride=stride, relu=relu, bf16_tail=bf16_tail)
+    before = conv_int8.LAUNCHES["conv3x3_int8"]
+    got = conv_int8.conv3x3_int8(x, wq, sa, ws, bias, **kw)
+    torch.cuda.synchronize()
+    assert conv_int8.LAUNCHES["conv3x3_int8"] == before + 1
+    ref = conv_int8.conv3x3_int8_plain(x, wq, sa, ws, bias, **kw)
+    assert got.shape == ref.shape
+    assert _rel_err(got, ref) <= 0.02
+    assert (got == ref).float().mean().item() >= 0.999
+
+
+def test_conv3x3_int8_kernel_channel_slices(dev):
+    """A residual block's two dense splits: each reads its input slice and
+    writes its output slice of one tensor."""
+    from pram_tpu_torch.ops import conv_int8
+
+    g = torch.Generator().manual_seed(3)
+    x, wq0, sa, ws0, b0 = _conv_i8_case(g, 2, 16, 24, 256, 128, dev)
+    _, wq1, _, ws1, b1 = _conv_i8_case(g, 2, 16, 24, 128, 128, dev)
+    wq0 = wq0[:, :, :128].contiguous()
+    out = torch.empty(2, 16, 24, 256, dtype=torch.bfloat16, device=dev)
+    for si, (wq, ws, bb) in enumerate(((wq0, ws0, b0), (wq1, ws1, b1))):
+        conv_int8.conv3x3_int8(x, wq, sa, ws, bb, x_coff=128 * si, out=out, out_coff=128 * si)
+    ref = torch.cat([conv_int8.conv3x3_int8_plain(x[..., 128 * si:128 * (si + 1)], wq, sa, ws, bb)
+                     for si, (wq, ws, bb) in enumerate(((wq0, ws0, b0), (wq1, ws1, b1)))], -1)
+    assert (out == ref).float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("b,h,w,cin,cmid,cout", [(1, 24, 12, 8, 16, 24), (2, 48, 20, 8, 16, 24),
+                                                 (2, 30, 40, 128, 256, 256)])
+def test_conv_pair_kernel(dev, b, h, w, cin, cmid, cout):
+    """bf16 outputs within 2% of their scale: both sides round the
+    intermediate to bf16 after f32 sums taken in another order."""
+    from pram_tpu_torch.ops import convpair
+
+    g = torch.Generator().manual_seed(cin + cmid + h)
+    x = _rand(g, b, h, w, cin).to(dev, torch.bfloat16)
+
+    def conv(o, i):
+        return (_rand(g, o, i, 3, 3, scale=(9 * i) ** -0.5).to(dev), _rand(g, o, scale=0.1).to(dev),
+                (1.0 + _rand(g, o, scale=0.1).to(dev), _rand(g, o, scale=0.1).to(dev),
+                 _rand(g, o, scale=0.1).to(dev), 0.5 + _rand(g, o).abs().to(dev)))
+
+    args = (x, *conv(cmid, cin), *conv(cout, cmid))
+    before = convpair.LAUNCHES["fused_conv_pair"]
+    got = convpair.fused_conv_pair(*args)
+    torch.cuda.synchronize()
+    assert convpair.LAUNCHES["fused_conv_pair"] == before + 1
+    ref = convpair.fused_conv_pair_plain(*args)
+    assert got.shape == ref.shape == (b, h, w, cout)
+    assert _rel_err(got, ref) <= 0.02
+
+
+def test_int8_extractor_kernels_vs_plain(dev):
+    """The int8 extractor on the card, kernel path against plain path, on a
+    small rendered view: keypoint sets >= 0.95, descriptor cosine >= 0.99
+    (bf16, the extraction A/B bounds)."""
+    from pram_tpu_torch.engine.rendered_guard import extraction_ab_check
+
+    ab = extraction_ab_check(n_images=2, seed=13, device=dev, dtype=torch.bfloat16, int8=True)
+    assert ab["kpt_set_agreement"] >= 0.95 and ab["desc_cos_min"] >= 0.99, ab

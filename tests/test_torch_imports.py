@@ -10,7 +10,9 @@ same with the first 2 layers of the trained Aachen AdaGML
 (weights/adagml_aachen.msgpack), then SFD2 extraction
 (weights/sfd2_rendered.msgpack) on one small rendered view, then two
 augmented training steps of the first layer of the rendered SegNetViT on
-that view through ``Trainer``.
+that view through ``Trainer``; and the int8 path on that view: the int8
+extractor quantized and calibrated there, and the 2-layer GML with int8
+projections and MLPs.
 """
 
 import os
@@ -129,6 +131,17 @@ SCRIPT = textwrap.dedent(
     assert feats["score_map"].shape == (1, 120, 160)
     assert feats["descriptors"].shape == (1, 64, 128) and feats["seg_descriptors"].shape == (1, 64, 256)
     assert int(feats["keypoints"].mask.sum()) > 0 and torch.isfinite(feats["descriptors"]).all()
+
+    from pram_tpu_torch.models.sfd2_int8 import cast_stem, quantize_extractor
+
+    x = preprocess_image(torch.from_numpy(img[None]))
+    sfd2_8 = cast_stem(quantize_extractor(sfd2, x, conv_kernel=True), torch.float32)
+    gml.int8_proj = gml.int8_mlp = True
+    with torch.no_grad():
+        feats8 = extract(sfd2_8, x, max_keypoints=64, conf_th=1e-4)
+        plan = gml(de[:, :128], de[:, 128:384], kp[:, :128] / 640, kp[:, 128:384] / 640)["plan"]
+    assert feats8["descriptors"].shape == (1, 64, 128) and torch.isfinite(feats8["descriptors"]).all()
+    assert plan.shape == (2, 129, 257) and torch.isfinite(plan).all()
 
     from pram_tpu_torch.train.augmented import make_augmented_train_step
     from pram_tpu_torch.train.trainer import TrainConfig, Trainer
