@@ -62,7 +62,12 @@ Phases, each printed with its elapsed seconds:
                 statistics at 4096 and 2048 tokens (kernel 10), packed
                 cross-attention with statistics at 4096 x 2048 (kernel 11),
                 and the blocked self-attention at GML's splits (512, 1024)
-                (kernel 12); SDPA yardsticks.
+                (kernel 12); SDPA yardsticks; two launches of each bit-equal
+                and the messages bit-equal without the statistics; 10 and
+                11's bounds both ways (messages alone against the call
+                without statistics and SDPA, and with the statistics'
+                second QK against the timed call) and their exponentials
+                over EXP_PER_S beside as a second ceiling.
 13. aachen slice
                 AdaGML matching (batched early exit) -> RANSAC PnP ->
                 projection refinement -> RANSAC PnP on the 32 queries,
@@ -148,6 +153,9 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 INT8_TENSOR_OPS = 1979e12
 F32_FLOPS = 67e12
+# exponentials: 16 a clock on each of the 132 SMs (the SFU's ex2) at the
+# 1.98 GHz boost clock; a second ceiling of the attention kernels at head dim 64
+EXP_PER_S = 132 * 16 * 1.98e9
 
 # tolerances of kernel vs plain version (reasons in PERF.md)
 # attention / MLP: |kernel - plain| <= TOL * max|plain|. Both outputs are bf16
@@ -267,6 +275,25 @@ def bound_mixed_ms(n_bytes: float, int8_ops: float, bf16_ops: float):
     """bound_ms for work whose products are partly int8 and partly bf16: the
     operations take int8_ops / the int8 peak + bf16_ops / the bf16 peak."""
     return bound_ms(n_bytes, int8_ops * BF16_TENSOR_FLOPS / INT8_TENSOR_OPS + bf16_ops, BF16_TENSOR_FLOPS)
+
+
+def attention_bounds(name: str, k: dict) -> dict:
+    """The bound of an attention kernel with AdaGML's statistics both ways,
+    logged against its times: the messages alone (QK and PV, held against
+    the call without statistics and the SDPA yardstick ``k["lib"]``) and the
+    messages with the statistics' second QK product (against the timed
+    call, ``k["ms"]``), with the exponentials over ``EXP_PER_S`` beside as a
+    second ceiling. Returns the kernel-table keys: bound_ms / bound_by with
+    the statistics, and the others."""
+    msg_ms, msg_by = bound_ms(k["bytes"], k["ops"], BF16_TENSOR_FLOPS)
+    all_ms, all_by = bound_ms(k["bytes"], k["ops"] + k["stats_ops"], BF16_TENSOR_FLOPS)
+    exp_ms = k["exps"] / EXP_PER_S * 1e3
+    log(f"{name}: messages {k['no_stats_ms']:.4f} ms against their bound {msg_ms:.4f} ms ({msg_by}, "
+        f"{k['ops'] / 1e9:.1f} GFLOP) and SDPA {k['lib']:.4f} ms; with statistics {k['ms']:.4f} ms against "
+        f"{all_ms:.4f} ms ({all_by}, {(k['ops'] + k['stats_ops']) / 1e9:.1f} GFLOP); exponentials "
+        f"{k['exps'] / 1e9:.3f} G, {exp_ms:.4f} ms at {EXP_PER_S / 1e12:.2f} T/s")
+    return dict(bound_ms=all_ms, bound_by=all_by, bound_messages_ms=msg_ms, exp_ms=exp_ms,
+                no_stats_ms=k["no_stats_ms"])
 
 
 def require(cond: bool, what: str) -> None:
@@ -1079,7 +1106,8 @@ def main() -> int:
         enc0, enc1 = ada.poseenc(nk0), ada.poseenc(nk1)
         sa = ada.self_attn[0]
         wp, bp = attention_qkv.permute_qkv_kernel(sa.qkv.weight.T, sa.qkv.bias, heads, hd)
-        k10 = dict(err=0.0, ms=0.0, plain_ms=0.0, lib=0.0, bytes=0.0, ops=0.0)
+        k10 = dict(err=0.0, ms=0.0, plain_ms=0.0, lib=0.0, no_stats_ms=0.0, bytes=0.0, ops=0.0,
+                   stats_ops=0.0, exps=0.0)
         for x, enc, km in ((x0, enc0, km0), (x1, enc1, km1)):
             n = x.shape[1]
             qkv = (x @ wp + bp).contiguous()
@@ -1090,6 +1118,11 @@ def main() -> int:
             err = check_scaled(f"self_attention_qkv messages ({a_batch} x {n} tokens)", msg, rmsg, ATTN_TOL)
             check_scaled(f"self_attention_qkv statistics ({a_batch} x {n} tokens)", stat, rstat, STATS_TOL)
             require(bool((stat[~km.any(-1)] == 0).all()), "a frame without valid queries gave mass")
+            msg2, stat2 = attention_qkv.self_attention_qkv(*s_args, return_stats=True)
+            require(torch.equal(msg2, msg) and torch.equal(stat2, stat),
+                    f"self_attention_qkv ({a_batch} x {n} tokens): two launches differ")
+            require(torch.equal(attention_qkv.self_attention_qkv(*s_args), msg),
+                    "self_attention_qkv messages change with the statistics")
             q_, k_, v_ = rotated_heads(qkv, enc, n)
             # library yardstick: one SDPA call on the rotated q, k and v with
             # the key mask (the messages without the statistics)
@@ -1102,22 +1135,23 @@ def main() -> int:
             )
             log(f"self_attention_qkv ({a_batch} x {n} tokens): {side['ms']:.4f} ms with statistics, "
                 f"{side['no_stats_ms']:.4f} ms without; plain {side['plain_ms']:.4f} ms; SDPA {side['lib']:.4f} ms")
-            for key in ("lib", "ms", "plain_ms"):
+            for key in ("lib", "ms", "plain_ms", "no_stats_ms"):
                 k10[key] += side[key]
             k10["err"] = max(k10["err"], err)
             tok = a_batch * n
+            n_valid = int(km.sum())  # the statistics sum over the valid queries only
             # qkv, cos, sin, bias in; messages and statistics out
             k10["bytes"] += tok * (768 * 2 + 2 * 64 * 4 + 4 + 256 * 2 + 4)
             k10["ops"] += 4.0 * a_batch * heads * n * n * hd  # QK and PV
-        bnd, by = bound_ms(k10["bytes"], k10["ops"], BF16_TENSOR_FLOPS)
+            k10["stats_ops"] += 2.0 * heads * n_valid * n * hd  # the statistics' QK once more
+            k10["exps"] += heads * n * (a_batch * n + n_valid)  # one a weight, one a statistic term
+        k10_bounds = attention_bounds("self_attention_qkv, one layer's two sides", k10)
         rows["self_attention_qkv"] = dict(
             name="self_attention_qkv", route="cuda", source="pram_tpu_torch/csrc/attention_qkv.cu",
             replaces="pram_tpu/ops/attention_pallas.py:349",
             launches=None, max_abs_err=k10["err"], ms=k10["ms"], plain_ms=k10["plain_ms"],
-            bound_ms=bnd, bound_by=by, library_ms=k10["lib"],
+            library_ms=k10["lib"], **k10_bounds,
         )
-        log(f"self_attention_qkv, one layer's two sides ({a_batch} x {n0} and {a_batch} x {n1} tokens, "
-            f"statistics): {k10['ms']:.4f} ms")
 
         # kernel 11 on layer 0's cross-attention input
         nx0, _ = sa(x0, enc0, km0)
@@ -1131,12 +1165,15 @@ def main() -> int:
         c_args = (qk[:, :n0], qk[:, n0:], vv[:, :n0], vv[:, n0:], kb0, kb1, ascale, heads)
         got = cross_attention.cross_attention_packed(*c_args, return_stats=True)
         ref = cross_attention.cross_attention_packed_plain(*c_args, return_stats=True)
-        log(f"cross_attention_packed without statistics: "
-            f"{cuda_ms(torch, lambda: cross_attention.cross_attention_packed(*c_args)):.4f} ms")
         err = max(check_scaled(f"cross_attention_packed m{i} ({a_batch} x {n0} x {n1})", got[i], ref[i], ATTN_TOL)
                   for i in (0, 1))
         for i in (2, 3):
             check_scaled(f"cross_attention_packed stat{i - 2}", got[i], ref[i], STATS_TOL)
+        again = cross_attention.cross_attention_packed(*c_args, return_stats=True)
+        require(all(torch.equal(a, b) for a, b in zip(again, got)), "cross_attention_packed: two launches differ")
+        no_stats = cross_attention.cross_attention_packed(*c_args)
+        require(torch.equal(no_stats[0], got[0]) and torch.equal(no_stats[1], got[1]),
+                "cross_attention_packed messages change with the statistics")
         qh = qk.reshape(a_batch, n0 + n1, heads, hd).transpose(1, 2)
         vh = vv.reshape(a_batch, n0 + n1, heads, hd).transpose(1, 2)
         q0_, q1_ = qh[:, :, :n0].contiguous(), qh[:, :, n0:].contiguous()
@@ -1146,18 +1183,26 @@ def main() -> int:
             sdpa(q0_, q1_, v1_, attn_mask=km1[:, None, None, :], scale=ascale)
             sdpa(q1_, q0_, v0_, attn_mask=km0[:, None, None, :], scale=ascale)
 
-        tok = a_batch * (n0 + n1)
-        bnd, by = bound_ms(tok * (2 * 256 * 2 + 4 + 256 * 2 + 4),
-                           8.0 * a_batch * heads * n0 * n1 * hd, BF16_TENSOR_FLOPS)
+        nv0, nv1 = int(km0.sum()), int(km1.sum())
+        k11 = dict(
+            bytes=a_batch * (n0 + n1) * (2 * 256 * 2 + 4 + 256 * 2 + 4),
+            ops=8.0 * a_batch * heads * n0 * n1 * hd,  # both directions' QK and PV
+            stats_ops=2.0 * heads * hd * (n0 * nv1 + n1 * nv0),  # the statistics' QK over valid queries
+            exps=heads * (2 * a_batch * n0 * n1 + n0 * nv1 + n1 * nv0),
+            ms=cuda_ms(torch, lambda: cross_attention.cross_attention_packed(*c_args, return_stats=True)),
+            no_stats_ms=cuda_ms(torch, lambda: cross_attention.cross_attention_packed(*c_args)),
+            lib=cuda_ms(torch, two_sdpa),
+        )
+        log(f"cross_attention_packed ({a_batch} x {n0} x {n1}): {k11['ms']:.4f} ms with statistics, "
+            f"{k11['no_stats_ms']:.4f} ms without; two SDPA {k11['lib']:.4f} ms")
         rows["cross_attention_packed"] = dict(
             name="cross_attention_packed", route="cuda",
             source="pram_tpu_torch/csrc/cross_attention_packed.cu",
             replaces="pram_tpu/ops/attention_pallas.py:647",
-            launches=None, max_abs_err=err,
-            ms=cuda_ms(torch, lambda: cross_attention.cross_attention_packed(*c_args, return_stats=True)),
+            launches=None, max_abs_err=err, ms=k11["ms"],
             plain_ms=cuda_ms(
                 torch, lambda: cross_attention.cross_attention_packed_plain(*c_args, return_stats=True), iters=3),
-            bound_ms=bnd, bound_by=by, library_ms=cuda_ms(torch, two_sdpa),
+            library_ms=k11["lib"], **attention_bounds(f"cross_attention_packed ({a_batch} x {n0} x {n1})", k11),
         )
 
         # kernel 12 at GML's splits, on the first slice's GML inputs
@@ -1172,10 +1217,12 @@ def main() -> int:
         gqkv = (gx @ gwp + gbp).contiguous()
         b_args = (gqkv, gcos, gsin, attention.mask_to_bias(gm, gb, gn0 + gn1, dev), gscale, heads)
         gsplits = (gn0, gn1)
+        got = attention_qkv.self_attention_qkv(*b_args, splits=gsplits)
         err = check_scaled(
-            f"self_attention_qkv_blocked (GML splits {gsplits})",
-            attention_qkv.self_attention_qkv(*b_args, splits=gsplits),
+            f"self_attention_qkv_blocked (GML splits {gsplits})", got,
             attention_qkv.self_attention_qkv_plain(*b_args, splits=gsplits), ATTN_TOL)
+        require(torch.equal(attention_qkv.self_attention_qkv(*b_args, splits=gsplits), got),
+                "self_attention_qkv_blocked: two launches differ")
         gq = gqkv.reshape(gb, gn0 + gn1, 3, heads, hd).permute(2, 0, 3, 1, 4)
         genc = (gcos[:, None], gsin[:, None])
         gq_ = attention.apply_rotary(genc, gq[0].float()).to(bf16).contiguous()

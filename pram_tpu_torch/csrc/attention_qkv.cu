@@ -13,23 +13,30 @@
 //      values, rounded back to T, into two scratch tensors the wrapper
 //      allocates (the TPU kernel rotates in VMEM; here each key tile is read
 //      by every query tile of its side, so it is rotated once, not per read).
-//   2. message_kernel: one block per (frame, head, 128 queries),
-//      attention_stats.cuh:message_block over the keys of the query tile's
-//      side; v is read straight from qkv.
-//   3. stats_kernel (with statistics only): one block per (frame, 64 keys),
-//      attention_stats.cuh:stats_block over the queries of the key tile's side.
+//   2. the message pass: one CTA per (frame, head, 128 queries) over the keys
+//      of the query tile's side; v is read straight from qkv.
+//   3. the statistics pass (with statistics only): one CTA per (frame, 128
+//      keys; 64 in f32) over the queries of the key tile's side.
+// In bf16, passes 2 and 3 are wg::message_cta (attention_wgmma.cuh) and
+// wg::stats_cta (attention_stats.cuh): a producer warp feeds two consumer
+// warpgroups 64 x 64 tiles of qr, kr and v by TMA (three tensor maps encoded
+// here per call), and the products are wgmma m64n64k16 with S, P and O in
+// registers. In f32 (the matcher's A/B checks) they are pass::message_block
+// and pass::stats_block on the CUDA cores.
 //
 // What bounds it: at AdaGML's Aachen shape (8 frames x 4096 tokens, 4 heads
 // of 64) the QK and PV products are 137 GFLOP and the statistics' second QK
-// product 69 GFLOP, against ~75 MB in and out, so the tensor cores bound it.
-// Scores never reach device memory. Products are bf16 WMMA tiles (16x16x16,
-// f32 accumulate); wgmma and TMA are the next step.
+// product 69 GFLOP, against ~75 MB in and out, so the tensor cores bound it
+// (0.21 ms at 989 TFLOP/s); the 1.07 G exponentials (one per (head, query,
+// key) in each pass) are a second ceiling, 0.26 ms at 132 SMs x 16 a clock.
+// Scores never reach device memory or shared memory.
 //
 // Rounding follows the TPU kernel: rotary in f32 from the T values of q and
-// k, rounded to T before QK; logits q.k * scale + key_bias in f32; the
-// weights rounded to T for P @ V, 1/sum folded into the f32 output, which
-// is rounded to T. An all-masked side (bias -1e9 everywhere) gives the mean
-// of v. The statistics use the normalized f32 weights.
+// k, rounded to T before QK; logits q.k * scale + key_bias in f32 (in bf16
+// folded with log2 e into one fma, exponentials by ex2); the weights
+// rounded to T for P @ V, 1/sum folded into the f32 output, which is
+// rounded to T. An all-masked side (bias -1e9 everywhere) gives the mean of
+// v. The statistics use the normalized f32 weights.
 //
 // Layouts: qkv [B, N, 768] T in [q heads | k heads | v heads] column blocks
 // (head h at h * 64 within each block); cos, sin [B, N, 64] f32; key_bias
@@ -74,37 +81,42 @@ __global__ void rotate_kernel(const T* __restrict__ qkv,
   dst[1] = tile::from_f32<T>(__fadd_rn(__fmul_rn(x1, c1), __fmul_rn(x0, s1)));
 }
 
-template <typename T>
+// the message pass's rows (max, then weight) of (frame b, head h) from query
+// q0 on, in the [2][B][heads][N] scratch; left null without statistics
+__device__ __forceinline__ void row_pointers(float* rows, int b, int h, int N,
+                                             int heads, int q0, float*& row_m,
+                                             float*& row_w) {
+  if (rows == nullptr) return;
+  row_m = rows + ((size_t)b * heads + h) * N + q0;
+  row_w = row_m + (size_t)gridDim.z * heads * N;
+}
+
 __global__ void __launch_bounds__(pass::NTHREADS, 1)
-message_kernel(const T* __restrict__ qr, const T* __restrict__ kr,
-               const T* __restrict__ qkv, const float* __restrict__ key_bias,
-               T* __restrict__ out, float* __restrict__ rows, int N,
-               int heads, float scale, Sides sides) {
+message_kernel_f32(const float* __restrict__ qr, const float* __restrict__ kr,
+                   const float* __restrict__ qkv,
+                   const float* __restrict__ key_bias, float* __restrict__ out,
+                   float* __restrict__ rows, int N, int heads, float scale,
+                   Sides sides) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int q0 = blockIdx.x * pass::QT, h = blockIdx.y, b = blockIdx.z;
-  const int B = gridDim.z;
   int lo, hi;
   sides.find(q0, lo, hi);
   const size_t frame = (size_t)b * N;
   const float* kb = key_bias + frame;
   float* row_m = nullptr;
   float* row_w = nullptr;
-  if (rows != nullptr) {  // [2][B][heads][N]: max, then weight
-    row_m = rows + ((size_t)b * heads + h) * N + q0;
-    row_w = row_m + (size_t)B * heads * N;
-  }
-  pass::message_block<T>(
+  row_pointers(rows, b, h, N, heads, q0, row_m, row_w);
+  pass::message_block(
       qr + (frame + q0) * D + h * HD, D, kr + frame * D + h * HD, D,
       qkv + frame * D3 + 2 * D + h * HD, D3, kb, lo, hi, scale,
       out + (frame + q0) * D + h * HD, D, kb + q0, row_m, row_w, smem);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(pass::STHREADS)
-stats_kernel(const T* __restrict__ qr, const T* __restrict__ kr,
-             const float* __restrict__ key_bias,
-             const float* __restrict__ rows, float* __restrict__ stat, int N,
-             int heads, float scale, Sides sides) {
+stats_kernel_f32(const float* __restrict__ qr, const float* __restrict__ kr,
+                 const float* __restrict__ key_bias,
+                 const float* __restrict__ rows, float* __restrict__ stat,
+                 int N, int heads, float scale, Sides sides) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int k0 = blockIdx.x * pass::SK, b = blockIdx.y;
   const int B = gridDim.y;
@@ -113,22 +125,54 @@ stats_kernel(const T* __restrict__ qr, const T* __restrict__ kr,
   const size_t frame = (size_t)b * N;
   const float* row_m = rows + (size_t)b * heads * N;
   const float* row_w = row_m + (size_t)B * heads * N;
-  pass::stats_block<T>(qr + frame * D, D, kr + (frame + k0) * D, D,
-                       key_bias + frame + k0, row_m, row_w, N, lo, hi, heads,
-                       scale, stat + frame + k0, smem);
+  pass::stats_block(qr + frame * D, D, kr + (frame + k0) * D, D,
+                    key_bias + frame + k0, row_m, row_w, N, lo, hi, heads,
+                    scale, stat + frame + k0, smem);
 }
 
-template <typename T>
-int launch(const void* qkv, const void* cos, const void* sin,
-           const void* key_bias, void* qr, void* kr, void* out, void* rows,
-           void* stat, int B, int N, int heads, float scale, const int* splits,
-           int n_splits, cudaStream_t stream) {
-  // splits: n_splits side lengths (host memory), each a multiple of the
-  // 128-query tile, summing to N; one side of N tokens is plain attention
-  if (heads * HD != D || N % pass::QT != 0 || n_splits < 1 ||
-      n_splits > tile::MAX_SIDES)
+struct Maps {  // bf16 [B, N, cols] tensors: qr and kr (256 columns), qkv (768)
+  CUtensorMap q, k, v;
+};
+
+__global__ void __launch_bounds__(wg::THREADS, 2)
+message_kernel_bf16(const __grid_constant__ Maps maps,
+                    const float* __restrict__ key_bias, bf16* __restrict__ out,
+                    float* __restrict__ rows, int N, int heads, float scale,
+                    Sides sides) {
+  extern __shared__ unsigned char smem[];
+  const int q0 = blockIdx.x * wg::MQ, h = blockIdx.y, b = blockIdx.z;
+  int lo, hi;
+  sides.find(q0, lo, hi);
+  const float* kb = key_bias + (size_t)b * N;
+  float* row_m = nullptr;
+  float* row_w = nullptr;
+  row_pointers(rows, b, h, N, heads, q0, row_m, row_w);
+  wg::message_cta(&maps.q, h * HD, &maps.k, h * HD, &maps.v, 2 * D + h * HD,
+                  b, q0, lo, hi, kb, scale,
+                  out + ((size_t)b * N + q0) * D + h * HD, D, kb + q0, row_m,
+                  row_w, smem);
+}
+
+__global__ void __launch_bounds__(wg::THREADS, 2)
+stats_kernel_bf16(const __grid_constant__ Maps maps,
+                  const float* __restrict__ key_bias,
+                  const float* __restrict__ rows, float* __restrict__ stat,
+                  int N, int heads, float scale, Sides sides) {
+  extern __shared__ unsigned char smem[];
+  const int k0 = blockIdx.x * wg::SK, b = blockIdx.y;
+  int lo, hi;
+  sides.find(k0, lo, hi);
+  const float* row_m = rows + (size_t)b * heads * N;
+  const float* row_w = row_m + (size_t)gridDim.y * heads * N;
+  const size_t at = (size_t)b * N + k0;
+  wg::stats_cta(&maps.q, &maps.k, b, k0, lo, hi, heads, key_bias + at, row_m,
+                row_w, N, scale, stat + at, smem);
+}
+
+// checks the splits into sides; 0 or an error code
+int make_sides(int N, const int* splits, int n_splits, Sides& sides) {
+  if (N % pass::QT != 0 || n_splits < 1 || n_splits > tile::MAX_SIDES)
     return (int)cudaErrorInvalidValue;
-  Sides sides;
   sides.n = n_splits;
   sides.edge[0] = 0;
   for (int s = 0; s < n_splits; ++s) {
@@ -136,37 +180,60 @@ int launch(const void* qkv, const void* cos, const void* sin,
       return (int)cudaErrorInvalidValue;
     sides.edge[s + 1] = sides.edge[s] + splits[s];
   }
-  if (sides.edge[n_splits] != N) return (int)cudaErrorInvalidValue;
-  const bool with_stats = stat != nullptr;
+  return sides.edge[n_splits] == N ? 0 : (int)cudaErrorInvalidValue;
+}
 
+template <typename T>
+int rotate(const void* qkv, const void* cos, const void* sin, void* qr,
+           void* kr, int B, int N, cudaStream_t stream) {
   const size_t work = (size_t)B * N * D;
   rotate_kernel<T><<<(unsigned)((work + 255) / 256), 256, 0, stream>>>(
       (const T*)qkv, (const float*)cos, (const float*)sin, (T*)qr, (T*)kr,
       (size_t)B * N);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  constexpr size_t msg_smem = pass::message_smem<T>();
-  err = cudaFuncSetAttribute(message_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)msg_smem);
-  if (err != cudaSuccess) return (int)err;
-  message_kernel<T><<<dim3(N / pass::QT, heads, B), pass::NTHREADS, msg_smem,
-                      stream>>>(
-      (const T*)qr, (const T*)kr, (const T*)qkv, (const float*)key_bias,
-      (T*)out, with_stats ? (float*)rows : nullptr, N, heads, scale, sides);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !with_stats) return (int)err;
-
-  constexpr size_t st_smem = pass::stats_smem<T>();
-  err = cudaFuncSetAttribute(stats_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)st_smem);
-  if (err != cudaSuccess) return (int)err;
-  stats_kernel<T><<<dim3(N / pass::SK, B), pass::STHREADS, st_smem, stream>>>(
-      (const T*)qr, (const T*)kr, (const float*)key_bias, (const float*)rows,
-      (float*)stat, N, heads, scale, sides);
   return (int)cudaGetLastError();
+}
+
+int launch_f32(const void* qkv, const void* cos, const void* sin,
+               const void* key_bias, void* qr, void* kr, void* out,
+               void* rows, void* stat, int B, int N, int heads, float scale,
+               const Sides& sides, cudaStream_t stream) {
+  int err = rotate<float>(qkv, cos, sin, qr, kr, B, N, stream);
+  if (err) return err;
+  err = wg::launch(message_kernel_f32, dim3(N / pass::QT, heads, B),
+                   pass::NTHREADS, pass::MESSAGE_SMEM, stream,
+                   (const float*)qr, (const float*)kr, (const float*)qkv,
+                   (const float*)key_bias, (float*)out,
+                   stat != nullptr ? (float*)rows : nullptr, N, heads,
+                   scale, sides);
+  if (err || stat == nullptr) return err;
+  return wg::launch(stats_kernel_f32, dim3(N / pass::SK, B),
+                    pass::STHREADS, pass::STATS_SMEM, stream,
+                    (const float*)qr, (const float*)kr,
+                    (const float*)key_bias, (const float*)rows,
+                    (float*)stat, N, heads, scale, sides);
+}
+
+int launch_bf16(const void* qkv, const void* cos, const void* sin,
+                const void* key_bias, void* qr, void* kr, void* out,
+                void* rows, void* stat, int B, int N, int heads, float scale,
+                const Sides& sides, cudaStream_t stream) {
+  Maps maps;
+  if (!wg::make_map(&maps.q, qr, D, N, B, D, (size_t)N * D) ||
+      !wg::make_map(&maps.k, kr, D, N, B, D, (size_t)N * D) ||
+      !wg::make_map(&maps.v, qkv, D3, N, B, D3, (size_t)N * D3))
+    return (int)cudaErrorInvalidValue;
+  int err = rotate<bf16>(qkv, cos, sin, qr, kr, B, N, stream);
+  if (err) return err;
+  err = wg::launch(message_kernel_bf16, dim3(N / wg::MQ, heads, B),
+                   wg::THREADS, wg::MSG_SMEM, stream, maps,
+                   (const float*)key_bias, (bf16*)out,
+                   stat != nullptr ? (float*)rows : nullptr, N, heads,
+                   scale, sides);
+  if (err || stat == nullptr) return err;
+  return wg::launch(stats_kernel_bf16, dim3(N / wg::SK, B), wg::THREADS,
+                    wg::STATS_SMEM, stream, maps, (const float*)key_bias,
+                    (const float*)rows, (float*)stat, N, heads, scale,
+                    sides);
 }
 
 }  // namespace
@@ -181,10 +248,10 @@ extern "C" int pram_self_attention_qkv(const void* qkv, const void* cos,
                                        int heads, float scale,
                                        const int* splits, int n_splits,
                                        int is_f32, void* stream) {
-  auto s = (cudaStream_t)stream;
-  if (is_f32)
-    return launch<float>(qkv, cos, sin, key_bias, qr, kr, out, rows, stat, B,
-                         N, heads, scale, splits, n_splits, s);
-  return launch<bf16>(qkv, cos, sin, key_bias, qr, kr, out, rows, stat, B, N,
-                      heads, scale, splits, n_splits, s);
+  if (heads * HD != D) return (int)cudaErrorInvalidValue;
+  Sides sides;
+  if (int err = make_sides(N, splits, n_splits, sides)) return err;
+  auto launch = is_f32 ? launch_f32 : launch_bf16;
+  return launch(qkv, cos, sin, key_bias, qr, kr, out, rows, stat, B, N, heads,
+                scale, sides, (cudaStream_t)stream);
 }

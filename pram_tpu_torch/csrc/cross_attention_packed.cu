@@ -11,23 +11,31 @@
 // similarity is computed once per direction, as the TPU kernels do.
 //
 // Two launches on one stream:
-//   1. message_kernel: one block per (frame, head, 128 queries of either
-//      side), attention_stats.cuh:message_block over the other side's keys;
-//      both directions in one grid.
-//   2. stats_kernel (with statistics only): one block per (frame, 64 keys of
-//      either side), attention_stats.cuh:stats_block over the other side's
-//      queries. stat0 is the mass side 0's keys receive from side 1's valid
-//      queries (validity from bias1), stat1 the mirror.
+//   1. the message pass: one CTA per (frame, head, 128 queries of either
+//      side) over the other side's keys; both directions in one grid.
+//   2. the statistics pass (with statistics only): one CTA per (frame, 128
+//      keys of either side; 64 in f32) over the other side's queries. stat0
+//      is the mass side 0's keys receive from side 1's valid queries
+//      (validity from bias1), stat1 the mirror.
+// In bf16 they are wg::message_cta (attention_wgmma.cuh) and wg::stats_cta
+// (attention_stats.cuh): a producer warp feeds two consumer warpgroups 64 x
+// 64 tiles by TMA through four 3-D tensor maps (qk0, qk1, v0, v1: the sides
+// may be strided views into one [B, N + M, 256] projection, so each map
+// carries its frame stride), and the products are wgmma m64n64k16 with S,
+// P and O in registers. In f32 (the matcher's A/B checks) they are
+// pass::message_block and pass::stats_block on the CUDA cores.
 //
 // What bounds it: at the Aachen shape (8 frames, 4096 x 2048 tokens, 4 heads
 // of 64) the two directions' QK and PV products are 137 GFLOP and the
 // statistics' QK products another 69 GFLOP, against ~75 MB in and out: the
-// tensor cores bound it. Scores never reach device memory. Products are
-// bf16 WMMA tiles (16x16x16, f32 accumulate); wgmma and TMA are the next step.
+// tensor cores bound it (0.21 ms at 989 TFLOP/s); the 1.07 G exponentials
+// are a second ceiling (0.26 ms). Scores never reach device memory or
+// shared memory.
 //
-// Rounding follows _attn_weights: logits qk_q . qk_k * scale + bias in f32,
-// the weights rounded to T for P @ V, 1/sum folded into the f32 output,
-// which is rounded to T; an all-masked key side gives the mean of v. The
+// Rounding follows _attn_weights: logits qk_q . qk_k * scale + bias in f32
+// (in bf16 folded with log2 e into one fma, exponentials by ex2), the
+// weights rounded to T for P @ V, 1/sum folded into the f32 output, which
+// is rounded to T; an all-masked key side gives the mean of v. The
 // statistics use the normalized f32 weights.
 //
 // Layouts: qk0, v0 [B, N, 256] and qk1, v1 [B, M, 256] of element type T
@@ -61,25 +69,31 @@ struct Side {  // one side's tensors; frame strides in elements
   int n;
 };
 
-template <typename T>
+// the rows scratch is [2][B][heads][N + M]: max, then weight; side 0's
+// queries, then side 1's
+__device__ __forceinline__ float* side_rows(float* rows, int b, int h,
+                                            int heads, int nt, int side_at) {
+  return rows + ((size_t)b * heads + h) * nt + side_at;
+}
+
 __global__ void __launch_bounds__(pass::NTHREADS, 1)
-message_kernel(Side<T> s0, Side<T> s1, float* __restrict__ rows, int heads,
-               float scale) {
+message_kernel_f32(Side<float> s0, Side<float> s1, float* __restrict__ rows,
+                   int heads, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tiles0 = s0.n / pass::QT;
   const bool dir1 = (int)blockIdx.x >= tiles0;  // queries of side 1
-  const Side<T>& q = dir1 ? s1 : s0;
-  const Side<T>& k = dir1 ? s0 : s1;
+  const Side<float>& q = dir1 ? s1 : s0;
+  const Side<float>& k = dir1 ? s0 : s1;
   const int q0 = (dir1 ? (int)blockIdx.x - tiles0 : (int)blockIdx.x) * pass::QT;
   const int h = blockIdx.y, b = blockIdx.z, B = gridDim.z;
   const int nt = s0.n + s1.n;
   float* row_m = nullptr;
   float* row_w = nullptr;
-  if (rows != nullptr) {  // [2][B][heads][N + M]: side 0's rows, then side 1's
-    row_m = rows + ((size_t)b * heads + h) * nt + (dir1 ? s0.n : 0) + q0;
+  if (rows != nullptr) {
+    row_m = side_rows(rows, b, h, heads, nt, (dir1 ? s0.n : 0) + q0);
     row_w = row_m + (size_t)B * heads * nt;
   }
-  pass::message_block<T>(
+  pass::message_block(
       q.qk + b * q.qk_stride + (size_t)q0 * D + h * HD, D,
       k.qk + b * k.qk_stride + h * HD, D, k.v + b * k.v_stride + h * HD, D,
       k.bias + (size_t)b * k.n, 0, k.n, scale,
@@ -87,53 +101,106 @@ message_kernel(Side<T> s0, Side<T> s1, float* __restrict__ rows, int heads,
       q.bias + (size_t)b * q.n + q0, row_m, row_w, smem);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(pass::STHREADS)
-stats_kernel(Side<T> s0, Side<T> s1, const float* __restrict__ rows,
-             int heads, float scale) {
+stats_kernel_f32(Side<float> s0, Side<float> s1,
+                 const float* __restrict__ rows, int heads, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tiles0 = s0.n / pass::SK;
   const bool side1 = (int)blockIdx.x >= tiles0;  // keys of side 1
-  const Side<T>& k = side1 ? s1 : s0;
-  const Side<T>& q = side1 ? s0 : s1;
+  const Side<float>& k = side1 ? s1 : s0;
+  const Side<float>& q = side1 ? s0 : s1;
   const int k0 = (side1 ? (int)blockIdx.x - tiles0 : (int)blockIdx.x) * pass::SK;
   const int b = blockIdx.y, B = gridDim.y;
   const int nt = s0.n + s1.n;
   // the query side's rows of pass 1
   const float* row_m = rows + (size_t)b * heads * nt + (side1 ? 0 : s0.n);
   const float* row_w = row_m + (size_t)B * heads * nt;
-  pass::stats_block<T>(q.qk + b * q.qk_stride, D,
-                       k.qk + b * k.qk_stride + (size_t)k0 * D, D,
-                       k.bias + (size_t)b * k.n + k0, row_m, row_w, nt, 0,
-                       q.n, heads, scale, k.stat + (size_t)b * k.n + k0, smem);
+  pass::stats_block(q.qk + b * q.qk_stride, D,
+                    k.qk + b * k.qk_stride + (size_t)k0 * D, D,
+                    k.bias + (size_t)b * k.n + k0, row_m, row_w, nt, 0, q.n,
+                    heads, scale, k.stat + (size_t)b * k.n + k0, smem);
 }
 
-template <typename T>
-int launch(Side<T> s0, Side<T> s1, float* rows, int B, int heads,
-           float scale, cudaStream_t stream) {
-  if (heads * HD != D || s0.n <= 0 || s1.n <= 0 || s0.n % pass::QT ||
-      s1.n % pass::QT)
-    return (int)cudaErrorInvalidValue;
-  const bool with_stats = s0.stat != nullptr;
-  constexpr size_t msg_smem = pass::message_smem<T>();
-  cudaError_t err = cudaFuncSetAttribute(
-      message_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)msg_smem);
-  if (err != cudaSuccess) return (int)err;
-  message_kernel<T><<<dim3((s0.n + s1.n) / pass::QT, heads, B),
-                      pass::NTHREADS, msg_smem, stream>>>(
-      s0, s1, with_stats ? rows : nullptr, heads, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !with_stats) return (int)err;
+struct Maps {  // bf16 [B, n, 256] views: qk[side], v[side]
+  CUtensorMap qk[2], v[2];
+};
 
-  constexpr size_t st_smem = pass::stats_smem<T>();
-  err = cudaFuncSetAttribute(stats_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)st_smem);
-  if (err != cudaSuccess) return (int)err;
-  stats_kernel<T><<<dim3((s0.n + s1.n) / pass::SK, B), pass::STHREADS,
-                    st_smem, stream>>>(s0, s1, rows, heads, scale);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(wg::THREADS, 2)
+message_kernel_bf16(const __grid_constant__ Maps maps, Side<bf16> s0,
+                    Side<bf16> s1, float* __restrict__ rows, int heads,
+                    float scale) {
+  extern __shared__ unsigned char smem[];
+  const int tiles0 = s0.n / wg::MQ;
+  const int qs = (int)blockIdx.x >= tiles0;  // the queries' side
+  const int q0 = ((int)blockIdx.x - qs * tiles0) * wg::MQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int qn = qs ? s1.n : s0.n, kn = qs ? s0.n : s1.n;
+  const size_t qat = (size_t)b * qn + q0;
+  float* row_m = nullptr;
+  float* row_w = nullptr;
+  if (rows != nullptr) {
+    row_m = side_rows(rows, b, h, heads, s0.n + s1.n, qs * s0.n + q0);
+    row_w = row_m + (size_t)gridDim.z * heads * (s0.n + s1.n);
+  }
+  wg::message_cta(&maps.qk[qs], h * HD, &maps.qk[1 - qs], h * HD,
+                  &maps.v[1 - qs], h * HD, b, q0, 0, kn,
+                  (qs ? s0.bias : s1.bias) + (size_t)b * kn, scale,
+                  (qs ? s1.msg : s0.msg) + qat * D + h * HD, D,
+                  (qs ? s1.bias : s0.bias) + qat, row_m, row_w, smem);
+}
+
+__global__ void __launch_bounds__(wg::THREADS, 2)
+stats_kernel_bf16(const __grid_constant__ Maps maps, Side<bf16> s0,
+                  Side<bf16> s1, const float* __restrict__ rows, int heads,
+                  float scale) {
+  extern __shared__ unsigned char smem[];
+  const int tiles0 = s0.n / wg::SK;
+  const int ks = (int)blockIdx.x >= tiles0;  // the keys' side
+  const int k0 = ((int)blockIdx.x - ks * tiles0) * wg::SK;
+  const int b = blockIdx.y;
+  const int nt = s0.n + s1.n;
+  const int kn = ks ? s1.n : s0.n, qn = ks ? s0.n : s1.n;
+  // the query side's rows of pass 1
+  const float* row_m = rows + (size_t)b * heads * nt + (1 - ks) * s0.n;
+  const float* row_w = row_m + (size_t)gridDim.y * heads * nt;
+  const size_t at = (size_t)b * kn + k0;
+  wg::stats_cta(&maps.qk[1 - ks], &maps.qk[ks], b, k0, 0, qn, heads,
+                (ks ? s1.bias : s0.bias) + at, row_m, row_w, nt, scale,
+                (ks ? s1.stat : s0.stat) + at, smem);
+}
+
+int launch_f32(Side<float> s0, Side<float> s1, float* rows, int B, int heads,
+               float scale, cudaStream_t stream) {
+  const bool with_stats = s0.stat != nullptr;
+  const int err = wg::launch(
+      message_kernel_f32, dim3((s0.n + s1.n) / pass::QT, heads, B),
+      pass::NTHREADS, pass::MESSAGE_SMEM, stream, s0, s1,
+      with_stats ? rows : nullptr, heads, scale);
+  if (err || !with_stats) return err;
+  return wg::launch(stats_kernel_f32, dim3((s0.n + s1.n) / pass::SK, B),
+                    pass::STHREADS, pass::STATS_SMEM, stream, s0, s1,
+                    (const float*)rows, heads, scale);
+}
+
+int launch_bf16(Side<bf16> s0, Side<bf16> s1, float* rows, int B, int heads,
+                float scale, cudaStream_t stream) {
+  Maps maps;
+  const Side<bf16>* sides[2] = {&s0, &s1};
+  for (int i = 0; i < 2; ++i) {
+    const Side<bf16>& s = *sides[i];
+    if (!wg::make_map(&maps.qk[i], s.qk, D, s.n, B, D, s.qk_stride) ||
+        !wg::make_map(&maps.v[i], s.v, D, s.n, B, D, s.v_stride))
+      return (int)cudaErrorInvalidValue;
+  }
+  const bool with_stats = s0.stat != nullptr;
+  const int err = wg::launch(
+      message_kernel_bf16, dim3((s0.n + s1.n) / wg::MQ, heads, B),
+      wg::THREADS, wg::MSG_SMEM, stream, maps, s0, s1,
+      with_stats ? rows : nullptr, heads, scale);
+  if (err || !with_stats) return err;
+  return wg::launch(stats_kernel_bf16, dim3((s0.n + s1.n) / wg::SK, B),
+                    wg::THREADS, wg::STATS_SMEM, stream, maps, s0, s1,
+                    (const float*)rows, heads, scale);
 }
 
 template <typename T>
@@ -142,12 +209,16 @@ int launch_typed(const void* qk0, const void* qk1, const void* v0,
                  long long v0_stride, long long v1_stride, const void* bias0,
                  const void* bias1, void* m0, void* m1, void* rows,
                  void* stat0, void* stat1, int B, int N, int M, int heads,
-                 float scale, cudaStream_t stream) {
+                 float scale, cudaStream_t stream,
+                 int (*launch)(Side<T>, Side<T>, float*, int, int, float,
+                               cudaStream_t)) {
+  if (heads * HD != D || N <= 0 || M <= 0 || N % pass::QT || M % pass::QT)
+    return (int)cudaErrorInvalidValue;
   Side<T> s0{(const T*)qk0, (const T*)v0, (size_t)qk0_stride,
              (size_t)v0_stride, (const float*)bias0, (T*)m0, (float*)stat0, N};
   Side<T> s1{(const T*)qk1, (const T*)v1, (size_t)qk1_stride,
              (size_t)v1_stride, (const float*)bias1, (T*)m1, (float*)stat1, M};
-  return launch<T>(s0, s1, (float*)rows, B, heads, scale, stream);
+  return launch(s0, s1, (float*)rows, B, heads, scale, stream);
 }
 
 }  // namespace
@@ -165,8 +236,10 @@ extern "C" int pram_cross_attention_packed(
   if (is_f32)
     return launch_typed<float>(qk0, qk1, v0, v1, qk0_stride, qk1_stride,
                                v0_stride, v1_stride, bias0, bias1, m0, m1,
-                               rows, stat0, stat1, B, N, M, heads, scale, s);
+                               rows, stat0, stat1, B, N, M, heads, scale, s,
+                               launch_f32);
   return launch_typed<bf16>(qk0, qk1, v0, v1, qk0_stride, qk1_stride,
                             v0_stride, v1_stride, bias0, bias1, m0, m1, rows,
-                            stat0, stat1, B, N, M, heads, scale, s);
+                            stat0, stat1, B, N, M, heads, scale, s,
+                            launch_bf16);
 }

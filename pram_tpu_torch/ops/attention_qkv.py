@@ -114,8 +114,9 @@ def self_attention_qkv(
     check_tensor(cos, "cos", (b, n, KERNEL_HEAD_DIM), f32, dev)
     check_tensor(sin, "sin", (b, n, KERNEL_HEAD_DIM), f32, dev)
     check_tensor(key_bias, "key_bias", (b, n), f32, dev)
-    if qkv.data_ptr() % 16:
-        raise ValueError("qkv must be 16-byte aligned")
+    for name, t in (("qkv", qkv), ("key_bias", key_bias)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     qr = torch.empty((b, n, KERNEL_D), dtype=dt, device=dev)
     kr = torch.empty_like(qr)
     out = torch.empty_like(qr)

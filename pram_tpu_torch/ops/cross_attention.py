@@ -222,6 +222,8 @@ def cross_attention_packed(qk0, qk1, v0, v1, bias0, bias1, scale, heads, return_
             raise ValueError(f"{name} needs contiguous 16-byte aligned rows of {d} elements")
     check_tensor(bias0, "bias0", (b, n), f32, dev)
     check_tensor(bias1, "bias1", (b, m), f32, dev)
+    if bias0.data_ptr() % 16 or bias1.data_ptr() % 16:
+        raise ValueError("bias0 and bias1 must be 16-byte aligned")
     m0 = torch.empty((b, n, d), dtype=dt, device=dev)
     m1 = torch.empty((b, m, d), dtype=dt, device=dev)
     rows = stat0 = stat1 = None

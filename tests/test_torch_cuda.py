@@ -19,7 +19,11 @@ cross-attention with AdaGML's statistics): messages within 2% of their
 scale in bf16 and 1e-4 in f32 (products on the CUDA cores; summation order
 only), statistics within 1e-3 of their scale in bf16 and 1e-4 in f32
 (both sides sum the same normalized f32 weights; the logits are summed in
-another order). The f32 residual MLP within 1e-4 of its scale. Backward
+another order); their bf16 passes (wgmma, TMA) also give the same bits on
+two launches, the same messages with and without the statistics, zero
+statistics for masked keys and frames without valid queries, and the mean
+of v for queries with no valid key (within 0.02: bf16 inputs of scale 1).
+The f32 residual MLP within 1e-4 of its scale. Backward
 kernels 13-15: bf16 outputs within 2% of their scale, f32 reductions
 within 1%; a training step's f32 master gradients, kernel path against
 plain path, within 3% of each tensor's scale. Kernels 16-19 (int8 MLP,
@@ -388,6 +392,95 @@ def test_cross_attention_packed_kernel(dev, b, n0, n1, dtype):
     assert torch.allclose(got[0][-1].float(), v[-1, n0:].float().mean(0).expand(n0, -1), atol=0.02)
     valid0 = (b0[-1] > -0.5).sum().item()
     assert torch.allclose(got[3][-1], torch.full_like(got[3][-1], 4 * valid0 / n1), rtol=1e-3)
+
+
+def _mean_v(v, edges):
+    """The messages of queries with no valid key: each side's mean of v."""
+    return torch.cat([v[lo:hi].float().mean(0).expand(hi - lo, -1) for lo, hi in edges])
+
+
+@pytest.mark.parametrize("b,splits", [(8, (4096,)), (8, (2048,)), (2, (128,)), (4, (512, 1024))])
+def test_self_attention_qkv_wgmma(dev, b, splits):
+    """Kernels 10 and 12's bf16 passes (wgmma on TMA-fed tiles): the Aachen
+    sides, the least side and GML's splits, with pruned query rows and a
+    fully masked frame; two launches bit-equal, and the messages bit-equal
+    with and without the statistics."""
+    n = sum(splits)
+    g = torch.Generator().manual_seed(n + b)
+    qkv = _rand(g, b, n, 768).to(dev, torch.bfloat16)
+    ang = _rand(g, b, n, 32)
+    cos = torch.cos(ang).repeat_interleave(2, -1).to(dev)
+    sin = torch.sin(ang).repeat_interleave(2, -1).to(dev)
+    mask = _masks(g, b, n, 0.7)
+    kb = attention.mask_to_bias(mask, b, n, "cpu").to(dev)
+    args = (qkv, cos, sin, kb, 64**-0.5, 4)
+    sp = splits if len(splits) > 1 else None
+    msg, stat = attention_qkv.self_attention_qkv(*args, splits=sp, return_stats=True)
+    ref_msg, ref_stat = attention_qkv.self_attention_qkv_plain(*args, splits=sp, return_stats=True)
+    assert _rel_err(msg, ref_msg) <= 0.02
+    assert _rel_err(stat, ref_stat) <= 1e-3
+    assert (stat[-1] == 0).all()  # no valid queries, no mass
+    assert (stat[~mask.to(dev)] == 0).all()  # masked keys receive none
+    edges = attention.split_edges(sp, n)
+    v = qkv[-1, :, 512:].view(n, 4, 64).transpose(0, 1)
+    want = torch.stack([_mean_v(vh, edges) for vh in v], 1).reshape(n, 256)
+    assert torch.allclose(msg[-1].float(), want, atol=0.02)
+    again = attention_qkv.self_attention_qkv(*args, splits=sp, return_stats=True)
+    assert torch.equal(again[0], msg) and torch.equal(again[1], stat)
+    assert torch.equal(attention_qkv.self_attention_qkv(*args, splits=sp), msg)
+
+
+@pytest.mark.parametrize("b,n0,n1", [(8, 4096, 2048), (8, 2048, 4096), (2, 128, 128)])
+def test_cross_attention_packed_wgmma(dev, b, n0, n1):
+    """Kernel 11's bf16 passes on strided views of one [B, N + M, 256]
+    projection, both side orders of the Aachen shape and the least sides,
+    with pruned query rows and a fully masked last frame; two launches
+    bit-equal, the messages bit-equal with and without the statistics."""
+    g = torch.Generator().manual_seed(n0 + 2 * n1 + b)
+    qk = _rand(g, b, n0 + n1, 256).to(dev, torch.bfloat16)
+    v = _rand(g, b, n0 + n1, 256).to(dev, torch.bfloat16)
+    mask0, mask1 = _masks(g, b, n0, 0.9), _masks(g, b, n1, 0.7)
+    b0 = attention.mask_to_bias(mask0, b, n0, "cpu").to(dev)
+    b1 = attention.mask_to_bias(mask1, b, n1, "cpu").to(dev)
+    args = (qk[:, :n0], qk[:, n0:], v[:, :n0], v[:, n0:], b0, b1, 64**-0.5, 4)
+    got = cross_attention.cross_attention_packed(*args, return_stats=True)
+    ref = cross_attention.cross_attention_packed_plain(*args, return_stats=True)
+    for i, (a, r) in enumerate(zip(got, ref)):
+        assert _rel_err(a, r) <= (0.02, 1e-3)[i // 2], i
+    for stat, mask in ((got[2], mask0), (got[3], mask1)):
+        assert (stat[-1] == 0).all() and (stat[~mask.to(dev)] == 0).all()
+    for msg, vk in ((got[0], v[-1, n0:]), (got[1], v[-1, :n0])):
+        assert torch.allclose(msg[-1].float(), vk.float().mean(0).expand(msg.shape[1], -1), atol=0.02)
+    again = cross_attention.cross_attention_packed(*args, return_stats=True)
+    assert all(torch.equal(a, r) for a, r in zip(again, got))
+    plain_msgs = cross_attention.cross_attention_packed(*args)
+    assert torch.equal(plain_msgs[0], got[0]) and torch.equal(plain_msgs[1], got[1])
+
+
+def test_packed_attention_f32_instance(dev):
+    """The f32 instances of kernels 10 and 11 (CUDA-core tiles) within 1e-4 of
+    their plain versions, at two sides each, and the same bits twice."""
+    g = torch.Generator().manual_seed(17)
+    n, splits = 384, (128, 256)
+    qkv = _rand(g, 2, n, 768).to(dev)
+    ang = _rand(g, 2, n, 32)
+    cos = torch.cos(ang).repeat_interleave(2, -1).to(dev)
+    sin = torch.sin(ang).repeat_interleave(2, -1).to(dev)
+    kb = attention.mask_to_bias(_masks(g, 2, n, 0.7), 2, n, "cpu").to(dev)
+    args = (qkv, cos, sin, kb, 64**-0.5, 4)
+    got = attention_qkv.self_attention_qkv(*args, splits=splits, return_stats=True)
+    ref = attention_qkv.self_attention_qkv_plain(*args, splits=splits, return_stats=True)
+    assert _rel_err(got[0], ref[0]) <= 1e-4 and _rel_err(got[1], ref[1]) <= 1e-4
+    again = attention_qkv.self_attention_qkv(*args, splits=splits, return_stats=True)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+    qk = qkv[:, :, :256].contiguous()
+    vv = qkv[:, :, 256:512].contiguous()
+    b0, b1 = kb[:, :128].contiguous(), kb[:, 128:].contiguous()
+    cargs = (qk[:, :128], qk[:, 128:], vv[:, :128], vv[:, 128:], b0, b1, 64**-0.5, 4)
+    got = cross_attention.cross_attention_packed(*cargs, return_stats=True)
+    ref = cross_attention.cross_attention_packed_plain(*cargs, return_stats=True)
+    for a, r in zip(got, ref):
+        assert _rel_err(a, r) <= 1e-4
 
 
 def test_residual_mlp_kernel_f32(dev):
