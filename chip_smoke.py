@@ -23,7 +23,10 @@ Phases, each printed with its elapsed seconds:
                 GML's shapes, on the matcher inputs of phase 5's batch:
                 self-attention with splits (512, 1024), cross-attention,
                 the residual MLP over 1536 tokens, Sinkhorn over [512, 1024]
-                and the refinement NN over 2048 points.
+                and the refinement NN over 2048 points; kernels 1 and 5's
+                projection pass alone (csrc/proj_bf16.cu), its scratch
+                against the plain projection, timed beside cuBLAS's
+                F.linear of the same projection and the SDPA yardsticks.
 7. gml slice    the second slice, bench.py's GML recall guard without the
                 extractor: recognition -> GML matching -> RANSAC PnP ->
                 projection refinement -> RANSAC PnP, counted the same way
@@ -165,6 +168,16 @@ EXP_PER_S = 132 * 16 * 1.98e9
 # about five steps and still fails any wrong index, mask or missing term.
 ATTN_TOL = 0.02
 MLP_TOL = 0.02
+# the projection pass of kernels 1 and 5 vs its plain version: the f32 sums
+# of 256 products in another order round to the same bf16 value but for a
+# few elements, which land one bf16 step apart (2^-7 of the value at most);
+# on the rotated columns such a step in either element of the pair carries
+# through the rotation, which rounds once more: |got - ref| <= 2^-7 (|ref| +
+# |y0| + |y1|), y the pair before the rotary. Near zero the sums' own f32
+# rounding decides: 2^-13 of the output's scale on top. >= 99% equal.
+PROJ_STEP = 2.0**-7
+PROJ_FLOOR = 2.0**-13
+PROJ_EQUAL_SHARE = 0.99
 SCORE_MAX_DIFF = 2  # points at the gate edge flip with f32 summation/FMA order
 POLISH_POSE_ATOL = 2e-3  # R entries and t (scene units) after 20 GN steps in f32
 POLISH_COUNT_DIFF = 2
@@ -323,6 +336,26 @@ def check_scaled(name: str, got, ref, tol: float) -> float:
     return err
 
 
+def check_projection(name: str, got, ref, pre=None, rot_cols: int = 0) -> float:
+    """Require the projection pass within PROJ_STEP of its plain version
+    (see above; ``pre`` the unrotated projection of the first ``rot_cols``
+    columns) and equal on PROJ_EQUAL_SHARE of the elements; returns the max
+    abs error."""
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    bound = ref.abs() * PROJ_STEP + ref.abs().max() * PROJ_FLOOR
+    if rot_cols:
+        pair = pre[..., :rot_cols].float().abs().unflatten(-1, (-1, 2)).sum(-1)
+        bound[..., :rot_cols] += pair.repeat_interleave(2, -1) * PROJ_STEP
+    equal = (diff == 0).float().mean().item()
+    err = diff.max().item()
+    log(f"{name}: {equal:.6f} of the elements equal (min {PROJ_EQUAL_SHARE}), max abs err {err:.3e}, "
+        f"max err / bound {(diff / bound).max().item():.3f} (one bf16 step)")
+    require(equal >= PROJ_EQUAL_SHARE and bool((diff <= bound).all()),
+            f"{name} kernel disagrees with its plain version")
+    return err
+
+
 def main() -> int:
     import argparse
 
@@ -414,6 +447,9 @@ def main() -> int:
     # kernels 16-19: the int8 image slice's (16-18) and the conv pair (19, on no path)
     int8_kernels = ("residual_mlp_int8", "self_attention_int8", "cross_attention_int8",
                     "conv3x3_int8", "fused_conv_pair")
+    # the standalone projection wrapper, which no path calls: kernels 1 and 5
+    # launch the pass from their C entries, counted as theirs
+    pass_only = ("projection",)
 
     def reset_counts():
         for c in counters:
@@ -539,8 +575,9 @@ def main() -> int:
         a_args = (x, blk.qkv.weight, blk.qkv.bias, cos, sin, kb, scale, blk.num_heads)
         msg = attention.self_attention(*a_args)
         check_scaled("self_attention (SegNetViT)", msg, attention.self_attention_plain(*a_args), ATTN_TOL)
-        log(f"self_attention (SegNetViT, 32 x 512 tokens): "
-            f"{cuda_ms(torch, lambda: attention.self_attention(*a_args)):.4f} ms")
+        require(torch.equal(attention.self_attention(*a_args), msg), "self_attention: two launches differ")
+        k1_512_ms = cuda_ms(torch, lambda: attention.self_attention(*a_args))
+        log(f"self_attention (SegNetViT, 32 x 512 tokens): {k1_512_ms:.4f} ms")
         m_args = (
             x, msg, blk.proj.weight, blk.proj.bias, blk.mlp_0.weight, blk.mlp_0.bias,
             blk.mlp_ln.weight, blk.mlp_ln.bias, blk.mlp_3.weight, blk.mlp_3.bias,
@@ -688,6 +725,25 @@ def main() -> int:
         side = torch.arange(n0 + n1, device=dev) >= n0
         amask = (side[:, None] == side[None, :])[None, None] & m_cat[:, None, None, :]
         lib_ms = cuda_ms(torch, lambda: sdpa(q_, k_, v_, attn_mask=amask, scale=gscale))
+        require(torch.equal(attention.self_attention(*a_args, splits=splits), msg),
+                "self_attention (GML, splits): two launches differ")
+        # its projection pass alone, on the weights in kernel 12's block
+        # order, against the plain projection; cuBLAS's F.linear of the same
+        # projection (no rotary) as the projection's yardstick
+        order = attention.qkv_block_order(256, dev)
+        w_blk = blk.qkv.weight.index_select(0, order)
+        b_blk = blk.qkv.bias.float().index_select(0, order)
+        p_args = (x, w_blk, b_blk, cos, sin)
+        check_projection("projection (kernel 1, GML, 768 columns, rotary)",
+                         attention.project(*p_args, rotary_cols=512),
+                         attention.project_plain(*p_args, rotary_cols=512),
+                         attention.project_plain(x, w_blk, b_blk), 512)
+        p_bnd, p_by = bound_ms(tok * (256 * 2 + 2 * 64 * 4 + 768 * 2) + 768 * (256 * 2 + 4),
+                               2.0 * tok * 256 * 768, BF16_TENSOR_FLOPS)
+        b_blk16 = b_blk.to(bf16)
+        proj1 = dict(proj_ms=cuda_ms(torch, lambda: attention.project(*p_args, rotary_cols=512)),
+                     proj_plain_epilogue_ms=cuda_ms(torch, lambda: attention.project(x, w_blk, b_blk)),
+                     proj_bound_ms=p_bnd, linear_ms=cuda_ms(torch, lambda: F.linear(x, w_blk, b_blk16)))
         a_bytes = tok * 256 * 2 * 2 + 768 * 256 * 2 + 768 * 4 + 2 * tok * 64 * 4 + tok * 4
         a_ops = 2 * tok * 256 * 768 + 2 * 2 * batch * heads * hd * (n0 * n0 + n1 * n1)
         bnd, by = bound_ms(a_bytes, a_ops, BF16_TENSOR_FLOPS)
@@ -697,8 +753,13 @@ def main() -> int:
             launches=None, max_abs_err=err,
             ms=cuda_ms(torch, lambda: attention.self_attention(*a_args, splits=splits)),
             plain_ms=cuda_ms(torch, lambda: attention.self_attention_plain(*a_args, splits=splits), iters=5),
-            bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+            bound_ms=bnd, bound_by=by, library_ms=lib_ms, ms_32x512=k1_512_ms, **proj1,
         )
+        log(f"self_attention (GML, splits): {rows['self_attention']['ms']:.4f} ms, of which the projection "
+            f"{proj1['proj_ms']:.4f} ms alone ({proj1['proj_plain_epilogue_ms']:.4f} ms without the rotary; "
+            f"bound {p_bnd:.4f} ms, {p_by}; cuBLAS F.linear {proj1['linear_ms']:.4f} ms); SDPA "
+            f"{lib_ms:.4f} ms, SDPA + F.linear "
+            f"{lib_ms + proj1['linear_ms']:.4f} ms")
 
         # kernel 2 over all 1536 tokens
         m_args = (
@@ -742,6 +803,19 @@ def main() -> int:
             sdpa(qk1, qk0, v0, attn_mask=mk0, scale=gscale)
 
         lib_ms = cuda_ms(torch, two_sdpa)
+        require(torch.equal(cross_attention.cross_attention(*c_args), cmsg), "cross_attention: two launches differ")
+        # its projection pass alone ([to_qk | to_v] rows into qk and v)
+        # against the plain projection, and cuBLAS's F.linear of the same
+        w_cat = torch.cat([cblk.to_qk.weight, cblk.to_v.weight])
+        b_cat = torch.cat([cblk.to_qk.bias.float(), cblk.to_v.bias.float()])
+        check_projection("projection (kernel 5, 512 columns into qk and v)",
+                         torch.cat(attention.project(y, w_cat, b_cat, split=256), -1),
+                         attention.project_plain(y, w_cat, b_cat))
+        p_bnd, p_by = bound_ms(tok * (256 * 2 + 512 * 2) + 512 * (256 * 2 + 4),
+                               2.0 * tok * 256 * 512, BF16_TENSOR_FLOPS)
+        b_cat16 = b_cat.to(bf16)
+        proj5 = dict(proj_ms=cuda_ms(torch, lambda: attention.project(y, w_cat, b_cat, split=256)),
+                     proj_bound_ms=p_bnd, linear_ms=cuda_ms(torch, lambda: F.linear(y, w_cat, b_cat16)))
         c_bytes = 2 * tok * 256 * 2 + 2 * 256 * 256 * 2 + 2 * 256 * 4 + tok * 4
         c_ops = 2 * tok * 256 * 512 + 3 * 2 * batch * heads * hd * n0 * n1
         bnd, by = bound_ms(c_bytes, c_ops, BF16_TENSOR_FLOPS)
@@ -751,8 +825,12 @@ def main() -> int:
             launches=None, max_abs_err=err,
             ms=cuda_ms(torch, lambda: cross_attention.cross_attention(*c_args)),
             plain_ms=cuda_ms(torch, lambda: cross_attention.cross_attention_plain(*c_args), iters=5),
-            bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+            bound_ms=bnd, bound_by=by, library_ms=lib_ms, **proj5,
         )
+        log(f"cross_attention: {rows['cross_attention']['ms']:.4f} ms, of which the projection "
+            f"{proj5['proj_ms']:.4f} ms alone (bound {p_bnd:.4f} ms, {p_by}; cuBLAS F.linear "
+            f"{proj5['linear_ms']:.4f} ms); two SDPA {lib_ms:.4f} ms, two SDPA + F.linear "
+            f"{lib_ms + proj5['linear_ms']:.4f} ms")
 
         # kernel 6 on the trained GML's similarity of this batch
         out = gml(d0, d1, nk0, nk1, m0, m1)
@@ -828,7 +906,8 @@ def main() -> int:
     launches = read_counts()
     log(f"GML slice launches: {launches}")
     for name, count in launches.items():
-        if name not in ("fused_stem", "nms") + ada_kernels + train_kernels + int8_kernels:  # later slices' kernels
+        # later slices' kernels and the standalone projection wrapper aside
+        if name not in ("fused_stem", "nms") + ada_kernels + train_kernels + int8_kernels + pass_only:
             require(count > 0, f"kernel {name} was not launched on the GML slice")
     require(tuple(gres_gpu.qvec.shape) == (batch, 4), "bad pose batch shape")
     require(bool(torch.isfinite(gres_gpu.tvec).all()), "non-finite poses")
@@ -962,7 +1041,7 @@ def main() -> int:
     launches = read_counts()
     log(f"image slice launches: {launches}")
     for name, count in launches.items():
-        if name not in ada_kernels + train_kernels + int8_kernels:
+        if name not in ada_kernels + train_kernels + int8_kernels + pass_only:
             require(count > 0, f"kernel {name} was not launched on the image slice")
     log(f"image slice on card: {json.dumps(metrics)}")
     require(metrics["n_queries"] == batch, "image slice did not localize every query")

@@ -34,22 +34,25 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, w_qkv, b_qkv, cos, sin, key_bias, out, B, N, heads, scale,
-    # side lengths (host int array), n_sides, stream
-    "pram_self_attention": [_P] * 7 + [_I, _I, _I, _F, _P, _I, _P],
+    # x, w_qkv, b_qkv (block order), cos, sin, key_bias, qkv scratch, out,
+    # B, N, heads, scale, side lengths (host int array), n_sides, stream
+    "pram_self_attention": [_P] * 8 + [_I, _I, _I, _F, _P, _I, _P],
+    # x, w, b, cos, sin, out0, out1, tokens, n_out, split, rot_cols, stream
+    "pram_project_bf16": [_P] * 7 + [_L, _I, _I, _I, _P],
     # x, msg, wp, bp, w0, b0, ln_w, ln_b, w3, b3, out, tokens, eps, is_f32,
     # stream
     "pram_residual_mlp": [_P] * 11 + [_I, _F, _I, _P],
-    # x, w_qk, b_qk, w_v, b_v, bias0, bias1, qk scratch, v scratch, out,
-    # B, N, n0, heads, scale, stream
-    "pram_cross_attention": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
+    # x, w ([to_qk | to_v] rows), b, bias0, bias1, qk scratch, v scratch,
+    # out, B, N, n0, heads, scale, stream
+    "pram_cross_attention": [_P] * 8 + [_I, _I, _I, _I, _F, _P],
     # qkv, cos, sin, key_bias, qr and kr scratch, out, row scratch, stat,
     # B, N, heads, scale, side lengths (host int array), n_sides, is_f32,
     # stream
     "pram_self_attention_qkv": [_P] * 9 + [_I, _I, _I, _F, _P, _I, _I, _P],
-    # qk0, qk1, v0, v1, their frame strides, bias0, bias1, m0, m1, row
-    # scratch, stat0, stat1, B, N, M, heads, scale, is_f32, stream
-    "pram_cross_attention_packed": [_P] * 4 + [_L] * 4 + [_P] * 7 + [_I] * 4 + [_F, _I, _P],
+    # qk0, qk1, v0, v1, their frame strides, bias0, bias1, m0, m1, their
+    # frame strides, row scratch, stat0, stat1, B, N, M, heads, scale,
+    # is_f32, stream
+    "pram_cross_attention_packed": [_P] * 4 + [_L] * 4 + [_P] * 4 + [_L] * 2 + [_P] * 3 + [_I] * 4 + [_F, _I, _P],
     # sim, r, c, bin, out, B, n, m, iters, stream
     "pram_sinkhorn": [_P] * 5 + [_I, _I, _I, _I, _P],
     # descs, pdesc, kpts, uv, in_img, qmask, gate_r, ratio, nn_idx, d1, keep,

@@ -22,7 +22,9 @@
 // warpgroups 64 x 64 tiles of qr, kr and v by TMA (three tensor maps encoded
 // here per call), and the products are wgmma m64n64k16 with S, P and O in
 // registers. In f32 (the matcher's A/B checks) they are pass::message_block
-// and pass::stats_block on the CUDA cores.
+// and pass::stats_block on the CUDA cores. Kernel 1 (csrc/attention.cu)
+// runs pass 2 alone through pram_self_attention_rotated, on the qkv its
+// projection (csrc/proj_bf16.cu) wrote with q and k already rotated.
 //
 // What bounds it: at AdaGML's Aachen shape (8 frames x 4096 tokens, 4 heads
 // of 64) the QK and PV products are 137 GFLOP and the statistics' second QK
@@ -130,15 +132,16 @@ stats_kernel_f32(const float* __restrict__ qr, const float* __restrict__ kr,
                     scale, stat + frame + k0, smem);
 }
 
-struct Maps {  // bf16 [B, N, cols] tensors: qr and kr (256 columns), qkv (768)
+struct Maps {  // bf16 [B, N, cols] tensors of q, k and v
   CUtensorMap q, k, v;
 };
 
+// q_col, k_col, v_col: the first column of head 0's q, k and v in their maps
 __global__ void __launch_bounds__(wg::THREADS, 2)
-message_kernel_bf16(const __grid_constant__ Maps maps,
-                    const float* __restrict__ key_bias, bf16* __restrict__ out,
-                    float* __restrict__ rows, int N, int heads, float scale,
-                    Sides sides) {
+message_kernel_bf16(const __grid_constant__ Maps maps, int q_col, int k_col,
+                    int v_col, const float* __restrict__ key_bias,
+                    bf16* __restrict__ out, float* __restrict__ rows, int N,
+                    int heads, float scale, Sides sides) {
   extern __shared__ unsigned char smem[];
   const int q0 = blockIdx.x * wg::MQ, h = blockIdx.y, b = blockIdx.z;
   int lo, hi;
@@ -147,8 +150,8 @@ message_kernel_bf16(const __grid_constant__ Maps maps,
   float* row_m = nullptr;
   float* row_w = nullptr;
   row_pointers(rows, b, h, N, heads, q0, row_m, row_w);
-  wg::message_cta(&maps.q, h * HD, &maps.k, h * HD, &maps.v, 2 * D + h * HD,
-                  b, q0, lo, hi, kb, scale,
+  wg::message_cta(&maps.q, q_col + h * HD, &maps.k, k_col + h * HD, &maps.v,
+                  v_col + h * HD, b, q0, lo, hi, kb, scale,
                   out + ((size_t)b * N + q0) * D + h * HD, D, kb + q0, row_m,
                   row_w, smem);
 }
@@ -225,7 +228,7 @@ int launch_bf16(const void* qkv, const void* cos, const void* sin,
   int err = rotate<bf16>(qkv, cos, sin, qr, kr, B, N, stream);
   if (err) return err;
   err = wg::launch(message_kernel_bf16, dim3(N / wg::MQ, heads, B),
-                   wg::THREADS, wg::MSG_SMEM, stream, maps,
+                   wg::THREADS, wg::MSG_SMEM, stream, maps, 0, 0, 2 * D,
                    (const float*)key_bias, (bf16*)out,
                    stat != nullptr ? (float*)rows : nullptr, N, heads,
                    scale, sides);
@@ -254,4 +257,26 @@ extern "C" int pram_self_attention_qkv(const void* qkv, const void* cos,
   auto launch = is_f32 ? launch_f32 : launch_bf16;
   return launch(qkv, cos, sin, key_bias, qr, kr, out, rows, stat, B, N, heads,
                 scale, sides, (cudaStream_t)stream);
+}
+
+// The bf16 message pass alone on a qkv whose q and k are already rotated
+// (kernel 1's projection, csrc/proj_bf16.cu): q, k and v are read through
+// one tensor map of qkv [B, N, 768] at columns h * 64, 256 + h * 64 and 512
+// + h * 64. No statistics.
+extern "C" int pram_self_attention_rotated(const void* qkv,
+                                           const void* key_bias, void* out,
+                                           int B, int N, int heads,
+                                           float scale, const int* splits,
+                                           int n_splits, void* stream) {
+  if (heads * HD != D) return (int)cudaErrorInvalidValue;
+  Sides sides;
+  if (int err = make_sides(N, splits, n_splits, sides)) return err;
+  Maps maps;
+  if (!wg::make_map(&maps.q, qkv, D3, N, B, D3, (size_t)N * D3))
+    return (int)cudaErrorInvalidValue;
+  maps.k = maps.v = maps.q;
+  return wg::launch(message_kernel_bf16, dim3(N / wg::MQ, heads, B),
+                    wg::THREADS, wg::MSG_SMEM, (cudaStream_t)stream, maps, 0,
+                    D, 2 * D, (const float*)key_bias, (bf16*)out,
+                    (float*)nullptr, N, heads, scale, sides);
 }

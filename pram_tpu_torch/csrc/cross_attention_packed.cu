@@ -41,8 +41,12 @@
 // Layouts: qk0, v0 [B, N, 256] and qk1, v1 [B, M, 256] of element type T
 // with row stride 256 and the given frame strides (the tensors may be views
 // into one [B, N + M, 256] projection); bias0 [B, N], bias1 [B, M] f32;
-// m0 [B, N, 256], m1 [B, M, 256] T (contiguous); stat0 [B, N], stat1
-// [B, M] f32. T is bf16, or float for the f32 checks.
+// m0 [B, N, 256], m1 [B, M, 256] T with row stride 256 and their own frame
+// strides; stat0 [B, N], stat1 [B, M] f32. T is bf16, or float for the f32
+// checks. Kernel 5 (csrc/cross_attention.cu) and kernel 17's cross
+// projection (csrc/proj_int8.cu) run the bf16 message pass without
+// statistics on strided views of their [B, N + M, 256] projection scratch,
+// writing both sides' messages into one [B, N + M, 256] tensor.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,6 +69,7 @@ struct Side {  // one side's tensors; frame strides in elements
   size_t qk_stride, v_stride;
   const float* bias;
   T* msg;
+  size_t msg_stride;
   float* stat;
   int n;
 };
@@ -97,7 +102,7 @@ message_kernel_f32(Side<float> s0, Side<float> s1, float* __restrict__ rows,
       q.qk + b * q.qk_stride + (size_t)q0 * D + h * HD, D,
       k.qk + b * k.qk_stride + h * HD, D, k.v + b * k.v_stride + h * HD, D,
       k.bias + (size_t)b * k.n, 0, k.n, scale,
-      q.msg + ((size_t)b * q.n + q0) * D + h * HD, D,
+      q.msg + b * q.msg_stride + (size_t)q0 * D + h * HD, D,
       q.bias + (size_t)b * q.n + q0, row_m, row_w, smem);
 }
 
@@ -125,6 +130,10 @@ struct Maps {  // bf16 [B, n, 256] views: qk[side], v[side]
   CUtensorMap qk[2], v[2];
 };
 
+// STRIDED: the messages go to each side's msg_stride frames (kernel 5's one
+// [B, N + M, 256] output); otherwise to contiguous [B, n, 256] tensors, an
+// addressing that keeps the pass within 96 registers without a spill
+template <bool STRIDED>
 __global__ void __launch_bounds__(wg::THREADS, 2)
 message_kernel_bf16(const __grid_constant__ Maps maps, Side<bf16> s0,
                     Side<bf16> s1, float* __restrict__ rows, int heads,
@@ -136,6 +145,11 @@ message_kernel_bf16(const __grid_constant__ Maps maps, Side<bf16> s0,
   const int h = blockIdx.y, b = blockIdx.z;
   const int qn = qs ? s1.n : s0.n, kn = qs ? s0.n : s1.n;
   const size_t qat = (size_t)b * qn + q0;
+  bf16* msg = qs ? s1.msg : s0.msg;
+  if constexpr (STRIDED)
+    msg += b * (qs ? s1.msg_stride : s0.msg_stride) + (size_t)q0 * D;
+  else
+    msg += qat * D;
   float* row_m = nullptr;
   float* row_w = nullptr;
   if (rows != nullptr) {
@@ -145,7 +159,7 @@ message_kernel_bf16(const __grid_constant__ Maps maps, Side<bf16> s0,
   wg::message_cta(&maps.qk[qs], h * HD, &maps.qk[1 - qs], h * HD,
                   &maps.v[1 - qs], h * HD, b, q0, 0, kn,
                   (qs ? s0.bias : s1.bias) + (size_t)b * kn, scale,
-                  (qs ? s1.msg : s0.msg) + qat * D + h * HD, D,
+                  msg + h * HD, D,
                   (qs ? s1.bias : s0.bias) + qat, row_m, row_w, smem);
 }
 
@@ -193,8 +207,11 @@ int launch_bf16(Side<bf16> s0, Side<bf16> s1, float* rows, int B, int heads,
       return (int)cudaErrorInvalidValue;
   }
   const bool with_stats = s0.stat != nullptr;
+  const bool strided = s0.msg_stride != (size_t)s0.n * D ||
+                       s1.msg_stride != (size_t)s1.n * D;
   const int err = wg::launch(
-      message_kernel_bf16, dim3((s0.n + s1.n) / wg::MQ, heads, B),
+      strided ? message_kernel_bf16<true> : message_kernel_bf16<false>,
+      dim3((s0.n + s1.n) / wg::MQ, heads, B),
       wg::THREADS, wg::MSG_SMEM, stream, maps, s0, s1,
       with_stats ? rows : nullptr, heads, scale);
   if (err || !with_stats) return err;
@@ -207,7 +224,8 @@ template <typename T>
 int launch_typed(const void* qk0, const void* qk1, const void* v0,
                  const void* v1, long long qk0_stride, long long qk1_stride,
                  long long v0_stride, long long v1_stride, const void* bias0,
-                 const void* bias1, void* m0, void* m1, void* rows,
+                 const void* bias1, void* m0, void* m1, long long m0_stride,
+                 long long m1_stride, void* rows,
                  void* stat0, void* stat1, int B, int N, int M, int heads,
                  float scale, cudaStream_t stream,
                  int (*launch)(Side<T>, Side<T>, float*, int, int, float,
@@ -215,31 +233,36 @@ int launch_typed(const void* qk0, const void* qk1, const void* v0,
   if (heads * HD != D || N <= 0 || M <= 0 || N % pass::QT || M % pass::QT)
     return (int)cudaErrorInvalidValue;
   Side<T> s0{(const T*)qk0, (const T*)v0, (size_t)qk0_stride,
-             (size_t)v0_stride, (const float*)bias0, (T*)m0, (float*)stat0, N};
+             (size_t)v0_stride, (const float*)bias0, (T*)m0,
+             (size_t)m0_stride, (float*)stat0, N};
   Side<T> s1{(const T*)qk1, (const T*)v1, (size_t)qk1_stride,
-             (size_t)v1_stride, (const float*)bias1, (T*)m1, (float*)stat1, M};
+             (size_t)v1_stride, (const float*)bias1, (T*)m1,
+             (size_t)m1_stride, (float*)stat1, M};
   return launch(s0, s1, (float*)rows, B, heads, scale, stream);
 }
 
 }  // namespace
 
-// rows: scratch f32 [2, B, heads, N + M] (only read and written with
-// statistics); stat0, stat1: f32 [B, N], [B, M], or both null for no
-// statistics. is_f32 selects float over bf16.
+// m0, m1: rows of 256 elements with the given frame strides (elements;
+// kernel 5 writes both sides into one [B, N + M, 256] tensor); rows:
+// scratch f32 [2, B, heads, N + M] (only read and written with statistics);
+// stat0, stat1: f32 [B, N], [B, M], or both null for no statistics. is_f32
+// selects float over bf16.
 extern "C" int pram_cross_attention_packed(
     const void* qk0, const void* qk1, const void* v0, const void* v1,
     long long qk0_stride, long long qk1_stride, long long v0_stride,
     long long v1_stride, const void* bias0, const void* bias1, void* m0,
-    void* m1, void* rows, void* stat0, void* stat1, int B, int N, int M,
-    int heads, float scale, int is_f32, void* stream) {
+    void* m1, long long m0_stride, long long m1_stride, void* rows,
+    void* stat0, void* stat1, int B, int N, int M, int heads, float scale,
+    int is_f32, void* stream) {
   auto s = (cudaStream_t)stream;
   if (is_f32)
     return launch_typed<float>(qk0, qk1, v0, v1, qk0_stride, qk1_stride,
                                v0_stride, v1_stride, bias0, bias1, m0, m1,
-                               rows, stat0, stat1, B, N, M, heads, scale, s,
-                               launch_f32);
+                               m0_stride, m1_stride, rows, stat0, stat1, B, N,
+                               M, heads, scale, s, launch_f32);
   return launch_typed<bf16>(qk0, qk1, v0, v1, qk0_stride, qk1_stride,
-                            v0_stride, v1_stride, bias0, bias1, m0, m1, rows,
-                            stat0, stat1, B, N, M, heads, scale, s,
-                            launch_bf16);
+                            v0_stride, v1_stride, bias0, bias1, m0, m1,
+                            m0_stride, m1_stride, rows, stat0, stat1, B, N, M,
+                            heads, scale, s, launch_bf16);
 }

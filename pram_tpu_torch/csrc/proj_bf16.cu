@@ -1,0 +1,328 @@
+// The bf16 projection pass of kernels 1 and 5, for Hopper: out = bf16(x W^T
+// + b), with the rotary encoding of q and k in its epilogue for kernel 1.
+//
+// Replaces the projection half of pram_tpu/ops/attention_pallas.py:
+// fused_self_attention_proj (_self_proj_kernel: the qkv scratch, then the
+// rotary of q and k) and fused_cross_attention_proj (_cross_proj_kernel:
+// the qk and v scratch). The TPU kernels project a whole frame into VMEM
+// inside the attention program; a Hopper CTA cannot hold a frame's
+// projection (GML: 1536 x 768 bf16 = 2.4 MB), so the projection is its own
+// launch into a scratch tensor that the wgmma message pass
+// (attention_wgmma.cuh:message_cta) reads next on the same stream.
+//
+// What bounds it: bytes. Kernel 1 at GML's 32 x 1536 tokens reads x (25.2
+// MB) and cos / sin (25.2 MB) and writes qkv (75.5 MB): 0.038 ms at 3.35
+// TB/s, against 19.3 GFLOP, 0.020 ms on the tensor cores. Kernel 5 reads x
+// and writes qk and v: 75.5 MB, 0.023 ms.
+//
+// Design: one persistent CTA a SM. A CTA owns a slice of 128 output
+// columns, whose weight rows (64 KB) it loads once by TMA and keeps in
+// shared memory, and walks over 64-token tiles, which a producer warp
+// streams in by TMA through a ring of two stages: the x tile (32 KB) and,
+// on the q and k columns, the tile's cos and sin rows (32 KB, f32 in
+// 128-byte-swizzled 32-column boxes). The two consumer warpgroups share
+// every tile, one 64-column block each: wgmma m64n64k16 over sixteen
+// k-steps, x and W both K-major in 128-byte-swizzled 64 x 64 boxes. The
+// epilogue stays in registers: the bias (the slice's, kept in shared
+// memory) in f32, one rounding to bf16 and, on the q and k columns, the
+// rotary in f32 from that bf16 value, each product and sum rounded once
+// (__fmul_rn / __fadd_rn, no fma: the arithmetic of
+// attention_qkv.cu:rotate_kernel and of the plain version). A wgmma
+// accumulator holds the column pairs (2t, 2t + 1) in one thread, so the
+// interleaved-pair rotation needs no shuffle. cos and sin (twice x's bytes)
+// come by TMA with x: read by 8-byte loads in the epilogue instead, they
+// kept the warpgroups waiting on the load unit. The bf16
+// blocks go to shared memory in the swizzled layout (conflict-free) and out
+// by TMA stores, whole 128-byte rows. The CTAs of one tile index and
+// different slices are neighbours in blockIdx, so they read the same x
+// tiles at about the same time and all but the first read hit L2.
+//
+// Layouts: x [tokens, 256] bf16; w [n_out, 256] bf16 (torch Linear layout,
+// its rows already in the order the consumer reads: kernel 1's [q heads |
+// k heads | v heads] blocks, kernel 5's [to_qk | to_v]); b [n_out] f32;
+// cos, sin [tokens, 64] f32 (read only with rotary). Output column c goes to
+// out0[token, c] for c < split (row length split) and to out1[token, c -
+// split] otherwise (row length n_out - split). Columns c < rot_cols are
+// rotated, pair index c % 64 within the head.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "attention_wgmma.cuh"
+
+namespace {
+
+using wg::HD;
+using wg::TILE_BYTES;
+using wg::TR;
+typedef __nv_bfloat16 bf16;
+
+constexpr int D = 256;                   // input width
+constexpr int KB = D / HD;               // 64-column boxes along the input
+constexpr int NC = 2 * HD;               // output columns of a CTA
+constexpr int STAGES = 2;                // ring of x (and cos / sin) tiles
+constexpr int WG_THREADS = 128;
+constexpr int CW = 32;                   // f32 columns of a cos / sin box
+constexpr uint32_t X_BYTES = KB * TILE_BYTES;       // one 64-token x tile
+constexpr uint32_t CS_BOX = CW * TR * 4;            // 32 x 64 f32, 8 KB
+constexpr uint32_t CS_BYTES = 4 * CS_BOX;           // cos, sin of a tile
+constexpr uint32_t W_BYTES = 2 * KB * TILE_BYTES;   // the CTA's weight slice
+constexpr size_t SMEM = 1024 + W_BYTES + STAGES * (X_BYTES + CS_BYTES) +
+                        2 * TILE_BYTES + NC * sizeof(float) +
+                        (2 * STAGES + 1) * sizeof(uint64_t);
+
+struct Maps {  // [1, rows, cols] views: x, w, out0, out1 (bf16), cos, sin (f32)
+  CUtensorMap x, w, out0, out1, cos, sin;
+};
+
+// A map over [1, rows, 64] f32 whose box is 64 rows of 32 columns (128
+// bytes), 128-byte swizzled.
+inline bool make_map_f32(CUtensorMap* map, const void* base, int rows) {
+  const wg::EncodeTiled enc = wg::encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)HD, (cuuint64_t)rows, 1};
+  const cuuint64_t strides[2] = {HD * sizeof(float),
+                                 (cuuint64_t)rows * HD * sizeof(float)};
+  const cuuint32_t box[3] = {CW, TR, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// one 64 x 64 box of src (shared, swizzled) to {col, row} of map
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];" ::"l"((uint64_t)map),
+      "r"(wg::saddr(src)), "r"(col), "r"(row), "r"(0)
+      : "memory");
+}
+
+__device__ __forceinline__ void store_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// waits until the committed stores have read their shared memory
+__device__ __forceinline__ void store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// waits until the committed stores are complete
+__device__ __forceinline__ void store_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// makes this thread's shared-memory writes visible to the TMA unit
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// barrier over the 128 threads of consumer warpgroup g
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, 128;" ::"r"(g + 1) : "memory");
+}
+
+// x rounded to the nearest bf16 (ties to even) and back, as
+// __bfloat162float(__float2bfloat16(x)) for finite x, in integer operations
+// (the conversion unit issues a quarter as fast)
+__device__ __forceinline__ float round_bf16(float x) {
+  uint32_t u = __float_as_uint(x);
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+// byte offset of element (r, c) in a 64 x 64 bf16 box, 128-byte swizzle
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+  return (uint32_t)(r * 128 + ((((c >> 3) ^ (r & 7))) << 4) + (c & 7) * 2);
+}
+
+// byte offset of f32 element (r, e) of a 64-row tile held as two 32-column
+// boxes, 128-byte swizzle
+__device__ __forceinline__ uint32_t swizzled_f32(int r, int e) {
+  const int c = e & (CW - 1);
+  return (uint32_t)((e / CW) * CS_BOX + r * 128 + (((c >> 2) ^ (r & 7)) << 4) +
+                    (c & 3) * 4);
+}
+
+__global__ void __launch_bounds__(wg::THREADS, 1)
+proj_kernel(const __grid_constant__ Maps maps, const float* __restrict__ bias,
+            int tiles, int slices, int split, int rot_cols) {
+  extern __shared__ unsigned char smem_raw[];
+  const int slice = blockIdx.x % slices;
+  const int first = blockIdx.x / slices, step = gridDim.x / slices;
+  const int n_local = first < tiles ? (tiles - first + step - 1) / step : 0;
+  if (n_local == 0) return;
+  const int col0 = slice * NC;
+  const bool rotary = col0 < rot_cols;
+
+  unsigned char* sm = wg::align1024(smem_raw);
+  bf16* Ws = reinterpret_cast<bf16*>(sm);
+  bf16* Xs = reinterpret_cast<bf16*>(sm + W_BYTES);
+  unsigned char* CSs = sm + W_BYTES + STAGES * X_BYTES;
+  unsigned char* Os = CSs + STAGES * CS_BYTES;
+  float* Bs = reinterpret_cast<float*>(Os + 2 * TILE_BYTES);  // the slice's bias
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + NC);
+  uint64_t* empty = full + STAGES;
+  uint64_t* wbar = empty + STAGES;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      wg::bar_init(&full[s], 1);
+      wg::bar_init(&empty[s], wg::CONSUMER_WARPS);
+    }
+    wg::bar_init(wbar, 1);
+    wg::bar_init_fence();
+  }
+  for (int i = threadIdx.x; i < NC; i += blockDim.x) Bs[i] = bias[col0 + i];
+  __syncthreads();
+
+  if (threadIdx.x >= wg::CONSUMERS) {  // the producer warp: one lane issues
+    if (threadIdx.x == wg::CONSUMERS) {
+      wg::bar_expect(wbar, W_BYTES);
+      for (int nb = 0; nb < NC / HD; ++nb)
+        for (int kb = 0; kb < KB; ++kb)
+          wg::tma_load(Ws + (nb * KB + kb) * TR * HD, &maps.w, kb * HD,
+                       col0 + nb * HD, 0, wbar);
+      for (int it = 0; it < n_local; ++it) {
+        const int s = it % STAGES;
+        if (it >= STAGES) wg::bar_wait(&empty[s], ((it / STAGES) - 1) & 1);
+        const int t0 = (first + it * step) * TR;
+        wg::bar_expect(&full[s], X_BYTES + (rotary ? CS_BYTES : 0));
+        for (int kb = 0; kb < KB; ++kb)
+          wg::tma_load(Xs + (s * KB + kb) * TR * HD, &maps.x, kb * HD, t0, 0,
+                       &full[s]);
+        if (rotary) {
+          unsigned char* cs = CSs + s * CS_BYTES;
+          for (int b = 0; b < HD / CW; ++b) {
+            wg::tma_load(cs + b * CS_BOX, &maps.cos, b * CW, t0, 0, &full[s]);
+            wg::tma_load(cs + (2 + b) * CS_BOX, &maps.sin, b * CW, t0, 0,
+                         &full[s]);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup g takes the slice's 64-column block g of every tile
+  const int g = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int cq = 2 * (lane & 3);
+  const int r0 = warp * 16 + (lane >> 2);  // rows r0 and r0 + 8 of a tile
+  const bool leader = (threadIdx.x & (WG_THREADS - 1)) == 0;
+  unsigned char* Og = Os + g * TILE_BYTES;
+  const bf16* Wg = Ws + g * KB * TR * HD;
+  const float* Bg = Bs + g * HD;
+
+  wg::bar_wait(wbar, 0);
+  for (int it = 0; it < n_local; ++it) {
+    const int s = it % STAGES;
+    const int t0 = (first + it * step) * TR;
+    wg::bar_wait(&full[s], (it / STAGES) & 1);
+    wg::Acc acc;
+    wg::mma_fence();
+#pragma unroll
+    for (int kb = 0; kb < KB; ++kb) {
+      const uint64_t da = wg::desc(Xs + (s * KB + kb) * TR * HD);
+      const uint64_t db = wg::desc(Wg + kb * TR * HD);
+#pragma unroll
+      for (int k = 0; k < HD / 16; ++k)
+        wg::mma_ss(acc, da + k * wg::DESC_K_STEP, db + k * wg::DESC_K_STEP,
+                   kb | k);
+    }
+    wg::mma_commit();
+    wg::mma_wait();
+    wg::reg_fence(acc);
+
+    if (leader) store_wait_read();  // the last tile's block has left
+    group_sync(g);
+    const unsigned char* cs = CSs + s * CS_BYTES;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 bb = *reinterpret_cast<const float2*>(Bg + 8 * j + cq);
+        float v0 = acc.d[4 * j + 2 * half] + bb.x;
+        float v1 = acc.d[4 * j + 2 * half + 1] + bb.y;
+        if (rotary) {  // from the rounded projection
+          v0 = round_bf16(v0);
+          v1 = round_bf16(v1);
+          const uint32_t at = swizzled_f32(r, 8 * j + cq);
+          const float2 c = *reinterpret_cast<const float2*>(cs + at);
+          const float2 sv = *reinterpret_cast<const float2*>(cs + 2 * CS_BOX + at);
+          const float o0 = __fadd_rn(__fmul_rn(v0, c.x), __fmul_rn(-v1, sv.x));
+          const float o1 = __fadd_rn(__fmul_rn(v1, c.y), __fmul_rn(v0, sv.y));
+          v0 = o0;
+          v1 = o1;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(Og + swizzled(r, 8 * j + cq)) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) wg::bar_arrive(&empty[s]);  // x, cos and sin of s read
+    fence_async_shared();
+    group_sync(g);
+    if (leader) {
+      const int c = col0 + g * HD;
+      if (c < split)
+        tma_store(&maps.out0, Og, c, t0);
+      else
+        tma_store(&maps.out1, Og, c - split, t0);
+      store_commit();
+    }
+  }
+  if (leader) store_wait_all();
+}
+
+}  // namespace
+
+// x [tokens, 256] bf16; w [n_out, 256] bf16; b [n_out] f32; cos, sin
+// [tokens, 64] f32 or null without rotary; out0 [tokens, split] and out1
+// [tokens, n_out - split] bf16 (out1 unused when split == n_out). tokens a
+// multiple of 64, n_out and rot_cols of 128, split of 64; every pointer
+// 16-byte aligned.
+extern "C" int pram_project_bf16(const void* x, const void* w, const void* b,
+                                 const void* cos, const void* sin, void* out0,
+                                 void* out1, long long tokens, int n_out,
+                                 int split, int rot_cols, void* stream) {
+  if (tokens <= 0 || tokens % TR || tokens > 0x7fffffffll || n_out <= 0 ||
+      n_out % NC || split <= 0 || split % HD || split > n_out ||
+      rot_cols < 0 || rot_cols % NC || rot_cols > n_out ||
+      (rot_cols > 0 && (cos == nullptr || sin == nullptr)) ||
+      (split < n_out && out1 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Maps maps;
+  const int rows = (int)tokens;
+  if (!wg::make_map(&maps.x, x, D, rows, 1, D, (size_t)tokens * D) ||
+      !wg::make_map(&maps.w, w, D, n_out, 1, D, (size_t)n_out * D) ||
+      !wg::make_map(&maps.out0, out0, split, rows, 1, split,
+                    (size_t)tokens * split))
+    return (int)cudaErrorInvalidValue;
+  maps.out1 = maps.out0;
+  maps.cos = maps.sin = maps.x;
+  if (rot_cols > 0 && (!make_map_f32(&maps.cos, cos, rows) ||
+                       !make_map_f32(&maps.sin, sin, rows)))
+    return (int)cudaErrorInvalidValue;
+  if (split < n_out &&
+      !wg::make_map(&maps.out1, out1, n_out - split, rows, 1, n_out - split,
+                    (size_t)tokens * (n_out - split)))
+    return (int)cudaErrorInvalidValue;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const int slices = n_out / NC;
+  const int tiles = (int)(tokens / TR);
+  const int per_slice = sms / slices < 1 ? 1 : sms / slices;
+  const int step = per_slice < tiles ? per_slice : tiles;
+  return wg::launch(proj_kernel, dim3(slices * step), wg::THREADS, SMEM,
+                    (cudaStream_t)stream, maps, (const float*)b, tiles, slices,
+                    split, rot_cols);
+}

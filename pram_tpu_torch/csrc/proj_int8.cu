@@ -7,10 +7,11 @@
 // 1e-6) / 127, q = round-half-even(x * (1 / rs)), no clip), the weights per
 // output column (once, by the wrapper), the product is exact in s32, and
 // bf16((acc * rs) * ws + b) (each product and sum rounded once) goes to the
-// projection scratch. The attention tail is unchanged from the bf16 blocks
-// and reused as it is: the self-attention's is kernel 12's blocked pass
-// (csrc/attention_qkv.cu: rotary in f32 from the bf16 q and k, block-diagonal
-// sides), the cross-attention's kernel 5's pass (csrc/cross_attention.cu).
+// projection scratch. The attention tail is reused as it is: the
+// self-attention's is kernel 12's blocked pass (csrc/attention_qkv.cu:
+// rotary in f32 from the bf16 q and k, block-diagonal sides), the
+// cross-attention's kernel 5's pass (csrc/cross_attention.cu:
+// pram_cross_attention_tail, kernel 11's wgmma message pass).
 //
 // What bounds it: the projection of 32 x 1536 tokens to 768 columns is 19.3
 // G s8 operations (0.010 ms at 1979 TOP/s) against 100 MB of bf16 in and out

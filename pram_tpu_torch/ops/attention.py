@@ -5,7 +5,13 @@
 block-diagonal ``splits``: the tokens are a concatenation of independent
 sides and each query attends only to the keys of its own side. A CPU tensor
 takes :func:`self_attention_plain`; a CUDA tensor launches
-``csrc/attention.cu`` or raises.
+``csrc/attention.cu`` or raises: two launches, the projection pass
+``csrc/proj_bf16.cu`` with q and k rotated in its epilogue, then kernel
+12's wgmma message pass.
+
+:func:`project` is that projection pass alone (also kernel 5's, with two
+outputs), and :func:`project_plain` its plain version, on which the plain
+versions of kernels 1 and 5 are built.
 
 :func:`self_attention_int8` is the same function with the projection in
 int8 (``int8=True`` of the JAX function, kernel 17): x quantized per row,
@@ -19,14 +25,17 @@ kernel transposed and nothing else.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from pram_tpu_torch._build import check_status, check_tensor, library, ptr, stream_of
+from pram_tpu_torch._build import check_status, check_tensor, library, ptr, ptr_or_null, stream_of
 from pram_tpu_torch.ops.quant import int_matmul, quant_rows
 
-LAUNCHES = {"self_attention": 0, "self_attention_int8": 0}
+# "projection" counts the standalone wrapper :func:`project` only: kernels
+# 1 and 5 launch the same pass from their C entries
+LAUNCHES = {"self_attention": 0, "self_attention_int8": 0, "projection": 0}
 
 # shapes the CUDA kernel is written for
 KERNEL_D_IN = 256
@@ -66,32 +75,54 @@ def split_edges(splits: Optional[Sequence[int]], n: int) -> List[Tuple[int, int]
     return list(zip(edges[:-1], edges[1:]))
 
 
+def project_plain(x, w, b, cos=None, sin=None, rotary_cols=0):
+    """``x @ w^T + b`` ``[..., n_out]`` in x's dtype, and with ``rotary_cols``
+    its first columns rotated head by head (the plain version of
+    ``csrc/proj_bf16.cu``).
+
+    w ``[n_out, d_in]`` (torch ``Linear`` layout); the bias is added in f32
+    before the one rounding to x's dtype. The rotary takes cos/sin ``[...,
+    head_dim]`` f32 of each token, runs in f32 from the rounded value and is
+    rounded back, pair index ``column % head_dim``.
+    """
+    y = (x.float() @ w.float().T + b.float()).to(x.dtype)
+    return _rotate_columns(y, cos, sin, rotary_cols) if rotary_cols else y
+
+
+def _rotate_columns(y, cos, sin, cols):
+    """y with its first ``cols`` columns rotated, head by head, in f32 from
+    y's dtype and rounded back to it."""
+    hd = cos.shape[-1]
+    r = y[..., :cols].unflatten(-1, (cols // hd, hd))
+    enc = (cos.float().unsqueeze(-2), sin.float().unsqueeze(-2))
+    r = apply_rotary(enc, r.float()).to(y.dtype).flatten(-2)
+    return torch.cat([r, y[..., cols:]], dim=-1)
+
+
 def self_attention_plain(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads, splits=None):
     """Messages ``[B, N, d]`` in x's dtype.
 
     x ``[B, N, d_in]``; cos/sin ``[B, N, head_dim]`` f32 or None; key_bias
     ``[B, N]`` f32; ``splits`` side lengths summing to N (None: one side).
-    qkv and the rotated q/k are rounded to x's dtype, the logits and softmax
-    are f32, and the probabilities are rounded to x's dtype for the product
-    with v, as the kernel does.
+    qkv and the rotated q/k are rounded to x's dtype (:func:`project_plain`
+    on the weights in kernel 12's block order), the logits and softmax are
+    f32, and the probabilities are rounded to x's dtype for the product with
+    v, as the kernel does.
     """
-    qkv = (x.float() @ w_qkv.float().T + b_qkv.float()).to(x.dtype)
-    return _attend_qkv_plain(qkv, cos, sin, key_bias, scale, heads, splits)
+    d = w_qkv.shape[0] // 3
+    order = qkv_block_order(d, x.device)
+    qkv = project_plain(x, w_qkv.index_select(0, order), b_qkv.index_select(0, order),
+                        cos, sin, 0 if cos is None else 2 * d)
+    return _attend_blocks_plain(qkv, key_bias, scale, heads, splits)
 
 
-def _attend_qkv_plain(qkv, cos, sin, key_bias, scale, heads, splits):
+def _attend_blocks_plain(qkv, key_bias, scale, heads, splits):
     """The attention of :func:`self_attention_plain` on its projected qkv
-    ``[B, N, 3 * d]`` (the interleaved column order)."""
+    ``[B, N, 3 * d]`` in ``[q heads | k heads | v heads]`` blocks, q and k
+    already rotated."""
     b, n, d3 = qkv.shape
     d = d3 // 3
-    hd = d // heads
-    dt = qkv.dtype
-    qkv = qkv.reshape(b, n, heads, hd, 3).permute(0, 2, 1, 3, 4)
-    q, k, v = qkv.unbind(-1)  # [B, H, N, hd]
-    if cos is not None:
-        enc = (cos[:, None].float(), sin[:, None].float())
-        q = apply_rotary(enc, q.float()).to(dt)
-        k = apply_rotary(enc, k.float()).to(dt)
+    q, k, v = qkv.reshape(b, n, 3, heads, d // heads).permute(2, 0, 3, 1, 4).unbind(0)  # [B, H, N, hd]
     out = torch.cat(
         [
             attend_plain(q[:, :, lo:hi], k[:, :, lo:hi], v[:, :, lo:hi],
@@ -146,8 +177,66 @@ def _cuda_sides(x, cos, sin, heads, splits) -> List[int]:
     return sides
 
 
+def check_aligned(**tensors) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary (TMA)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def project(x, w, b, cos=None, sin=None, rotary_cols=0, split=None):
+    """:func:`project_plain` on the CPU; ``csrc/proj_bf16.cu`` on CUDA.
+
+    x ``[..., 256]`` bf16; w ``[n_out, 256]`` bf16; b ``[n_out]``; cos/sin
+    ``[..., 64]`` f32 with ``rotary_cols``. With ``split`` the result is two
+    tensors, the columns before and from ``split``, as the kernel writes
+    them. On CUDA n_out and rotary_cols are multiples of 128, split of 64,
+    and the tokens of 64.
+    """
+    if x.device.type == "cpu":
+        y = project_plain(x, w, b, cos, sin, rotary_cols)
+        return y if split is None else (y[..., :split], y[..., split:])
+    dev = x.device
+    n_out = w.shape[0]
+    split = n_out if split is None else split
+    b = b.to(torch.float32).contiguous()
+    check_tensor(x, "x", (*x.shape[:-1], KERNEL_D_IN), torch.bfloat16, dev)
+    check_tensor(w, "w", (n_out, KERNEL_D_IN), torch.bfloat16, dev)
+    check_tensor(b, "b", (n_out,), torch.float32, dev)
+    tokens = x.numel() // KERNEL_D_IN
+    if (tokens % 64 or n_out % 128 or rotary_cols % 128 or rotary_cols > n_out
+            or split % 64 or not 0 < split <= n_out):
+        raise ValueError(
+            f"the CUDA projection needs tokens % 64 == 0, n_out and rotary_cols multiples of "
+            f"128 and split of 64; got {tokens} tokens, n_out {n_out}, rotary_cols "
+            f"{rotary_cols}, split {split}"
+        )
+    check_aligned(x=x, w=w, b=b)
+    if rotary_cols:
+        for name, t in (("cos", cos), ("sin", sin)):
+            check_tensor(t, name, (*x.shape[:-1], KERNEL_HEAD_DIM), torch.float32, dev)
+        check_aligned(cos=cos, sin=sin)
+    out0 = torch.empty((*x.shape[:-1], split), dtype=torch.bfloat16, device=dev)
+    out1 = torch.empty((*x.shape[:-1], n_out - split), dtype=torch.bfloat16, device=dev) if split < n_out else None
+    check_status(
+        library().pram_project_bf16(
+            ptr(x), ptr(w), ptr(b), ptr_or_null(cos if rotary_cols else None),
+            ptr_or_null(sin if rotary_cols else None), ptr(out0), ptr_or_null(out1),
+            tokens, n_out, split, rotary_cols, stream_of(dev),
+        ),
+        "pram_project_bf16",
+    )
+    LAUNCHES["projection"] += 1
+    return out0 if out1 is None else (out0, out1)
+
+
 def self_attention(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads, splits=None):
-    """:func:`self_attention_plain` on the CPU; ``csrc/attention.cu`` on CUDA."""
+    """:func:`self_attention_plain` on the CPU; ``csrc/attention.cu`` on CUDA.
+
+    The rows of w_qkv and b_qkv are gathered into kernel 12's block order
+    here; the kernel writes the rotated qkv into a ``[B, N, 768]`` scratch
+    and runs the message pass on it.
+    """
     if x.device.type == "cpu":
         return self_attention_plain(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads, splits)
     b, n, d_in = x.shape
@@ -160,15 +249,17 @@ def self_attention(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads, splits=Non
     check_tensor(cos, "cos", (b, n, KERNEL_HEAD_DIM), torch.float32, dev)
     check_tensor(sin, "sin", (b, n, KERNEL_HEAD_DIM), torch.float32, dev)
     check_tensor(key_bias, "key_bias", (b, n), torch.float32, dev)
-    for name, t in (("x", x), ("w_qkv", w_qkv)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    check_aligned(x=x, cos=cos, sin=sin, key_bias=key_bias)
+    order = qkv_block_order(d_in, dev)
+    w = w_qkv.index_select(0, order)
+    bq = b_qkv.index_select(0, order)
+    qkv = torch.empty((b, n, 3 * d_in), dtype=torch.bfloat16, device=dev)
     out = torch.empty((b, n, d_in), dtype=torch.bfloat16, device=dev)
     side_lengths = (ctypes.c_int * len(sides))(*sides)
     check_status(
         library().pram_self_attention(
-            ptr(x), ptr(w_qkv), ptr(b_qkv), ptr(cos), ptr(sin),
-            ptr(key_bias), ptr(out), b, n, heads, ctypes.c_float(scale),
+            ptr(x), ptr(w), ptr(bq), ptr(cos), ptr(sin), ptr(key_bias), ptr(qkv),
+            ptr(out), b, n, heads, ctypes.c_float(scale),
             ctypes.cast(side_lengths, ctypes.c_void_p), len(sides), stream_of(dev),
         ),
         "pram_self_attention",
@@ -188,15 +279,23 @@ def int8_projection_plain(x, wq, ws, b):
 def qkv_block_order(d: int, device) -> torch.Tensor:
     """Row indices that take the interleaved qkv order ``(h * hd + i) * 3 +
     c`` to the ``[q heads | k heads | v heads]`` blocks of kernel 12."""
-    return (torch.arange(d, device=device)[None, :] * 3 + torch.arange(3, device=device)[:, None]).reshape(-1)
+    return _block_order(d, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _block_order(d: int, device: torch.device) -> torch.Tensor:
+    return (torch.arange(d)[None, :] * 3 + torch.arange(3)[:, None]).reshape(-1).to(device)
 
 
 def self_attention_int8_plain(x, wq, ws, b_qkv, cos, sin, key_bias, scale, heads, splits=None):
     """:func:`self_attention_plain` with the projection in int8
     (:func:`int8_projection_plain`): ``wq [3 * d, d_in]`` int8 and ``ws [3 *
     d]`` f32 are ``quant_linear`` of the interleaved ``w_qkv``."""
-    qkv = int8_projection_plain(x, wq, ws, b_qkv)
-    return _attend_qkv_plain(qkv, cos, sin, key_bias, scale, heads, splits)
+    d = wq.shape[0] // 3
+    qkv = int8_projection_plain(x, wq, ws, b_qkv).index_select(-1, qkv_block_order(d, x.device))
+    if cos is not None:
+        qkv = _rotate_columns(qkv, cos, sin, 2 * d)
+    return _attend_blocks_plain(qkv, key_bias, scale, heads, splits)
 
 
 def self_attention_int8(x, wq, ws, b_qkv, cos, sin, key_bias, scale, heads, splits=None):
@@ -221,8 +320,7 @@ def self_attention_int8(x, wq, ws, b_qkv, cos, sin, key_bias, scale, heads, spli
     check_tensor(cos, "cos", (b, n, KERNEL_HEAD_DIM), torch.float32, dev)
     check_tensor(sin, "sin", (b, n, KERNEL_HEAD_DIM), torch.float32, dev)
     check_tensor(key_bias, "key_bias", (b, n), torch.float32, dev)
-    if x.data_ptr() % 16:
-        raise ValueError("x must be 16-byte aligned")
+    check_aligned(x=x, key_bias=key_bias)
     qkv = torch.empty((b, n, 3 * d_in), dtype=torch.bfloat16, device=dev)
     qr = torch.empty((b, n, d_in), dtype=torch.bfloat16, device=dev)
     kr, out = torch.empty_like(qr), torch.empty_like(qr)

@@ -6,10 +6,12 @@ are the concatenation ``[x0 | x1]`` of two sides (``n0`` tokens, then the
 rest); both sides share ``to_qk`` and ``to_v``, side 0's queries attend to
 side 1's keys (masked by ``bias1``) and side 1's to side 0's (``bias0``).
 A CPU tensor takes :func:`cross_attention_plain`; a CUDA tensor launches
-``csrc/cross_attention.cu`` or raises. Weights are in torch ``Linear``
-layout (``[out, in]``). :func:`cross_attention_int8` is the same function
-with both projections in int8 (``int8=True`` of the JAX function, kernel
-17).
+``csrc/cross_attention.cu`` or raises: two launches, the projection pass
+``csrc/proj_bf16.cu`` into qk and v scratch tensors, then kernel 11's wgmma
+message pass without statistics on views of them. Weights are in torch
+``Linear`` layout (``[out, in]``). :func:`cross_attention_int8` is the same
+function with both projections in int8 (``int8=True`` of the JAX function,
+kernel 17) and the same message pass.
 
 :func:`cross_attention_packed` replaces
 ``pram_tpu/ops/attention_pallas.py:fused_cross_attention_packed``: the same
@@ -26,7 +28,7 @@ import ctypes
 import torch
 
 from pram_tpu_torch._build import check_status, check_tensor, library, ptr, ptr_or_null, stream_of
-from pram_tpu_torch.ops.attention import attend_plain, int8_projection_plain
+from pram_tpu_torch.ops.attention import attend_plain, check_aligned, int8_projection_plain, project_plain
 
 LAUNCHES = {"cross_attention": 0, "cross_attention_packed": 0, "cross_attention_int8": 0}
 
@@ -39,13 +41,13 @@ KERNEL_QUERY_TILE = 128
 def cross_attention_plain(x_cat, w_qk, b_qk, w_v, b_v, bias0, bias1, scale, heads, n0):
     """Messages ``[B, N, d]`` for the concatenation, in x_cat's dtype.
 
-    qk and v are rounded to x_cat's dtype after an f32 bias; the logits
-    ``qk_q . qk_k * scale + bias`` and the softmax are f32, and the weights
-    are rounded to x_cat's dtype for the product with v (``attend_plain``).
+    qk and v are rounded to x_cat's dtype after an f32 bias
+    (``project_plain``); the logits ``qk_q . qk_k * scale + bias`` and the
+    softmax are f32, and the weights are rounded to x_cat's dtype for the
+    product with v (``attend_plain``).
     """
-    dt = x_cat.dtype
-    qk = (x_cat.float() @ w_qk.float().T + b_qk.float()).to(dt)
-    v = (x_cat.float() @ w_v.float().T + b_v.float()).to(dt)
+    qk = project_plain(x_cat, w_qk, b_qk)
+    v = project_plain(x_cat, w_v, b_v)
     return _cross_attend_plain(qk, v, bias0, bias1, scale, heads, n0)
 
 
@@ -91,8 +93,7 @@ def cross_attention_int8(x_cat, wq_qk, ws_qk, b_qk, wq_v, ws_v, b_v, bias0, bias
     check_tensor(ws, "ws", (2 * d,), f32, dev)
     check_tensor(bias0, "bias0", (b, n0), f32, dev)
     check_tensor(bias1, "bias1", (b, n1), f32, dev)
-    if x_cat.data_ptr() % 16:
-        raise ValueError("x_cat must be 16-byte aligned")
+    check_aligned(x_cat=x_cat, bias0=bias0, bias1=bias1)
     qk, v, out = torch.empty_like(x_cat), torch.empty_like(x_cat), torch.empty_like(x_cat)
     check_status(
         library().pram_cross_attention_int8(
@@ -120,7 +121,9 @@ def _check_cuda_shape(d, heads, n0, n1):
 
 
 def cross_attention(x_cat, w_qk, b_qk, w_v, b_v, bias0, bias1, scale, heads, n0):
-    """:func:`cross_attention_plain` on the CPU; ``csrc/cross_attention.cu`` on CUDA."""
+    """:func:`cross_attention_plain` on the CPU; ``csrc/cross_attention.cu`` on
+    CUDA, with to_qk's and to_v's rows concatenated here into the
+    projection's one ``[2 * d, d]`` weight."""
     if x_cat.device.type == "cpu":
         return cross_attention_plain(
             x_cat, w_qk, b_qk, w_v, b_v, bias0, bias1, scale, heads, n0
@@ -139,17 +142,16 @@ def cross_attention(x_cat, w_qk, b_qk, w_v, b_v, bias0, bias1, scale, heads, n0)
     check_tensor(b_v, "b_v", (d,), f32, dev)
     check_tensor(bias0, "bias0", (b, n0), f32, dev)
     check_tensor(bias1, "bias1", (b, n1), f32, dev)
-    for name, t in (("x_cat", x_cat), ("w_qk", w_qk), ("w_v", w_v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    check_aligned(x_cat=x_cat, bias0=bias0, bias1=bias1)
+    w = torch.cat([w_qk, w_v])
+    bias = torch.cat([b_qk, b_v])
     qk = torch.empty_like(x_cat)
     v = torch.empty_like(x_cat)
     out = torch.empty_like(x_cat)
     check_status(
         library().pram_cross_attention(
-            ptr(x_cat), ptr(w_qk), ptr(b_qk), ptr(w_v), ptr(b_v), ptr(bias0),
-            ptr(bias1), ptr(qk), ptr(v), ptr(out), b, n, n0, heads,
-            ctypes.c_float(scale), stream_of(dev),
+            ptr(x_cat), ptr(w), ptr(bias), ptr(bias0), ptr(bias1), ptr(qk), ptr(v),
+            ptr(out), b, n, n0, heads, ctypes.c_float(scale), stream_of(dev),
         ),
         "pram_cross_attention",
     )
@@ -222,8 +224,7 @@ def cross_attention_packed(qk0, qk1, v0, v1, bias0, bias1, scale, heads, return_
             raise ValueError(f"{name} needs contiguous 16-byte aligned rows of {d} elements")
     check_tensor(bias0, "bias0", (b, n), f32, dev)
     check_tensor(bias1, "bias1", (b, m), f32, dev)
-    if bias0.data_ptr() % 16 or bias1.data_ptr() % 16:
-        raise ValueError("bias0 and bias1 must be 16-byte aligned")
+    check_aligned(bias0=bias0, bias1=bias1)
     m0 = torch.empty((b, n, d), dtype=dt, device=dev)
     m1 = torch.empty((b, m, d), dtype=dt, device=dev)
     rows = stat0 = stat1 = None
@@ -235,7 +236,7 @@ def cross_attention_packed(qk0, qk1, v0, v1, bias0, bias1, scale, heads, return_
         library().pram_cross_attention_packed(
             ptr(qk0), ptr(qk1), ptr(v0), ptr(v1), qk0.stride(0), qk1.stride(0),
             v0.stride(0), v1.stride(0), ptr(bias0), ptr(bias1), ptr(m0), ptr(m1),
-            ptr_or_null(rows), ptr_or_null(stat0), ptr_or_null(stat1), b, n, m,
+            n * d, m * d, ptr_or_null(rows), ptr_or_null(stat0), ptr_or_null(stat1), b, n, m,
             heads, ctypes.c_float(scale), int(dt == f32), stream_of(dev),
         ),
         "pram_cross_attention_packed",

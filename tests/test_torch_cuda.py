@@ -7,7 +7,15 @@ card's machine (no jax there, so without this directory's conftest):
 
 Tolerances as in chip_smoke.py: bf16 outputs within 2% of the output's
 scale; inlier counts within 2 at the gate edge; polished poses within 2e-3;
-Sinkhorn's real block within 1e-4 and its dustbin row and column within
+the projection pass of kernels 1 and 5 (csrc/proj_bf16.cu) equal to its
+plain version on >= 99% of its elements and everywhere within one bf16 step
+of its f32 accumulation order: |got - ref| <= 2^-7 |ref| (one bf16 ulp is
+at most 2^-7 of the value), and on the rotated q and k columns <= 2^-7
+(|ref| + |y0| + |y1|), y the pair before the rotary (a one-step difference
+in y0 or y1 carries through the rotation, and the result rounds once
+more), plus 2^-13 of the output's scale near zero, where the sums' own f32
+rounding decides; kernels 1 and 5 and the int8 projections give the same bits on two
+launches; Sinkhorn's real block within 1e-4 and its dustbin row and column within
 0.3%; refinement NN indices and keep flags agreeing on 99% of queries (f32
 sums in another order flip near-ties of the 0.995 ratio test) and d1 within
 1e-4 (chip_smoke.py allows 1e-3 because its rendered queries carry exact
@@ -86,6 +94,7 @@ def test_self_attention_kernel(dev, b, n):
     ref = attention.self_attention_plain(*args)
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= 0.02 * ref.float().abs().max().item()
+    assert torch.equal(attention.self_attention(*args), got)
 
 
 @pytest.mark.parametrize("b,splits", [(2, (128, 256)), (2, (512, 1024))])
@@ -107,6 +116,7 @@ def test_self_attention_kernel_splits(dev, b, splits):
     ref = attention.self_attention_plain(*args, splits=splits)
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= 0.02 * ref.float().abs().max().item()
+    assert torch.equal(attention.self_attention(*args, splits=splits), got)
     # the blocks really are separate: one attention over all tokens differs
     full = attention.self_attention_plain(*args)
     assert (full.float() - ref.float()).abs().max().item() > 0.1 * ref.float().abs().max().item()
@@ -135,6 +145,51 @@ def test_cross_attention_kernel(dev, b, n0, n1):
     ref = cross_attention.cross_attention_plain(*args)
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= 0.02 * ref.float().abs().max().item()
+    assert torch.equal(cross_attention.cross_attention(*args), got)
+
+
+def _check_projection(got, ref, pre=None, rot_cols=0):
+    """The projection pass against its plain version: equal on >= 99% of the
+    elements, and everywhere within one bf16 step of the f32 accumulation
+    order, 2^-7 |ref|; on the first rot_cols (rotated) columns within 2^-7
+    (|ref| + |y0| + |y1|), with pre the unrotated projection; plus 2^-13
+    max|ref| near zero."""
+    got, ref = got.float(), ref.float()
+    assert (got == ref).float().mean().item() >= 0.99
+    bound = ref.abs() * 2**-7 + ref.abs().max() * 2**-13
+    if rot_cols:
+        y = pre[..., :rot_cols].float().abs().unflatten(-1, (-1, 2)).sum(-1)
+        bound[..., :rot_cols] += y.repeat_interleave(2, -1) * 2**-7
+    assert bool(((got - ref).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("b,splits", [(2, (128, 256)), (32, (512, 1024))])
+@pytest.mark.parametrize("epilogue", ["rotary", "split"])
+def test_projection_kernel(dev, b, splits, epilogue):
+    """csrc/proj_bf16.cu in kernel 1's epilogue (768 columns, q and k
+    rotated) and kernel 5's (512 columns into qk and v), at the small and at
+    GML's shape; two launches bit-equal."""
+    n = sum(splits)
+    g = torch.Generator().manual_seed(n + b)
+    x, cos, sin = _attn_inputs(g, b, n, dev)
+    n_out = 768 if epilogue == "rotary" else 512
+    w = _rand(g, n_out, 256, scale=256**-0.5).to(dev, torch.bfloat16)
+    bias = _rand(g, n_out, scale=0.1).to(dev)
+    before = attention.LAUNCHES["projection"]
+    if epilogue == "rotary":
+        got = attention.project(x, w, bias, cos, sin, rotary_cols=512)
+        ref = attention.project_plain(x, w, bias, cos, sin, rotary_cols=512)
+        _check_projection(got, ref, attention.project_plain(x, w, bias), 512)
+        again = attention.project(x, w, bias, cos, sin, rotary_cols=512)
+        assert torch.equal(again, got)
+    else:
+        qk, v = attention.project(x, w, bias, split=256)
+        assert qk.shape == v.shape == (b, n, 256)
+        _check_projection(torch.cat([qk, v], -1), attention.project_plain(x, w, bias))
+        again = attention.project(x, w, bias, split=256)
+        assert torch.equal(again[0], qk) and torch.equal(again[1], v)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES["projection"] == before + 2
 
 
 @pytest.mark.parametrize("b,n,m", [(3, 100, 200), (2, 512, 1024)])
@@ -250,6 +305,31 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
             x[:, :100].to(torch.bfloat16).contiguous(), w, torch.zeros(768, device=dev),
             cs[:, :100].contiguous(), cs[:, :100].contiguous(), kb[:, :100].contiguous(), 0.125, 4,
         )
+    # a key bias off the 16-byte grid (TMA): a contiguous view one float in
+    xb = x.to(torch.bfloat16)
+    kb_off = torch.zeros(1, 129, device=dev)[:, 1:]
+    with pytest.raises(ValueError, match="aligned"):
+        attention.self_attention(xb, w, torch.zeros(768, device=dev), cs, cs, kb_off, 0.125, 4)
+    b0 = torch.zeros(1, 128, device=dev)
+    wc = torch.zeros(256, 256, device=dev, dtype=torch.bfloat16)
+    bc = torch.zeros(256, device=dev)
+    xc = torch.zeros(1, 256, 256, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        cross_attention.cross_attention(xc, wc, bc, wc, bc, b0, kb_off, 0.125, 4, 128)
+    with pytest.raises(ValueError, match="multiple"):  # sides of 100 and 156 tokens
+        cross_attention.cross_attention(xc, wc, bc, wc, bc, b0[:, :100].contiguous(),
+                                        torch.zeros(1, 156, device=dev), 0.125, 4, 100)
+    # the projection: tokens not a multiple of 64, n_out not of 128, cos of
+    # the wrong shape, x off the 16-byte grid
+    with pytest.raises(ValueError, match="tokens % 64"):
+        attention.project(xb[:, :100].contiguous(), w, torch.zeros(768, device=dev))
+    with pytest.raises(ValueError, match="tokens % 64"):
+        attention.project(xb, w[:704].contiguous(), torch.zeros(704, device=dev))
+    with pytest.raises(ValueError, match="shape"):
+        attention.project(xb, w, torch.zeros(768, device=dev), cs[:, :64], cs[:, :64], rotary_cols=512)
+    with pytest.raises(ValueError, match="aligned"):
+        attention.project(torch.zeros(1, 64 * 256 + 1, device=dev, dtype=torch.bfloat16)[:, 1:].view(1, 64, 256),
+                          w, torch.zeros(768, device=dev))
 
 
 def _stem_args(g, dev):
@@ -708,6 +788,7 @@ def test_cross_attention_int8_kernel(dev, b, n0, n1):
     torch.cuda.synchronize()
     assert cross_attention.LAUNCHES["cross_attention_int8"] == before + 1
     assert _rel_err(got, cross_attention.cross_attention_int8_plain(*args)) <= 0.02
+    assert torch.equal(cross_attention.cross_attention_int8(*args), got)
 
 
 def _conv_i8_case(g, b, h, w, cin, cout, dev):
