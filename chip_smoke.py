@@ -95,7 +95,11 @@ Phases, each printed with its elapsed seconds:
                 the batch, with the layer's real output cotangent; 13 also
                 at GML's splits (512, 1024) and the cross-attention backward
                 (14) on GML layer 0's activations of phase 6, with padded
-                and masked tokens; the SDPA-backward yardsticks.
+                and fully masked tokens; two launches of 13 and 14
+                bit-equal; the backward passes' registers and spills as
+                ptxas reported them at the build (none may spill); the
+                SDPA-backward yardsticks (for 13 at GML's splits one call
+                a side); 13's and 14's launches timed by torch.profiler.
 16. train slice the gradient A/B at the loaded weights: one step's f32
                 master gradients by the kernel path and the plain path in
                 bf16 (and the plain path in f32 as the reference of both),
@@ -1535,6 +1539,34 @@ def main() -> int:
     tscale = hd**-0.5
     tok = tb * tn
 
+    def bit_equal(got, again):
+        return all(torch.equal(a, b) for a, b in zip(got, again))
+
+    # the backward passes' registers and spills, as ptxas reported them when
+    # the library was built: the gradient passes hold their accumulators
+    # beside an o tile's scores and must not spill
+    for src in ("attention_bwd.cu", "cross_attention_bwd.cu"):
+        report = _build.ptxas_report(src)
+        require(len(report) > 0, f"no ptxas report of {src}")
+        for k in report:
+            log(f"ptxas {src} {k['kernel']}: {k['registers']} registers at launch, spilled "
+                f"{k['spill_stores']} bytes stored / {k['spill_loads']} loaded"
+                + "".join(f"; {note}" for note in k["notes"]))
+            require(k["spill_stores"] == 0 and k["spill_loads"] == 0, f"{src} {k['kernel']} spills registers")
+
+    def launch_ms(fn, n=10):
+        """Device ms a call of each kernel that ``fn`` launches, by
+        torch.profiler over ``n`` calls after one warm-up."""
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return {(e.key.split("::")[1].split("(")[0] if "::" in e.key else e.key[:32]):
+                round(e.device_time_total / n / 1e3, 4)
+                for e in prof.key_averages() if e.device_time_total > 0}
+
     def check_outputs(name, got, ref, names, n_bf16):
         """Each output against the plain version's: the first n_bf16 (bf16)
         to BWD_TOL, the f32 ones to BWD_F32_TOL; returns the bf16 outputs'
@@ -1575,8 +1607,11 @@ def main() -> int:
         g13 = (ref15[1].float() @ blk.proj.weight.float()).to(bf16).contiguous()
         a13 = (qkv, cos_t, sin_t, kb_t, g13, tscale, heads)
         names13 = ("dqkv", "dcos", "dsin", "dbias")
-        err = check_outputs("self_attention_bwd (SegNetViT)", attention_bwd.self_attention_bwd(*a13),
+        got = attention_bwd.self_attention_bwd(*a13)
+        err = check_outputs("self_attention_bwd (SegNetViT)", got,
                             attention_bwd.self_attention_bwd_plain(*a13), names13, 1)
+        require(bit_equal(attention_bwd.self_attention_bwd(*a13), got),
+                "self_attention_bwd (SegNetViT): two launches differ")
         # library yardstick: the backward of one SDPA call on the rotated q, k
         # and v with the key mask
         t3 = qkv.reshape(tb, tn, heads, hd, 3).permute(4, 0, 2, 1, 3)
@@ -1617,12 +1652,40 @@ def main() -> int:
         gkb = attention.mask_to_bias(torch.cat([gm0, gm1], 1), gb, gn0 + gn1, dev)
         gg = torch.randn(gx.shape, generator=gen).to(dev, bf16)
         a13g = (gqkv, gml_l0["cos"], gml_l0["sin"], gkb, gg, gscale, heads)
-        check_outputs(f"self_attention_bwd (GML, splits {gml_l0['splits']})",
-                      attention_bwd.self_attention_bwd(*a13g, splits=gml_l0["splits"]),
-                      attention_bwd.self_attention_bwd_plain(*a13g, splits=gml_l0["splits"]), names13, 1)
-        log(f"self_attention_bwd (GML, {gb} x {gml_l0['splits']}): "
-            f"{cuda_ms(torch, lambda: attention_bwd.self_attention_bwd(*a13g, splits=gml_l0['splits'])):.4f} ms")
-
+        gsp = gml_l0["splits"]
+        got = attention_bwd.self_attention_bwd(*a13g, splits=gsp)
+        check_outputs(f"self_attention_bwd (GML, splits {gsp})", got,
+                      attention_bwd.self_attention_bwd_plain(*a13g, splits=gsp), names13, 1)
+        require(bit_equal(attention_bwd.self_attention_bwd(*a13g, splits=gsp), got),
+                "self_attention_bwd (GML): two launches differ")
+        ms_g = cuda_ms(torch, lambda: attention_bwd.self_attention_bwd(*a13g, splits=gsp))
+        # library yardstick at the splits: the backward of one SDPA call a
+        # side on the rotated q, k, v with the side's key mask
+        t3 = gqkv.reshape(gb, gn0 + gn1, heads, hd, 3).permute(4, 0, 2, 1, 3)
+        enc = (gml_l0["cos"][:, None], gml_l0["sin"][:, None])
+        sd_in = [attention.apply_rotary(enc, t3[0].float()).to(bf16),
+                 attention.apply_rotary(enc, t3[1].float()).to(bf16), t3[2].contiguous()]
+        g_heads = gg.reshape(gb, gn0 + gn1, heads, hd).transpose(1, 2)
+        gmask = torch.cat([gm0, gm1], 1)
+    with torch.enable_grad():
+        sides = [(0, gn0), (gn0, gn0 + gn1)]
+        sd_in = [[a[:, :, lo:hi].detach().contiguous().requires_grad_() for a in sd_in] for lo, hi in sides]
+        sd_out = [sdpa(*qkv_s, attn_mask=gmask[:, None, None, lo:hi], scale=gscale)
+                  for qkv_s, (lo, hi) in zip(sd_in, sides)]
+        sd_g = [g_heads[:, :, lo:hi] for lo, hi in sides]
+        lib_g = cuda_ms(torch, lambda: torch.autograd.grad(
+            sd_out, [a for q in sd_in for a in q], sd_g, retain_graph=True))
+    del sd_in, sd_out, sd_g
+    bnd_g, by_g = bound_ms(gb * (gn0 + gn1) * (768 * 2 + 256 * 2 + 2 * 64 * 4 + 4 + 768 * 2 + 2 * 64 * 4 + 4),
+                           10.0 * hd * gb * heads * (gn0 * gn0 + gn1 * gn1), BF16_TENSOR_FLOPS)
+    rows["self_attention_bwd"].update(ms_gml_splits=ms_g, bound_gml_splits_ms=bnd_g, library_gml_splits_ms=lib_g)
+    log(f"self_attention_bwd (GML, {gb} x {gsp}): {ms_g:.4f} ms against its bound {bnd_g:.4f} ms ({by_g}) "
+        f"and SDPA's backward, one call a side, {lib_g:.4f} ms")
+    # where kernel 13's time goes: its pack, statistics and gradient launches
+    for name, fn in (("SegNetViT", lambda: attention_bwd.self_attention_bwd(*a13)),
+                     ("GML", lambda: attention_bwd.self_attention_bwd(*a13g, splits=gsp))):
+        log(f"self_attention_bwd ({name}) by launch (device ms a call, torch.profiler): {json.dumps(launch_ms(fn))}")
+    with torch.no_grad():
         cb = gml.cross_attn[0]
         gy = gml_l0["y"]
         gqk = F.linear(gy, cb.to_qk.weight, cb.to_qk.bias).contiguous()
@@ -1630,8 +1693,10 @@ def main() -> int:
         gbias0 = attention.mask_to_bias(gm0, gb, gn0, dev)
         gbias1 = attention.mask_to_bias(gm1, gb, gn1, dev)
         a14 = (gqk, gv, gbias0, gbias1, gg, gscale, heads, gn0)
-        err = check_outputs("cross_attention_bwd", attention_bwd.cross_attention_bwd(*a14),
+        got = attention_bwd.cross_attention_bwd(*a14)
+        err = check_outputs("cross_attention_bwd", got,
                             attention_bwd.cross_attention_bwd_plain(*a14), ("dqk", "dv", "db0", "db1"), 2)
+        require(bit_equal(attention_bwd.cross_attention_bwd(*a14), got), "cross_attention_bwd: two launches differ")
         qh = gqk.reshape(gb, gn0 + gn1, heads, hd).transpose(1, 2)
         vh = gv.reshape(gb, gn0 + gn1, heads, hd).transpose(1, 2)
         c_in = [qh[:, :, :gn0], qh[:, :, gn0:], vh[:, :, :gn0], vh[:, :, gn0:]]
@@ -1648,15 +1713,21 @@ def main() -> int:
     ctok = gb * (gn0 + gn1)
     bnd, by = bound_ms(ctok * (3 * 256 * 2 + 2 * 256 * 2 + 2 * 4), 14.0 * gb * heads * gn0 * gn1 * hd,
                        BF16_TENSOR_FLOPS)
+    # the kernel's exponentials, a second ceiling: 2 a direction in the
+    # statistics pass, 2 a visit (each pair from both sides) in the gradient pass
+    exp14 = 6.0 * gb * heads * gn0 * gn1
+    log(f"cross_attention_bwd: bound {bnd:.4f} ms ({by}); exponentials {exp14 / 1e9:.3f} G, "
+        f"{exp14 / EXP_PER_S * 1e3:.4f} ms at {EXP_PER_S / 1e12:.2f} T/s; by launch (device ms a call, "
+        f"torch.profiler): {json.dumps(launch_ms(lambda: attention_bwd.cross_attention_bwd(*a14)))}")
     rows["cross_attention_bwd"] = dict(
         name="cross_attention_bwd", route="cuda", source="pram_tpu_torch/csrc/cross_attention_bwd.cu",
         replaces="pram_tpu/ops/attention_bwd_pallas.py:274",
         launches=None, max_abs_err=err,
         ms=cuda_ms(torch, lambda: attention_bwd.cross_attention_bwd(*a14)),
         plain_ms=cuda_ms(torch, lambda: attention_bwd.cross_attention_bwd_plain(*a14), iters=3),
-        bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+        bound_ms=bnd, bound_by=by, library_ms=lib_ms, exp_ms=exp14 / EXP_PER_S * 1e3,
     )
-    del rec16, l0, x0, ct, qkv, msg, pm, m15, ref15, a13, a13g, a14, gml_l0
+    del rec16, l0, x0, ct, qkv, msg, pm, m15, ref15, a13, a13g, a14, gml_l0, got
     phase("train_kernels", t)
 
     # ---- 16. the training slice: augmented steps through Trainer's step, counted

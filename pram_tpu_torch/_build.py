@@ -4,8 +4,10 @@ Every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc`` process,
 all started together, and one more ``nvcc`` call links the objects into one
 shared library with a plain C interface, which ``ctypes`` loads. The library
 goes to ``_build/`` beside this file, named by a hash of the sources and flags,
-so an edited source rebuilds and an unchanged one is reused. Nothing here
-runs at import time: the first call of :func:`library` builds.
+so an edited source rebuilds and an unchanged one is reused. ptxas reports
+each kernel's registers and spills (``-Xptxas -v``); the report is kept
+beside the library and read by :func:`ptxas_report`. Nothing here runs at
+import time: the first call of :func:`library` builds.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,7 +29,7 @@ CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -67,9 +70,10 @@ _SIGNATURES = {
     "pram_stem": [_P] * 6 + [_I] * 4 + [_P],
     # scores, out, B, H, W, radius, num_iters, is_bf16, stream
     "pram_nms": [_P] * 2 + [_I] * 6 + [_P],
-    # qkv, cos, sin, key_bias, g, dqkv, dcos, dsin, dbias, stats scratch, B,
-    # N, heads, scale, side lengths (host int array), n_sides, stream
-    "pram_self_attention_bwd": [_P] * 10 + [_I, _I, _I, _F, _P, _I, _P],
+    # qkv, cos, sin, key_bias, g, packed scratch, dqkv, dcos, dsin, dbias,
+    # stats scratch, B, N, heads, scale, side lengths (host int array),
+    # n_sides, stream
+    "pram_self_attention_bwd": [_P] * 11 + [_I, _I, _I, _F, _P, _I, _P],
     # qk, v, bias0, bias1, g, dqk, dv, db0, db1, stats scratch, B, N, n0,
     # heads, scale, stream
     "pram_cross_attention_bwd": [_P] * 10 + [_I] * 4 + [_F, _P],
@@ -133,13 +137,15 @@ def library() -> ctypes.CDLL:
             obj = so.with_name(f"{so.stem}.{src.stem}.{os.getpid()}.o")
             cmd = [_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            jobs.append((cmd, obj, proc))
+            jobs.append((src, cmd, obj, proc))
         failed = []
-        for cmd, _, proc in jobs:
+        report = []
+        for src, cmd, _, proc in jobs:
             out, err = proc.communicate()
+            report.append(f"# {src.name}\n{err}")
             if proc.returncode:
                 failed.append((cmd, proc.returncode, out, err))
-        objs = [str(obj) for _, obj, _ in jobs]
+        objs = [str(obj) for _, _, obj, _ in jobs]
         if not failed:
             cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs]
             proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -151,6 +157,7 @@ def library() -> ctypes.CDLL:
         if failed:
             cmd, code, out, err = failed[0]
             raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{out}\n{err}")
+        so.with_suffix(".ptxas.txt").write_text("".join(report))
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
@@ -159,6 +166,46 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     _LIB = lib
     return lib
+
+
+def _short_name(mangled: str) -> str:
+    """The kernel's own name from its mangled one: the second component of
+    ``_ZN<n><namespace><n><name>...``, e.g. ``grad_kernel``."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if m is None:
+        return mangled
+    rest = mangled[m.end() + int(m.group(1)):]
+    m = re.match(r"\d+", rest)
+    return rest[m.end():m.end() + int(m.group())] if m else mangled
+
+
+def ptxas_report(source: str) -> list:
+    """What ptxas said of each kernel of ``csrc/<source>`` when the loaded
+    library was built: ``[{"kernel", "registers", "spill_stores",
+    "spill_loads", "notes"}]`` (spills in bytes; ``notes``: ptxas's
+    warnings and performance remarks on the kernel)."""
+    path = library_path().with_suffix(".ptxas.txt")
+    text = path.read_text() if path.exists() else ""
+    section = text.split(f"# {source}\n", 1)[1].split("\n# ", 1)[0] if f"# {source}\n" in text else ""
+    kernels, current = [], None
+    for line in section.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = dict(kernel=_short_name(m.group(1)), registers=None, spill_stores=None,
+                           spill_loads=None, notes=[])
+            kernels.append(current)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current["spill_stores"], current["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+        if "warning" in line or "Performance" in line:
+            current["notes"].append(line.strip())
+    return kernels
 
 
 def check_status(status: int, name: str) -> None:

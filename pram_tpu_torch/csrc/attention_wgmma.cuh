@@ -1,6 +1,8 @@
 // Hopper building blocks of the bf16 attention passes at head dim 64, and
-// the message pass built from them (kernels 10-12 today; the header is
-// written so that kernels 1, 5 and 13 can take it up):
+// the message pass built from them (kernels 10-12, and kernels 1 and 5
+// after their projection pass; the backward kernels 13 and 14 build their
+// statistics and gradient passes from these pieces in
+// attention_bwd_wgmma.cuh):
 //   - tensor maps encoded on the host (cuTensorMapEncodeTiled, reached
 //     through cudaGetDriverEntryPoint, so nothing links against libcuda)
 //     over [frames, rows, cols] bf16 tensors, loading 64 x 64 boxes (one

@@ -1,7 +1,7 @@
 // Backward of the symmetric shared-QK cross-attention (kernel 5) for Hopper:
 // bf16 in, f32 accumulation.
 //
-// Replaces pram_tpu/ops/attention_bwd_pallas.py:fused_cross_attention_bwd
+// Replaces pram_tpu/ops/attention_bwd_pallas.py:274 fused_cross_attention_bwd
 // (_cross_bwd_kernel). The tokens are the concatenation of side 0 (n0
 // tokens) and side 1; both share qk and v. One similarity
 // sim = qk0 qk1^T * scale serves both directions: 0 -> 1 softmaxes its rows
@@ -14,24 +14,37 @@
 // with dp01 = g0 v1^T, dp10 = v0 g1^T and t the softmax-weighted sums of dp.
 //
 // What bounds it: at GML's shapes (B=32, 512 x 1024 tokens, 4 heads of 64)
-// the seven N0 x N1 products take 60.1 GFLOP against ~40 MB of inputs and
-// outputs: the tensor cores bound it (0.061 ms). The TPU kernel holds a
-// head's [N0, N1] f32 blocks of a frame in VMEM (2 MB each); a Hopper block
-// cannot. Every token is a query in one direction and a key in the other,
-// so the work is two kernels with no atomics:
-//   1. stats_kernel, one block per (frame, head, 64-token tile of either
-//      side): the row statistics of the tile's tokens as queries against
-//      the other side (max, 1/sum, t), into an f32 scratch [3, B, H, N].
-//   2. grad_kernel, one block per (frame, 64-token tile a of either side),
-//      looping over the heads and the other side's tiles o: one product for
-//      sim[a][o], two for dp in both directions, then dqk_a and dv_a; a's
-//      bias gradient sums the direction in which a is the key side.
-// Products are bf16 WMMA tiles; wgmma and TMA are later work.
+// the function's seven n0 x n1 products take 60.1 GFLOP against ~40 MB in
+// and out: the tensor cores, 0.061 ms. The kernel runs 14 (each unordered
+// pair of tiles is visited from both sides, and the statistics take 2 a
+// direction), 120 GFLOP, 0.12 ms. Its exponentials are a second ceiling:
+// 2 a direction in the statistics and 2 a visit in the gradient pass, 6
+// per (head, pair), 0.40 G, 0.10 ms at 4.18 T/s.
 //
-// Rounding follows the TPU kernel: sim, the softmax and dsim are f32; the
-// two directions' dsim are added in f32 and rounded to bf16 before the
-// products with qk; the weights are rounded to bf16 before the products
-// with g; dqk, dv are rounded to bf16, db0, db1 are f32.
+// Design: two launches on one stream, no atomics, a fixed order of sums.
+// Every token is a query in one direction and a key in the other.
+//   1. stats_kernel, one CTA per (128 tokens, head, frame):
+//      wg::stats_cta (attention_bwd_wgmma.cuh), each 64-token warpgroup
+//      against the other side, into an f32 scratch [3, B, H, N].
+//   2. grad_kernel, one CTA per (frame, 128 tokens a), the heads inside: the
+//      other side's tiles o stream through the TMA ring (qk, v, g: three
+//      8 KB boxes a stage). Per o tile and 64-row warpgroup, wgmma computes
+//      sim[a][o] = qk_a qk_o^T, dp with a as queries (g_a v_o^T) and with a
+//      as keys (v_a g_o^T) from shared memory into registers; both
+//      directions' weights and dsim are formed there, rounded to bf16 A
+//      fragments, and mma_rs sums dqk += dsim qk_o and dv += P_{o->a} g_o
+//      against the o tiles read MN-major. a's bias gradient sums the
+//      direction in which a is the key side. The epilogue of each head
+//      writes dqk and dv once.
+//   One CTA an SM: a producer warpgroup and two consumer warpgroups (240
+//   registers a consumer thread, setmaxnreg), 151 KB of shared memory (a
+//   ring of four stages).
+//
+// Rounding follows the TPU kernel: sim, the softmax and dsim are f32 (the
+// logits one fma with log2 e folded in, ex2); the two directions' dsim are
+// added in f32 and rounded to bf16 before the products with qk; the weights
+// are rounded to bf16 before the products with g; dqk, dv are rounded to
+// bf16, db0, db1 are f32.
 //
 // Layouts: qk, v, g, dqk, dv [B, N, 256] bf16 with N = n0 + n1 and column
 // h * 64 + i; bias0, db0 [B, n0] and bias1, db1 [B, n1] f32. n0 and n1 are
@@ -40,196 +53,208 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include "attention_bwd_tile.cuh"
+#include "attention_bwd_wgmma.cuh"
 
 namespace {
 
-using namespace bwd;
+using namespace wg;
 
 constexpr int D = 256;  // model width: 4 heads of 64
 
-// the other side of tile a0: tokens [olo, ohi) and their key biases
-struct Other {
-  int olo, ohi;
-  const float* bias;      // key biases of [olo, ohi)
-  const float* own_bias;  // key biases of a's side, from its first token
-  int own_lo;
+// the two parts of the CTA whose first token is a0: each visits the other
+// side
+__device__ __forceinline__ void cross_parts(int a0, int N, int n0,
+                                            Part (&part)[PARTS]) {
+#pragma unroll
+  for (int g = 0; g < PARTS; ++g) {
+    const int row = a0 + g * TR;
+    part[g].row = row;
+    part[g].lo = row >= N ? 0 : row < n0 ? n0 : 0;
+    part[g].hi = row >= N ? 0 : row < n0 ? N : n0;
+  }
+}
+
+struct Maps {  // qk, v, g [B, N, 256]
+  CUtensorMap qk, v, g;
 };
 
-__device__ __forceinline__ Other other_side(int a0, int b, int N, int n0,
-                                            const float* bias0,
-                                            const float* bias1) {
+__global__ void __launch_bounds__(THREADS, 2)
+stats_kernel(const __grid_constant__ Maps maps, Bias kb0,
+             float* __restrict__ stats, int N, int n0, int heads,
+             float scale) {
+  extern __shared__ unsigned char smem[];
+  const int a0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
+  Part part[PARTS];
+  cross_parts(a0, N, n0, part);
+  const Bias kb{kb0.lo + (size_t)b * n0, kb0.hi + (size_t)b * (N - n0), n0};
+  stats_cta(&maps.qk, h * HD, &maps.qk, h * HD, &maps.v, h * HD, &maps.g,
+            h * HD, b, part, kb, scale, stats + ((size_t)b * heads + h) * N,
+            (size_t)gridDim.z * heads * N, smem);
+}
+
+// tiles qk, v, g of a and of o; four stages; no epilogue staging
+typedef GradSmem<3, 3, 4, 0> Smem;
+enum { TQ, TV, TG };
+
+// dsim of a against o tile s ([a][o]; x = qk_a . qk_o, y = g_a . v_o with a
+// as queries, z = v_a . g_o with o as queries) and the weights of o -> a,
+// rounded to bf16 A fragments; the f32 dsim of o -> a summed into this
+// lane's share of a's key-bias gradient
+__device__ __forceinline__ void pair_grads(const Smem& sm, int s,
+                                           const Rows& ra, float sl2,
+                                           const Acc& x, const Acc& y,
+                                           const Acc& z, uint32_t (&f)[4][4],
+                                           uint32_t (&w)[4][4], float& db0,
+                                           float& db1) {
+  const int cq = 2 * (threadIdx.x & 3);
+  const float* mo = sm.o_vec(s, 0);
+  const float* ro = sm.o_vec(s, 1);
+  const float* to = sm.o_vec(s, 2);
+  const float* bo = sm.o_vec(s, 3);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + cq;
+    const float2 b = *reinterpret_cast<const float2*>(bo + c);
+    const float2 m = *reinterpret_cast<const float2*>(mo + c);
+    const float2 r = *reinterpret_cast<const float2*>(ro + c);
+    const float2 t = *reinterpret_cast<const float2*>(to + c);
+    const float b0 = b.x * LOG2E, b1 = b.y * LOG2E;
+    float v[4], e[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float sim = x.d[4 * j + q];
+      const bool hi = q >= 2, odd = q & 1;
+      // a queries o (a's row statistics, o's key bias)
+      const float p1 = ex2(fmaf(sim, sl2, odd ? b1 : b0) - (hi ? ra.m1 : ra.m0)) *
+                       (hi ? ra.r1 : ra.r0);
+      // o queries a (o's row statistics, a's key bias)
+      const float p2 = ex2(fmaf(sim, sl2, hi ? ra.b1 : ra.b0) - (odd ? m.y : m.x)) *
+                       (odd ? r.y : r.x);
+      const float d2 = p2 * (z.d[4 * j + q] - (odd ? t.y : t.x));
+      v[q] = p1 * (y.d[4 * j + q] - (hi ? ra.t1 : ra.t0)) + d2;
+      e[q] = p2;
+      if (hi)
+        db1 += d2;
+      else
+        db0 += d2;
+    }
+    pack_block(f, j, v[0], v[1], v[2], v[3]);
+    pack_block(w, j, e[0], e[1], e[2], e[3]);
+  }
+}
+
+// issues the three score products of a (part g) against the it-th tile
+__device__ __forceinline__ void pair_scores(const Smem& sm, int g, int it,
+                                            Acc& x, Acc& y, Acc& z) {
+  const int s = Smem::stage(it);
+  score_issue(x, desc(sm.a_tile(TQ, g)), desc(sm.o_tile(s, TQ)));
+  score_issue(y, desc(sm.a_tile(TG, g)), desc(sm.o_tile(s, TV)));
+  score_issue(z, desc(sm.a_tile(TV, g)), desc(sm.o_tile(s, TG)));
+}
+
+// One head's dqk, dv of a warpgroup's 64 rows a (part g, rows ra) against
+// the o tiles of the other side, the ring's it-th tile on, and their
+// contribution to a's key-bias gradient
+__device__ __forceinline__ void cross_head(const Smem& sm, int g, int& it,
+                                           int n, const Rows& ra, float sl2,
+                                           Acc& dqk, Acc& dv, float& db0,
+                                           float& db1) {
+  for (int i = 0; i < n; ++i, ++it) {
+    const int s = Smem::stage(it);
+    Acc x, y, z;
+    uint32_t f[4][4], w[4][4];
+    sm.wait_tile(it);
+    mma_fence();
+    pair_scores(sm, g, it, x, y, z);
+    mma_commit();
+    mma_wait();
+    reg_fence(x);
+    reg_fence(y);
+    reg_fence(z);
+    pair_grads(sm, s, ra, sl2, x, y, z, f, w, db0, db1);
+    mma_fence();
+    grad_issue(dqk, f, desc(sm.o_tile(s, TQ)));
+    grad_issue(dv, w, desc(sm.o_tile(s, TG)));
+    mma_commit();
+    mma_wait();
+    reg_fence(dqk);
+    reg_fence(dv);
+    release(&sm.empty[s]);
+  }
+}
+
+__global__ void __launch_bounds__(GRAD_THREADS, 1)
+grad_kernel(const __grid_constant__ Maps maps, Bias kb0,
+            const float* __restrict__ stats, bf16* __restrict__ dqk,
+            bf16* __restrict__ dv, float* __restrict__ db0,
+            float* __restrict__ db1, int N, int n0, int heads, float scale) {
+  extern __shared__ unsigned char smem[];
+  const Smem sm(smem);
+  const int a0 = blockIdx.x * BR, b = blockIdx.y;
   const int n1 = N - n0;
-  Other o;
-  if (a0 < n0) {
-    o.olo = n0;
-    o.ohi = N;
-    o.bias = bias1 + (size_t)b * n1;
-    o.own_bias = bias0 + (size_t)b * n0;
-    o.own_lo = 0;
-  } else {
-    o.olo = 0;
-    o.ohi = n0;
-    o.bias = bias0 + (size_t)b * n0;
-    o.own_bias = bias1 + (size_t)b * n1;
-    o.own_lo = n0;
+  Part part[PARTS];
+  cross_parts(a0, N, n0, part);
+  const int np = active_parts(part);
+  const Bias kb{kb0.lo + (size_t)b * n0, kb0.hi + (size_t)b * n1, n0};
+  if (threadIdx.x == 0) sm.init(np);
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {  // the producer warpgroup: one lane issues
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS) {
+      const CUtensorMap* const m[3] = {&maps.qk, &maps.v, &maps.g};
+      const int col[3] = {0, 0, 0};
+      grad_produce(sm, m, col, m, col, b, part, kb, heads,
+                   stats + (size_t)b * heads * N, N,
+                   (size_t)gridDim.y * heads * N);
+    }
+    return;
   }
-  return o;
-}
 
-__device__ __forceinline__ void load_vec(float* dst, const float* src) {
-  if (threadIdx.x < T) dst[threadIdx.x] = src[threadIdx.x];
-}
-
-constexpr size_t STATS_SMEM = 4 * TILE_H + 2 * TILE_F + VEC_F;
-
-__global__ void __launch_bounds__(NTHREADS, 1)
-stats_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
-             const float* __restrict__ bias0, const float* __restrict__ bias1,
-             const bf16* __restrict__ g, float* __restrict__ stats, int B,
-             int N, int n0, int heads, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Gs = Qs + T * LDH;
-  bf16* Ks = Gs + T * LDH;
-  bf16* Vs = Ks + T * LDH;
-  float* Sf = reinterpret_cast<float*>(smem + 4 * TILE_H);
-  float* Df = Sf + T * LDF;
-  float* kb = Df + T * LDF;
-
-  const int a0 = blockIdx.x * T, h = blockIdx.y, b = blockIdx.z;
-  const Other os = other_side(a0, b, N, n0, bias0, bias1);
-  const size_t frame = (size_t)b * N;
-  load_tile(Qs, qk + (frame + a0) * D + h * HD, D);
-  load_tile(Gs, g + (frame + a0) * D + h * HD, D);
-
-  float m = -INFINITY, l = 0.f, u = 0.f;
-  for (int o0 = os.olo; o0 < os.ohi; o0 += T) {
-    load_tile(Ks, qk + (frame + o0) * D + h * HD, D);
-    load_tile(Vs, v + (frame + o0) * D + h * HD, D);
-    load_vec(kb, os.bias + (o0 - os.olo));
-    __syncthreads();
-    stats_step(Qs, Gs, Ks, Vs, kb, scale, Sf, Df, m, l, u);
-  }
-  if ((threadIdx.x & 3) == 0) {
-    const size_t i = ((size_t)b * heads + h) * N + a0 + elt_row();
-    const size_t plane = (size_t)B * heads * N;
-    stats[i] = m;
-    stats[plane + i] = 1.f / l;
-    stats[2 * plane + i] = u / l;
-  }
-}
-
-constexpr size_t GRAD_SMEM = 8 * TILE_H + 3 * TILE_F + 7 * VEC_F;
-
-__global__ void __launch_bounds__(NTHREADS, 1)
-grad_kernel(const bf16* __restrict__ qk, const bf16* __restrict__ v,
-            const float* __restrict__ bias0, const float* __restrict__ bias1,
-            const bf16* __restrict__ g, const float* __restrict__ stats,
-            bf16* __restrict__ dqk, bf16* __restrict__ dv,
-            float* __restrict__ db0, float* __restrict__ db1, int B, int N,
-            int n0, int heads, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qa = reinterpret_cast<bf16*>(smem);
-  bf16* Va = Qa + T * LDH;
-  bf16* Ga = Va + T * LDH;
-  bf16* Qo = Ga + T * LDH;
-  bf16* Vo = Qo + T * LDH;
-  bf16* Go = Vo + T * LDH;
-  bf16* Ds = Go + T * LDH;  // dsim of both directions, [a][o] (bf16)
-  bf16* Pb = Ds + T * LDH;  // weights of o -> a, [a][o] (bf16)
-  float* S = reinterpret_cast<float*>(smem + 8 * TILE_H);
-  float* D1 = S + T * LDF;  // dp with a as queries: g_a . v_o
-  float* D2 = D1 + T * LDF;  // dp with a as keys: v_a . g_o
-  float* ma = D2 + T * LDF;
-  float* ra = ma + T;
-  float* ta = ra + T;
-  float* mo = ta + T;
-  float* ro = mo + T;
-  float* to = ro + T;
-  float* bo = to + T;
-
-  const int a0 = blockIdx.x * T, b = blockIdx.y;
-  const Other os = other_side(a0, b, N, n0, bias0, bias1);
-  const size_t frame = (size_t)b * N;
-  const size_t plane = (size_t)B * heads * N;
-  const int r = elt_row(), c0 = elt_col();
-  const float b_own = os.own_bias[a0 - os.own_lo + r];
-  float db_r = 0.f;
-
+  reg_alloc<CONSUMER_REGS>();
+  const int g = threadIdx.x >> 7;
+  if (g >= np) return;
+  const int lane = threadIdx.x & 31, cq = 2 * (lane & 3);
+  const int r = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);  // rows r, r + 8
+  const Part me = part_of(part, g);
+  int L, H;
+  span(part, L, H);
+  const float sl2 = scale * LOG2E;
+  const size_t tok0 = (size_t)b * N + me.row + r;
+  float bs0 = 0.f, bs1 = 0.f;
+  int it = 0;
   for (int h = 0; h < heads; ++h) {
-    const float* st = stats + ((size_t)b * heads + h) * N;
-    __syncthreads();  // the previous head's tiles are no longer read
-    load_tile(Qa, qk + (frame + a0) * D + h * HD, D);
-    load_tile(Va, v + (frame + a0) * D + h * HD, D);
-    load_tile(Ga, g + (frame + a0) * D + h * HD, D);
-    load_vec(ma, st + a0);
-    load_vec(ra, st + plane + a0);
-    load_vec(ta, st + 2 * plane + a0);
-    Acc dq[2], dvv[2];
-    zero_acc(dq);
-    zero_acc(dvv);
-
-    for (int o0 = os.olo; o0 < os.ohi; o0 += T) {
-      load_tile(Qo, qk + (frame + o0) * D + h * HD, D);
-      load_tile(Vo, v + (frame + o0) * D + h * HD, D);
-      load_tile(Go, g + (frame + o0) * D + h * HD, D);
-      load_vec(mo, st + o0);
-      load_vec(ro, st + plane + o0);
-      load_vec(to, st + 2 * plane + o0);
-      load_vec(bo, os.bias + (o0 - os.olo));
-      __syncthreads();
-
-      mm_abt(Qa, Qo, S);
-      mm_abt(Ga, Vo, D1);
-      mm_abt(Va, Go, D2);
-      __syncthreads();
-      {
-        const float m_ = ma[r], r_ = ra[r], t_ = ta[r];
-        float rs = 0.f;
+    bar_wait(sm.afull, h & 1);
+    const Rows ra = sm.rows(g, r);
+    Acc aq, av;
+    zero(aq);
+    zero(av);
+    sm.pass_tiles(it, (me.lo - L) / TR);
+    cross_head(sm, g, it, (me.hi - me.lo) / TR, ra, sl2, aq, av, bs0, bs1);
+    sm.pass_tiles(it, (H - me.hi) / TR);
+    release(sm.aempty);  // a's tiles and statistics of head h read
 #pragma unroll
-        for (int c = 0; c < 16; ++c) {
-          const int j = c0 + c;
-          const float s = S[r * LDF + j] * scale;
-          const float p1 = expf(s + bo[j] - m_) * r_;  // a queries o
-          const float p2 = expf(s + b_own - mo[j]) * ro[j];  // o queries a
-          const float ds1 = p1 * (D1[r * LDF + j] - t_);
-          const float ds2 = p2 * (D2[r * LDF + j] - to[j]);
-          rs += ds2;
-          Ds[r * LDH + j] = __float2bfloat16(ds1 + ds2);
-          Pb[r * LDH + j] = __float2bfloat16(p2);
-        }
-        db_r += row_sum(rs);
-      }
-      __syncthreads();
-
-      mm_ab_acc(Ds, Qo, dq);
-      mm_ab_acc(Pb, Go, dvv);
-      __syncthreads();  // before the next o tile overwrites its inputs
-    }
-
-    store_acc(dq, S);
-    store_acc(dvv, D1);
-    __syncthreads();
-    {
-      const size_t row = (frame + a0 + r) * D + h * HD + c0;
+    for (int half = 0; half < 2; ++half) {
+      const size_t at = (tok0 + 8 * half) * D + h * HD + cq;
 #pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        dqk[row + c] = __float2bfloat16(S[r * LDF + c0 + c] * scale);
-        dv[row + c] = __float2bfloat16(D1[r * LDF + c0 + c]);
+      for (int j = 0; j < 8; ++j) {
+        const int i = 4 * j + 2 * half;
+        *reinterpret_cast<__nv_bfloat162*>(dqk + at + 8 * j) =
+            __floats2bfloat162_rn(aq.d[i] * scale, aq.d[i + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
+            __floats2bfloat162_rn(av.d[i], av.d[i + 1]);
       }
     }
   }
-
-  if ((threadIdx.x & 3) == 0) {
-    const int t = a0 + r;
-    if (t < n0)
-      db0[(size_t)b * n0 + t] = db_r;
-    else
-      db1[(size_t)b * (N - n0) + t - n0] = db_r;
+  bs0 = quad_sum(bs0);
+  bs1 = quad_sum(bs1);
+  if ((lane & 3) == 0) {
+    const int t = me.row + r;  // t and t + 8 lie on one side
+    float* out = t < n0 ? db0 + (size_t)b * n0 + t : db1 + (size_t)b * n1 + (t - n0);
+    out[0] = bs0;
+    out[8] = bs1;
   }
 }
 
@@ -241,28 +266,23 @@ extern "C" int pram_cross_attention_bwd(const void* qk, const void* v,
                                         void* db0, void* db1, void* stats,
                                         int B, int N, int n0, int heads,
                                         float scale, void* stream) {
-  // stats: f32 scratch [3, B, heads, N]
-  if (n0 <= 0 || n0 >= N || n0 % T != 0 || (N - n0) % T != 0 ||
+  // stats: f32 scratch [3, B, heads, N]; qk, v, g 16-byte aligned
+  if (n0 <= 0 || n0 >= N || n0 % TR != 0 || (N - n0) % TR != 0 ||
       heads * HD != D)
     return (int)cudaErrorInvalidValue;
+  Maps maps;
+  if (!make_map(&maps.qk, qk, D, N, B, D, (size_t)N * D) ||
+      !make_map(&maps.v, v, D, N, B, D, (size_t)N * D) ||
+      !make_map(&maps.g, g, D, N, B, D, (size_t)N * D))
+    return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
-  cudaError_t err = cudaFuncSetAttribute(
-      stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)STATS_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(grad_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)GRAD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  stats_kernel<<<dim3(N / T, heads, B), NTHREADS, STATS_SMEM, s>>>(
-      (const bf16*)qk, (const bf16*)v, (const float*)bias0,
-      (const float*)bias1, (const bf16*)g, (float*)stats, B, N, n0, heads,
-      scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  grad_kernel<<<dim3(N / T, B), NTHREADS, GRAD_SMEM, s>>>(
-      (const bf16*)qk, (const bf16*)v, (const float*)bias0,
-      (const float*)bias1, (const bf16*)g, (const float*)stats, (bf16*)dqk,
-      (bf16*)dv, (float*)db0, (float*)db1, B, N, n0, heads, scale);
-  return (int)cudaGetLastError();
+  const Bias kb{(const float*)bias0, (const float*)bias1, n0};
+  const int tiles = (N + BR - 1) / BR;
+  int err = launch(stats_kernel, dim3(tiles, heads, B), THREADS,
+                   BWD_STATS_SMEM, s, maps, kb, (float*)stats, N, n0, heads,
+                   scale);
+  if (err) return err;
+  return launch(grad_kernel, dim3(tiles, B), GRAD_THREADS, Smem::BYTES, s, maps, kb,
+                (const float*)stats, (bf16*)dqk, (bf16*)dv, (float*)db0,
+                (float*)db1, N, n0, heads, scale);
 }

@@ -6,8 +6,10 @@
 projections recomputed by the caller (``ops/train_vjp.py``) and the
 messages' cotangent, and return the cotangents of the projections, the
 rotary tables and the key biases. A CPU tensor takes the ``*_plain``
-version; a CUDA tensor launches ``csrc/attention_bwd.cu`` or
-``csrc/cross_attention_bwd.cu`` or raises.
+version; a CUDA tensor launches ``csrc/attention_bwd.cu`` (a pack of the
+rotated q, k and v into a scratch, a statistics pass, a gradient pass) or
+``csrc/cross_attention_bwd.cu`` (a statistics pass, a gradient pass), or
+raises. Each call counts one launch.
 
 ``qkv`` is in the port's layout, the torch ``Linear`` output of the flax
 kernel: column ``(head * head_dim + i) * 3 + c`` for c in (q, k, v), and
@@ -108,8 +110,10 @@ def self_attention_bwd(qkv, cos, sin, key_bias, g, scale, heads, splits=None):
     check_tensor(cos, "cos", (b, n, KERNEL_HEAD_DIM), f32, dev)
     check_tensor(sin, "sin", (b, n, KERNEL_HEAD_DIM), f32, dev)
     check_tensor(key_bias, "key_bias", (b, n), f32, dev)
-    if g.data_ptr() % 16:
-        raise ValueError("g must be 16-byte aligned")
+    for name, t in (("qkv", qkv), ("g", g), ("cos", cos), ("sin", sin)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    packed = torch.empty_like(qkv)
     dqkv = torch.empty_like(qkv)
     dcos = torch.empty_like(cos)
     dsin = torch.empty_like(sin)
@@ -118,7 +122,7 @@ def self_attention_bwd(qkv, cos, sin, key_bias, g, scale, heads, splits=None):
     side_lengths = (ctypes.c_int * len(sides))(*sides)
     check_status(
         library().pram_self_attention_bwd(
-            ptr(qkv), ptr(cos), ptr(sin), ptr(key_bias), ptr(g), ptr(dqkv),
+            ptr(qkv), ptr(cos), ptr(sin), ptr(key_bias), ptr(g), ptr(packed), ptr(dqkv),
             ptr(dcos), ptr(dsin), ptr(dbias), ptr(stats), b, n, heads,
             ctypes.c_float(scale), ctypes.cast(side_lengths, ctypes.c_void_p),
             len(sides), stream_of(dev),

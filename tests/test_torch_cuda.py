@@ -607,8 +607,15 @@ def _check_bwd(got, ref, n_bf16):
         assert _rel_err(a, r) <= (0.02 if i < n_bf16 else 0.01), i
 
 
-@pytest.mark.parametrize("b,splits", [(32, (512,)), (2, (512, 1024)), (3, (64, 192))])
+def _bit_equal(got, again):
+    return all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("b,splits", [(32, (512,)), (2, (512, 1024)), (3, (64, 192)), (2, (192,))])
 def test_self_attention_bwd_kernel(dev, b, splits):
+    """Kernel 13 at training's shape, GML's splits, sides of 64 and 192 (a
+    CTA's two 64-row warpgroups on two sides) and 192 tokens (a CTA with one
+    warpgroup), with a fully masked side; two launches give the same bits."""
     n = sum(splits)
     g = torch.Generator().manual_seed(n + 7)
     qkv = _rand(g, b, n, 768).to(dev, torch.bfloat16)
@@ -617,6 +624,7 @@ def test_self_attention_bwd_kernel(dev, b, splits):
     sin = torch.sin(ang).repeat_interleave(2, -1).to(dev)
     mask = torch.rand(b, n, generator=g) > 0.2
     mask[1, splits[0]:] = False  # padded tokens to the end of the frame
+    mask[0, :splits[0]] = False  # a fully masked side: uniform weights
     kb = attention.mask_to_bias(mask, b, n, "cpu").to(dev)
     args = (qkv, cos, sin, kb, _rand(g, b, n, 256).to(dev, torch.bfloat16), 64**-0.5, 4)
     before = attention_bwd.LAUNCHES["self_attention_bwd"]
@@ -624,16 +632,22 @@ def test_self_attention_bwd_kernel(dev, b, splits):
     torch.cuda.synchronize()
     assert attention_bwd.LAUNCHES["self_attention_bwd"] == before + 1
     _check_bwd(got, attention_bwd.self_attention_bwd_plain(*args, splits=splits), 1)
+    assert _bit_equal(attention_bwd.self_attention_bwd(*args, splits=splits), got)
 
 
-@pytest.mark.parametrize("b,n0,n1", [(2, 128, 192), (4, 512, 1024)])
+@pytest.mark.parametrize("b,n0,n1", [(2, 128, 192), (4, 512, 1024), (3, 64, 192), (2, 192, 64), (2, 64, 128)])
 def test_cross_attention_bwd_kernel(dev, b, n0, n1):
+    """Kernel 14 at GML's sides and sides of 64 and 192 both ways (a CTA's
+    two warpgroups on the two sides) and 64 + 128 (a CTA with one
+    warpgroup), with a fully masked side of each; two launches give the
+    same bits."""
     g = torch.Generator().manual_seed(n0 + n1 + 7)
     n = n0 + n1
     qk, v, gg = (_rand(g, b, n, 256).to(dev, torch.bfloat16) for _ in range(3))
     m0 = torch.rand(b, n0, generator=g) > 0.1
     m1 = torch.rand(b, n1, generator=g) > 0.3
     m1[1] = False  # an all-masked key side
+    m0[0] = False
     b0 = attention.mask_to_bias(m0, b, n0, "cpu").to(dev)
     b1 = attention.mask_to_bias(m1, b, n1, "cpu").to(dev)
     args = (qk, v, b0, b1, gg, 64**-0.5, 4, n0)
@@ -642,6 +656,7 @@ def test_cross_attention_bwd_kernel(dev, b, n0, n1):
     torch.cuda.synchronize()
     assert attention_bwd.LAUNCHES["cross_attention_bwd"] == before + 1
     _check_bwd(got, attention_bwd.cross_attention_bwd_plain(*args), 2)
+    assert _bit_equal(attention_bwd.cross_attention_bwd(*args), got)
 
 
 @pytest.mark.parametrize("tokens", [96, 16384])

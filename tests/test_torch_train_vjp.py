@@ -6,7 +6,10 @@ XLA reference. Both sides get the same numpy-seeded inputs.
 
 - The plain versions of kernels 13, 14 and 15 against
   ``fused_*_bwd(..., interpret=True)`` in f32, within 1e-5 of each
-  output's scale: the same arithmetic, summed in another order.
+  output's scale: the same arithmetic, summed in another order. For 13
+  and 14 also on the CUDA kernels' edge cases (unequal sides, a fully
+  masked side), since the plain versions are the kernels' oracle on the
+  card.
 - The ``torch.autograd.Function`` s against ``jax.vjp`` of
   ``pram_tpu.ops.train_vjp``, the weights carried between the flax layout
   (and the JAX kernel's permuted qkv) and the port's: in f32 within 1e-5
@@ -65,13 +68,14 @@ def _from_permuted(qkv):
     ).reshape(*lead, 3 * D)
 
 
-@pytest.mark.parametrize("splits", [(64,), (32, 32)])
-def test_self_attention_bwd_plain_matches_pallas(splits):
+def _self_bwd_matches_pallas(splits, masked=False):
     rng = np.random.RandomState(0)
     n = sum(splits)
     qkv = rng.randn(B, n, 3 * D).astype(np.float32) * 0.5
     cos, sin = rng.rand(B, n, HD).astype(np.float32), rng.rand(B, n, HD).astype(np.float32)
     bias, g = _bias(rng, B, n), rng.randn(B, n, D).astype(np.float32)
+    if masked:  # a fully masked side: uniform weights over its keys
+        bias[1, :splits[0]] = -1e9
     ref = abp.fused_self_attention_bwd(
         jnp.asarray(_to_permuted(qkv)), jnp.asarray(cos), jnp.asarray(sin), jnp.asarray(bias),
         jnp.asarray(g), SCALE, HEADS, splits, interpret=True,
@@ -82,19 +86,41 @@ def test_self_attention_bwd_plain_matches_pallas(splits):
         _close(a.numpy(), r, 1e-5, name)
 
 
-def test_cross_attention_bwd_plain_matches_pallas():
+@pytest.mark.parametrize("splits", [(64,), (32, 32)])
+def test_self_attention_bwd_plain_matches_pallas(splits):
+    _self_bwd_matches_pallas(splits)
+
+
+@pytest.mark.parametrize("splits,masked", [((16, 48), False), ((16, 48), True), ((64,), True)])
+def test_self_attention_bwd_plain_matches_pallas_edges(splits, masked):
+    """The CUDA kernel's oracle on its edge cases, at the test's width:
+    unequal sides (the card's (64, 192)) and a fully masked side."""
+    _self_bwd_matches_pallas(splits, masked)
+
+
+def _cross_bwd_matches_pallas(n0, n1, masked_side=1):
     rng = np.random.RandomState(1)
-    n0, n1 = 32, 64
     n = n0 + n1
     qk = rng.randn(B, n, D).astype(np.float32) * 0.5
     v, g = rng.randn(B, n, D).astype(np.float32), rng.randn(B, n, D).astype(np.float32)
     b0, b1 = _bias(rng, B, n0), _bias(rng, B, n1)
-    b1[1] = -1e9  # an all-masked key side
+    (b0, b1)[masked_side][1] = -1e9  # an all-masked key side
     args = (qk, v, b0, b1, g)
     ref = abp.fused_cross_attention_bwd(*(jnp.asarray(a) for a in args), SCALE, HEADS, n0, interpret=True)
     got = attention_bwd.cross_attention_bwd(*(T(a) for a in args), SCALE, HEADS, n0)
     for name, a, r in zip(("dqk", "dv", "db0", "db1"), got, ref):
         _close(a.numpy(), r, 1e-5, name)
+
+
+def test_cross_attention_bwd_plain_matches_pallas():
+    _cross_bwd_matches_pallas(32, 64)
+
+
+@pytest.mark.parametrize("n0,n1,masked_side", [(64, 32, 0), (16, 48, 0), (48, 16, 1)])
+def test_cross_attention_bwd_plain_matches_pallas_edges(n0, n1, masked_side):
+    """The CUDA kernel's oracle with n0 != n1 both ways and either side
+    fully masked."""
+    _cross_bwd_matches_pallas(n0, n1, masked_side)
 
 
 def _mlp_weights(rng, d=D, dh=2 * D):
