@@ -121,18 +121,25 @@ Phases, each printed with its elapsed seconds:
                 kernels 16-19 against their plain versions on the card, on
                 the real inputs of one uncounted int8 pipeline pass of the
                 32 noisy queries: the int8 MLP (16) at 32 x 512 and 32 x 1536
-                tokens, the int8 self-attention projection (17) at 32 x 512
-                and at GML's splits, the cross-attention one at 32 x (512 +
-                1024), the int8 conv (18) on each of the extractor's 14
-                int8 3x3 layers with both tails; the conv pair (19) on the
-                float extractor's conv3a + conv3b at 32 x 120 x 160; the
-                yardsticks (SDPA, cuDNN).
+                tokens, the int8 self-attention (17) at 32 x 512 and at
+                GML's splits, the cross-attention one at 32 x (512 + 1024),
+                two launches of each bit-equal, one call of each counted
+                (the s8 pass and the message pass; no rotate launch), and
+                their s8 projection pass (csrc/proj_int8.cu) alone against
+                project_int8_plain (equal but for one-bf16-step ties, the
+                share printed; two launches bit-equal), timed beside its
+                bound, torch._int_mm of the same s8 operands and F.linear
+                of the same bf16 projection, and each form's launches by
+                torch.profiler; the int8 conv (18) on each of
+                the extractor's 14 int8 3x3 layers with both tails; the
+                conv pair (19) on the float extractor's conv3a + conv3b at
+                32 x 120 x 160; the yardsticks (SDPA, cuDNN).
 19. int8 slice  RenderedGuard.recall on the 32 noisy queries through the
-                int8 path, counted: kernels 16, 17 (self, cross) and 18
-                exactly 33, 24, 9 and 14 launches (12 at the TPU kernel's
-                gates, conv2a and convPa_3 with the XLA route's tail), 1, 2
-                and 5 none, 3, 4, 6-9 as on the float image slice;
-                recall@5cm/5deg 1.0; timed by stage.
+                int8 path, counted: kernels 16, 17 (self, cross), 17's s8
+                pass and 18 exactly 33, 24, 9, 33 and 14 launches (12 at
+                the TPU kernel's gates, conv2a and convPa_3 with the XLA
+                route's tail), 1, 2 and 5 none, 3, 4, 6-9 as on the float
+                image slice; recall@5cm/5deg 1.0; timed by stage.
 20. int8 A/B    the int8 extractor's kernel path against its plain path on
                 4 views (the extraction A/B bounds in bf16), and against the
                 float extractor (descriptor cosine >= 0.99).
@@ -282,6 +289,22 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def launch_ms(torch, fn, n: int = 10) -> dict:
+    """Device ms a call of each kernel that ``fn`` launches, by
+    torch.profiler over ``n`` calls after one warm-up: free of the host's
+    time, which bounds a call timed by events when its wrapper's host work
+    outlasts its kernels."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {(e.key.split("::")[1].split("(")[0] if "::" in e.key else e.key[:32]):
+            round(e.device_time_total / n / 1e3, 4)
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
 def bound_ms(n_bytes: float, ops: float, peak_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops * 1e3
@@ -360,6 +383,19 @@ def check_projection(name: str, got, ref, pre=None, rot_cols: int = 0) -> float:
     return err
 
 
+def require_no_spills(build, sources) -> None:
+    """Log the registers and spills ptxas reported for every kernel of
+    ``sources`` when the library was built, and fail on a spill."""
+    for src in sources:
+        report = build.ptxas_report(src)
+        require(len(report) > 0, f"no ptxas report of {src}")
+        for k in report:
+            log(f"ptxas {src} {k['kernel']}: {k['registers']} registers at launch, spilled "
+                f"{k['spill_stores']} bytes stored / {k['spill_loads']} loaded"
+                + "".join(f"; {note}" for note in k["notes"]))
+            require(k["spill_stores"] == 0 and k["spill_loads"] == 0, f"{src} {k['kernel']} spills registers")
+
+
 def main() -> int:
     import argparse
 
@@ -429,6 +465,7 @@ def main() -> int:
         mlp_bwd,
         nms,
         pnp,
+        quant,
         refine,
         sampling,
         sinkhorn,
@@ -448,9 +485,10 @@ def main() -> int:
     ada_kernels = ("self_attention_qkv", "cross_attention_packed", "self_attention_qkv_blocked")
     # kernels 13-15: the backward kernels, on the training slice only (14 on no path)
     train_kernels = ("self_attention_bwd", "cross_attention_bwd", "residual_mlp_bwd")
-    # kernels 16-19: the int8 image slice's (16-18) and the conv pair (19, on no path)
+    # kernels 16-19: the int8 image slice's (16-18) and the conv pair (19, on
+    # no path), and the s8 pass that both forms of 17 launch
     int8_kernels = ("residual_mlp_int8", "self_attention_int8", "cross_attention_int8",
-                    "conv3x3_int8", "fused_conv_pair")
+                    "conv3x3_int8", "fused_conv_pair", "projection_int8")
     # the standalone projection wrapper, which no path calls: kernels 1 and 5
     # launch the pass from their C entries, counted as theirs
     pass_only = ("projection",)
@@ -1545,27 +1583,7 @@ def main() -> int:
     # the backward passes' registers and spills, as ptxas reported them when
     # the library was built: the gradient passes hold their accumulators
     # beside an o tile's scores and must not spill
-    for src in ("attention_bwd.cu", "cross_attention_bwd.cu"):
-        report = _build.ptxas_report(src)
-        require(len(report) > 0, f"no ptxas report of {src}")
-        for k in report:
-            log(f"ptxas {src} {k['kernel']}: {k['registers']} registers at launch, spilled "
-                f"{k['spill_stores']} bytes stored / {k['spill_loads']} loaded"
-                + "".join(f"; {note}" for note in k["notes"]))
-            require(k["spill_stores"] == 0 and k["spill_loads"] == 0, f"{src} {k['kernel']} spills registers")
-
-    def launch_ms(fn, n=10):
-        """Device ms a call of each kernel that ``fn`` launches, by
-        torch.profiler over ``n`` calls after one warm-up."""
-        fn()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        return {(e.key.split("::")[1].split("(")[0] if "::" in e.key else e.key[:32]):
-                round(e.device_time_total / n / 1e3, 4)
-                for e in prof.key_averages() if e.device_time_total > 0}
+    require_no_spills(_build, ("attention_bwd.cu", "cross_attention_bwd.cu"))
 
     def check_outputs(name, got, ref, names, n_bf16):
         """Each output against the plain version's: the first n_bf16 (bf16)
@@ -1684,7 +1702,7 @@ def main() -> int:
     # where kernel 13's time goes: its pack, statistics and gradient launches
     for name, fn in (("SegNetViT", lambda: attention_bwd.self_attention_bwd(*a13)),
                      ("GML", lambda: attention_bwd.self_attention_bwd(*a13g, splits=gsp))):
-        log(f"self_attention_bwd ({name}) by launch (device ms a call, torch.profiler): {json.dumps(launch_ms(fn))}")
+        log(f"self_attention_bwd ({name}) by launch (device ms a call, torch.profiler): {json.dumps(launch_ms(torch, fn))}")
     with torch.no_grad():
         cb = gml.cross_attn[0]
         gy = gml_l0["y"]
@@ -1718,7 +1736,7 @@ def main() -> int:
     exp14 = 6.0 * gb * heads * gn0 * gn1
     log(f"cross_attention_bwd: bound {bnd:.4f} ms ({by}); exponentials {exp14 / 1e9:.3f} G, "
         f"{exp14 / EXP_PER_S * 1e3:.4f} ms at {EXP_PER_S / 1e12:.2f} T/s; by launch (device ms a call, "
-        f"torch.profiler): {json.dumps(launch_ms(lambda: attention_bwd.cross_attention_bwd(*a14)))}")
+        f"torch.profiler): {json.dumps(launch_ms(torch, lambda: attention_bwd.cross_attention_bwd(*a14)))}")
     rows["cross_attention_bwd"] = dict(
         name="cross_attention_bwd", route="cuda", source="pram_tpu_torch/csrc/cross_attention_bwd.cu",
         replaces="pram_tpu/ops/attention_bwd_pallas.py:274",
@@ -1879,23 +1897,69 @@ def main() -> int:
         log(f"residual_mlp_int8: {mlp_ms[512]:.4f} ms at {batch} x 512 tokens, {mlp_ms[1536]:.4f} ms at "
             f"{batch} x 1536")
 
-        # kernel 17, self-attention: SegNetViT (32 x 512) and GML's splits
-        self_ms = {}
+        # kernel 17, self-attention: SegNetViT (32 x 512) and GML's splits;
+        # its s8 pass alone (csrc/proj_int8.cu, on the weights in kernel 12's
+        # block order, q and k rotated) against project_int8_plain, two
+        # launches bit-equal, timed beside its bound and two yardsticks the
+        # port never calls: torch._int_mm of the same s8 operands (the
+        # product alone) and cuBLAS's F.linear of the same bf16 projection
+        def pass_yardsticks(x_, wq_, ws_, b_):
+            xq_ = quant.quant_rows(x_)[0].to(torch.int8).reshape(-1, 256)
+            wd_ = (wq_.float() * ws_.float()[:, None]).to(bf16)
+            bd_ = b_.to(bf16)
+            return dict(proj_int_mm_ms=cuda_ms(torch, lambda: torch._int_mm(xq_, wq_.t())),
+                        proj_linear_ms=cuda_ms(torch, lambda: F.linear(x_, wd_, bd_)))
+
+        def count_one(fn, want_counts, what):
+            reset_counts()
+            fn()
+            torch.cuda.synchronize()
+            got = {k: v for k, v in read_counts().items() if v}
+            log(f"{what}: launches of one call {got}")
+            require(got == want_counts, f"{what}: one call launched {got}, expected {want_counts}")
+
+        require_no_spills(_build, ("proj_int8.cu", "proj_bf16.cu"))
+        self_ms, self_pass = {}, {}
         for label, pred in (("512", lambda a, kw: a[9] is None),
                             ("(512, 1024)", lambda a, kw: a[9] is not None)):
             s8 = first("self_attention_int8", pred)[0]
-            err = check_scaled(f"self_attention_int8 ({batch} x {label})", attention.self_attention_int8(*s8),
+            msg8 = attention.self_attention_int8(*s8)
+            err = check_scaled(f"self_attention_int8 ({batch} x {label})", msg8,
                                attention.self_attention_int8_plain(*s8), INT8_TOL)
+            require(torch.equal(attention.self_attention_int8(*s8), msg8),
+                    f"self_attention_int8 ({batch} x {label}): two launches differ")
             self_ms[label] = cuda_ms(torch, lambda: attention.self_attention_int8(*s8))
+            xs8, wq8, ws8, b8, cos8, sin8 = s8[:6]
+            order8 = attention.qkv_block_order(256, dev)
+            p8 = (xs8, wq8.index_select(0, order8), ws8.float().index_select(0, order8),
+                  b8.float().index_select(0, order8))
+            got8 = attention.project_int8(*p8, cos8, sin8, rotary_cols=512)
+            check_projection(f"s8 projection (kernel 17 self, {batch} x {label}, 768 columns, rotary)", got8,
+                             attention.project_int8_plain(*p8, cos8, sin8, rotary_cols=512),
+                             attention.project_int8_plain(*p8), 512)
+            require(torch.equal(attention.project_int8(*p8, cos8, sin8, rotary_cols=512), got8),
+                    f"s8 projection (kernel 17 self, {label}): two launches differ")
+            tok8 = xs8.shape[0] * xs8.shape[1]
+            p_bnd, p_by = bound_ms(tok8 * (256 * 2 + 2 * 64 * 4 + 768 * 2) + 768 * (256 + 8),
+                                   2.0 * tok8 * 256 * 768, INT8_TENSOR_OPS)
+            self_pass[label] = dict(
+                proj_ms=cuda_ms(torch, lambda: attention.project_int8(*p8, cos8, sin8, rotary_cols=512)),
+                proj_plain_epilogue_ms=cuda_ms(torch, lambda: attention.project_int8(*p8)),
+                proj_bound_ms=p_bnd, **pass_yardsticks(*p8))
+            log(f"s8 projection (kernel 17 self, {batch} x {label}): {self_pass[label]['proj_ms']:.4f} ms "
+                f"({self_pass[label]['proj_plain_epilogue_ms']:.4f} without the rotary) against its bound "
+                f"{p_bnd:.4f} ms ({p_by}); torch._int_mm {self_pass[label]['proj_int_mm_ms']:.4f} ms, "
+                f"F.linear {self_pass[label]['proj_linear_ms']:.4f} ms")
+        count_one(lambda: attention.self_attention_int8(*s8),
+                  {"self_attention_int8": 1, "projection_int8": 1},
+                  "self_attention_int8 (the s8 pass and kernel 12's rotated message pass; no rotate launch)")
         xs8, wq8, ws8, b8, cos8, sin8, kb8, sc8, heads8, splits8 = s8
         n8 = xs8.shape[1]
         hd8 = 256 // heads8
-        qkv8 = attention.int8_projection_plain(xs8, wq8, ws8, b8)
-        qkv8 = qkv8.reshape(batch, n8, heads8, hd8, 3).permute(0, 2, 1, 3, 4)
-        enc8 = (cos8[:, None], sin8[:, None])
-        q8 = attention.apply_rotary(enc8, qkv8[..., 0].float()).to(bf16).contiguous()
-        k8 = attention.apply_rotary(enc8, qkv8[..., 1].float()).to(bf16).contiguous()
-        v8 = qkv8[..., 2].contiguous()
+        order8 = attention.qkv_block_order(256, dev)
+        qkv8 = attention.project_int8_plain(xs8, wq8.index_select(0, order8), ws8.float().index_select(0, order8),
+                                            b8.float().index_select(0, order8), cos8, sin8, rotary_cols=512)
+        q8, k8, v8 = (t.reshape(batch, n8, heads8, hd8).transpose(1, 2).contiguous() for t in qkv8.split(256, -1))
         side8 = torch.arange(n8, device=dev) >= splits8[0]
         am8 = (side8[:, None] == side8[None, :])[None, None] & (kb8 > -0.5)[:, None, None, :]
         lib_ms = cuda_ms(torch, lambda: sdpa(q8, k8, v8, attn_mask=am8, scale=sc8))
@@ -1908,20 +1972,46 @@ def main() -> int:
             replaces="pram_tpu/ops/attention_pallas.py:780",
             launches=None, max_abs_err=err, ms=self_ms["(512, 1024)"],
             plain_ms=cuda_ms(torch, lambda: attention.self_attention_int8_plain(*s8), iters=5),
-            bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+            bound_ms=bnd, bound_by=by, library_ms=lib_ms, ms_32x512=self_ms["512"],
+            proj_ms_32x512=self_pass["512"]["proj_ms"], **self_pass["(512, 1024)"],
         )
+        by_launch = launch_ms(torch, lambda: attention.self_attention_int8(*s8))
+        rows["self_attention_int8"]["proj_device_ms"] = by_launch["proj_s8_kernel"]
         log(f"self_attention_int8: {self_ms['512']:.4f} ms at {batch} x 512, {self_ms['(512, 1024)']:.4f} ms "
-            f"at {batch} x (512 + 1024)")
+            f"at {batch} x (512 + 1024); SDPA {lib_ms:.4f} ms, SDPA + F.linear "
+            f"{lib_ms + self_pass['(512, 1024)']['proj_linear_ms']:.4f} ms; by launch at {batch} x (512 + "
+            f"1024) (device ms a call, torch.profiler): {json.dumps(by_launch)}")
 
-        # kernel 17, cross-attention at GML's 32 x (512 + 1024)
+        # kernel 17, cross-attention at GML's 32 x (512 + 1024); its s8 pass
+        # alone ([to_qk | to_v] rows into qk and v) the same way
         c8 = first("cross_attention_int8", lambda a, kw: True)[0]
-        err = check_scaled(f"cross_attention_int8 ({batch} x (512 + 1024))",
-                           cross_attention.cross_attention_int8(*c8),
+        cmsg8 = cross_attention.cross_attention_int8(*c8)
+        err = check_scaled(f"cross_attention_int8 ({batch} x (512 + 1024))", cmsg8,
                            cross_attention.cross_attention_int8_plain(*c8), INT8_TOL)
+        require(torch.equal(cross_attention.cross_attention_int8(*c8), cmsg8),
+                "cross_attention_int8: two launches differ")
+        count_one(lambda: cross_attention.cross_attention_int8(*c8),
+                  {"cross_attention_int8": 1, "projection_int8": 1},
+                  "cross_attention_int8 (the s8 pass and kernel 11's message pass)")
         xc, wqk8, wsqk8, bqk8, wv8, wsv8, bv8, bb0, bb1, csc, cheads, cn0 = c8
         cn1 = xc.shape[1] - cn0
-        qkc = attention.int8_projection_plain(xc, wqk8, wsqk8, bqk8).reshape(batch, -1, cheads, 64).transpose(1, 2)
-        vc = attention.int8_projection_plain(xc, wv8, wsv8, bv8).reshape(batch, -1, cheads, 64).transpose(1, 2)
+        pc = (xc, torch.cat([wqk8, wv8]), torch.cat([wsqk8.float(), wsv8.float()]),
+              torch.cat([bqk8.float(), bv8.float()]))
+        gotc = torch.cat(attention.project_int8(*pc, split=256), -1)
+        check_projection(f"s8 projection (kernel 17 cross, {batch} x (512 + 1024), 512 columns into qk and v)",
+                         gotc, attention.project_int8_plain(*pc))
+        require(torch.equal(torch.cat(attention.project_int8(*pc, split=256), -1), gotc),
+                "s8 projection (kernel 17 cross): two launches differ")
+        tokc = batch * (cn0 + cn1)
+        p_bnd, p_by = bound_ms(tokc * (256 * 2 + 512 * 2) + 512 * (256 + 8), 2.0 * tokc * 256 * 512,
+                               INT8_TENSOR_OPS)
+        cross_pass = dict(proj_ms=cuda_ms(torch, lambda: attention.project_int8(*pc, split=256)),
+                          proj_bound_ms=p_bnd, **pass_yardsticks(*pc))
+        log(f"s8 projection (kernel 17 cross): {cross_pass['proj_ms']:.4f} ms against its bound {p_bnd:.4f} ms "
+            f"({p_by}); torch._int_mm {cross_pass['proj_int_mm_ms']:.4f} ms, F.linear "
+            f"{cross_pass['proj_linear_ms']:.4f} ms")
+        qkc, vc = (t.reshape(batch, -1, cheads, 64).transpose(1, 2)
+                   for t in attention.project_int8_plain(*pc).split(256, -1))
         qc0, qc1 = qkc[:, :, :cn0].contiguous(), qkc[:, :, cn0:].contiguous()
         vc0, vc1 = vc[:, :, :cn0].contiguous(), vc[:, :, cn0:].contiguous()
         mc0, mc1 = (bb0 > -0.5)[:, None, None, :], (bb1 > -0.5)[:, None, None, :]
@@ -1930,7 +2020,6 @@ def main() -> int:
             sdpa(qc0, qc1, vc1, attn_mask=mc1, scale=csc)
             sdpa(qc1, qc0, vc0, attn_mask=mc0, scale=csc)
 
-        tokc = batch * (cn0 + cn1)
         c_bytes = 2 * tokc * 256 * 2 + 2 * 256 * 256 + 4 * 256 * 4 + tokc * 4
         bnd, by = bound_mixed_ms(c_bytes, 2 * tokc * 256 * 512, 3 * 2 * batch * cheads * 64 * cn0 * cn1)
         rows["cross_attention_int8"] = dict(
@@ -1939,8 +2028,14 @@ def main() -> int:
             launches=None, max_abs_err=err,
             ms=cuda_ms(torch, lambda: cross_attention.cross_attention_int8(*c8)),
             plain_ms=cuda_ms(torch, lambda: cross_attention.cross_attention_int8_plain(*c8), iters=5),
-            bound_ms=bnd, bound_by=by, library_ms=cuda_ms(torch, two_sdpa8),
+            bound_ms=bnd, bound_by=by, library_ms=cuda_ms(torch, two_sdpa8), **cross_pass,
         )
+        by_launch = launch_ms(torch, lambda: cross_attention.cross_attention_int8(*c8))
+        rows["cross_attention_int8"]["proj_device_ms"] = by_launch["proj_s8_kernel"]
+        log(f"cross_attention_int8: {rows['cross_attention_int8']['ms']:.4f} ms; two SDPA "
+            f"{rows['cross_attention_int8']['library_ms']:.4f} ms, two SDPA + F.linear "
+            f"{rows['cross_attention_int8']['library_ms'] + cross_pass['proj_linear_ms']:.4f} ms; by launch "
+            f"(device ms a call, torch.profiler): {json.dumps(by_launch)}")
 
         # kernel 18 on each int8 3x3 layer of one extraction, with both tails
         conv_calls = recorded["conv3x3_int8"]
@@ -2037,7 +2132,7 @@ def main() -> int:
                                                       "fused_stem", "nms")}
     n_rec, n_gml = guard8.rec.config.n_layers, guard8.gml.config.n_layers
     want.update(residual_mlp_int8=n_rec + 2 * n_gml, self_attention_int8=n_rec + n_gml,
-                cross_attention_int8=n_gml, conv3x3_int8=14)
+                cross_attention_int8=n_gml, projection_int8=n_rec + 2 * n_gml, conv3x3_int8=14)
     for name, count in int8_launches.items():
         require(count == want.get(name, 0),
                 f"kernel {name}: {count} launches on the int8 image slice, expected {want.get(name, 0)}")

@@ -42,6 +42,9 @@ _SIGNATURES = {
     "pram_self_attention": [_P] * 8 + [_I, _I, _I, _F, _P, _I, _P],
     # x, w, b, cos, sin, out0, out1, tokens, n_out, split, rot_cols, stream
     "pram_project_bf16": [_P] * 7 + [_L, _I, _I, _I, _P],
+    # x, wq, ws, b, cos, sin, out0, out1, tokens, n_out, split, rot_cols,
+    # stream
+    "pram_project_int8": [_P] * 8 + [_L, _I, _I, _I, _P],
     # x, msg, wp, bp, w0, b0, ln_w, ln_b, w3, b3, out, tokens, eps, is_f32,
     # stream
     "pram_residual_mlp": [_P] * 11 + [_I, _F, _I, _P],
@@ -83,9 +86,9 @@ _SIGNATURES = {
     # x, msg, wpq, wps, bp, w0q, w0s, b0, ln_w, ln_b, w3q, w3s, b3, out,
     # tokens, eps, stream
     "pram_residual_mlp_int8": [_P] * 14 + [_I, _F, _P],
-    # x, wq, ws, b, cos, sin, key_bias, qkv, qr and kr scratch, out, B, N,
-    # heads, scale, side lengths (host int array), n_sides, stream
-    "pram_self_attention_int8": [_P] * 11 + [_I, _I, _I, _F, _P, _I, _P],
+    # x, wq, ws, b, cos, sin, key_bias, qkv scratch, out, B, N, heads,
+    # scale, side lengths (host int array), n_sides, stream
+    "pram_self_attention_int8": [_P] * 9 + [_I, _I, _I, _F, _P, _I, _P],
     # x, wq, ws, b, bias0, bias1, qk and v scratch, out, B, N, n0, heads,
     # scale, stream
     "pram_cross_attention_int8": [_P] * 9 + [_I] * 4 + [_F, _P],

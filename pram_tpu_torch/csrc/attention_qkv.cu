@@ -22,9 +22,10 @@
 // warpgroups 64 x 64 tiles of qr, kr and v by TMA (three tensor maps encoded
 // here per call), and the products are wgmma m64n64k16 with S, P and O in
 // registers. In f32 (the matcher's A/B checks) they are pass::message_block
-// and pass::stats_block on the CUDA cores. Kernel 1 (csrc/attention.cu)
-// runs pass 2 alone through pram_self_attention_rotated, on the qkv its
-// projection (csrc/proj_bf16.cu) wrote with q and k already rotated.
+// and pass::stats_block on the CUDA cores. Kernels 1 (csrc/attention.cu)
+// and 17 (csrc/proj_int8.cu) run pass 2 alone through
+// pram_self_attention_rotated, on the qkv their projection pass
+// (csrc/proj_bf16.cu, csrc/proj_int8.cu) wrote with q and k rotated.
 //
 // What bounds it: at AdaGML's Aachen shape (8 frames x 4096 tokens, 4 heads
 // of 64) the QK and PV products are 137 GFLOP and the statistics' second QK
@@ -260,7 +261,7 @@ extern "C" int pram_self_attention_qkv(const void* qkv, const void* cos,
 }
 
 // The bf16 message pass alone on a qkv whose q and k are already rotated
-// (kernel 1's projection, csrc/proj_bf16.cu): q, k and v are read through
+// (the projection passes of kernels 1 and 17): q, k and v are read through
 // one tensor map of qkv [B, N, 768] at columns h * 64, 256 + h * 64 and 512
 // + h * 64. No statistics.
 extern "C" int pram_self_attention_rotated(const void* qkv,

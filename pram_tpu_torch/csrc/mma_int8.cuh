@@ -1,4 +1,4 @@
-// Warp-level pieces of the int8 kernels (16, 17, 18) and the bf16 conv tile
+// Warp-level pieces of the int8 kernels (16, 18) and the bf16 conv tile
 // (19): the mma.sync instructions and the per-row quantizer.
 //
 // s8 m16n8k32 and bf16 m16n8k16 read their operands in the same byte

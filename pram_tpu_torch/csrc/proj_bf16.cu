@@ -23,17 +23,13 @@
 // 128-byte-swizzled 32-column boxes). The two consumer warpgroups share
 // every tile, one 64-column block each: wgmma m64n64k16 over sixteen
 // k-steps, x and W both K-major in 128-byte-swizzled 64 x 64 boxes. The
-// epilogue stays in registers: the bias (the slice's, kept in shared
-// memory) in f32, one rounding to bf16 and, on the q and k columns, the
-// rotary in f32 from that bf16 value, each product and sum rounded once
-// (__fmul_rn / __fadd_rn, no fma: the arithmetic of
-// attention_qkv.cu:rotate_kernel and of the plain version). A wgmma
-// accumulator holds the column pairs (2t, 2t + 1) in one thread, so the
-// interleaved-pair rotation needs no shuffle. cos and sin (twice x's bytes)
-// come by TMA with x: read by 8-byte loads in the epilogue instead, they
-// kept the warpgroups waiting on the load unit. The bf16
-// blocks go to shared memory in the swizzled layout (conflict-free) and out
-// by TMA stores, whole 128-byte rows. The CTAs of one tile index and
+// epilogue (proj_epilogue.cuh, shared with kernel 17's s8 pass) stays in
+// registers: the bias (the slice's, kept in shared memory) in f32, one
+// rounding to bf16 and, on the q and k columns, the rotary in f32 from
+// that bf16 value. cos and sin (twice x's bytes) come by TMA with x: read
+// by 8-byte loads in the epilogue instead, they kept the warpgroups
+// waiting on the load unit. The bf16 blocks go to shared memory in the
+// swizzled layout and out by TMA stores. The CTAs of one tile index and
 // different slices are neighbours in blockIdx, so they read the same x
 // tiles at about the same time and all but the first read hit L2.
 //
@@ -49,24 +45,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "attention_wgmma.cuh"
+#include "proj_epilogue.cuh"
 
 namespace {
 
+using proj::CS_BOX;
+using proj::CS_BYTES;
+using proj::CW;
+using proj::D;
 using wg::HD;
 using wg::TILE_BYTES;
 using wg::TR;
 typedef __nv_bfloat16 bf16;
 
-constexpr int D = 256;                   // input width
 constexpr int KB = D / HD;               // 64-column boxes along the input
 constexpr int NC = 2 * HD;               // output columns of a CTA
 constexpr int STAGES = 2;                // ring of x (and cos / sin) tiles
 constexpr int WG_THREADS = 128;
-constexpr int CW = 32;                   // f32 columns of a cos / sin box
 constexpr uint32_t X_BYTES = KB * TILE_BYTES;       // one 64-token x tile
-constexpr uint32_t CS_BOX = CW * TR * 4;            // 32 x 64 f32, 8 KB
-constexpr uint32_t CS_BYTES = 4 * CS_BOX;           // cos, sin of a tile
 constexpr uint32_t W_BYTES = 2 * KB * TILE_BYTES;   // the CTA's weight slice
 constexpr size_t SMEM = 1024 + W_BYTES + STAGES * (X_BYTES + CS_BYTES) +
                         2 * TILE_BYTES + NC * sizeof(float) +
@@ -75,78 +71,6 @@ constexpr size_t SMEM = 1024 + W_BYTES + STAGES * (X_BYTES + CS_BYTES) +
 struct Maps {  // [1, rows, cols] views: x, w, out0, out1 (bf16), cos, sin (f32)
   CUtensorMap x, w, out0, out1, cos, sin;
 };
-
-// A map over [1, rows, 64] f32 whose box is 64 rows of 32 columns (128
-// bytes), 128-byte swizzled.
-inline bool make_map_f32(CUtensorMap* map, const void* base, int rows) {
-  const wg::EncodeTiled enc = wg::encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)HD, (cuuint64_t)rows, 1};
-  const cuuint64_t strides[2] = {HD * sizeof(float),
-                                 (cuuint64_t)rows * HD * sizeof(float)};
-  const cuuint32_t box[3] = {CW, TR, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// one 64 x 64 box of src (shared, swizzled) to {col, row} of map
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          const void* src, int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
-      "%4}], [%1];" ::"l"((uint64_t)map),
-      "r"(wg::saddr(src)), "r"(col), "r"(row), "r"(0)
-      : "memory");
-}
-
-__device__ __forceinline__ void store_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// waits until the committed stores have read their shared memory
-__device__ __forceinline__ void store_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-}
-
-// waits until the committed stores are complete
-__device__ __forceinline__ void store_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-// makes this thread's shared-memory writes visible to the TMA unit
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// barrier over the 128 threads of consumer warpgroup g
-__device__ __forceinline__ void group_sync(int g) {
-  asm volatile("bar.sync %0, 128;" ::"r"(g + 1) : "memory");
-}
-
-// x rounded to the nearest bf16 (ties to even) and back, as
-// __bfloat162float(__float2bfloat16(x)) for finite x, in integer operations
-// (the conversion unit issues a quarter as fast)
-__device__ __forceinline__ float round_bf16(float x) {
-  uint32_t u = __float_as_uint(x);
-  u += 0x7fffu + ((u >> 16) & 1u);
-  return __uint_as_float(u & 0xffff0000u);
-}
-
-// byte offset of element (r, c) in a 64 x 64 bf16 box, 128-byte swizzle
-__device__ __forceinline__ uint32_t swizzled(int r, int c) {
-  return (uint32_t)(r * 128 + ((((c >> 3) ^ (r & 7))) << 4) + (c & 7) * 2);
-}
-
-// byte offset of f32 element (r, e) of a 64-row tile held as two 32-column
-// boxes, 128-byte swizzle
-__device__ __forceinline__ uint32_t swizzled_f32(int r, int e) {
-  const int c = e & (CW - 1);
-  return (uint32_t)((e / CW) * CS_BOX + r * 128 + (((c >> 2) ^ (r & 7)) << 4) +
-                    (c & 3) * 4);
-}
 
 __global__ void __launch_bounds__(wg::THREADS, 1)
 proj_kernel(const __grid_constant__ Maps maps, const float* __restrict__ bias,
@@ -210,9 +134,8 @@ proj_kernel(const __grid_constant__ Maps maps, const float* __restrict__ bias,
 
   // consumers: warpgroup g takes the slice's 64-column block g of every tile
   const int g = threadIdx.x >> 7;
-  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & 31;
   const int cq = 2 * (lane & 3);
-  const int r0 = warp * 16 + (lane >> 2);  // rows r0 and r0 + 8 of a tile
   const bool leader = (threadIdx.x & (WG_THREADS - 1)) == 0;
   unsigned char* Og = Os + g * TILE_BYTES;
   const bf16* Wg = Ws + g * KB * TR * HD;
@@ -238,46 +161,25 @@ proj_kernel(const __grid_constant__ Maps maps, const float* __restrict__ bias,
     wg::mma_wait();
     wg::reg_fence(acc);
 
-    if (leader) store_wait_read();  // the last tile's block has left
-    group_sync(g);
-    const unsigned char* cs = CSs + s * CS_BYTES;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = r0 + 8 * half;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 bb = *reinterpret_cast<const float2*>(Bg + 8 * j + cq);
-        float v0 = acc.d[4 * j + 2 * half] + bb.x;
-        float v1 = acc.d[4 * j + 2 * half + 1] + bb.y;
-        if (rotary) {  // from the rounded projection
-          v0 = round_bf16(v0);
-          v1 = round_bf16(v1);
-          const uint32_t at = swizzled_f32(r, 8 * j + cq);
-          const float2 c = *reinterpret_cast<const float2*>(cs + at);
-          const float2 sv = *reinterpret_cast<const float2*>(cs + 2 * CS_BOX + at);
-          const float o0 = __fadd_rn(__fmul_rn(v0, c.x), __fmul_rn(-v1, sv.x));
-          const float o1 = __fadd_rn(__fmul_rn(v1, c.y), __fmul_rn(v0, sv.y));
-          v0 = o0;
-          v1 = o1;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(Og + swizzled(r, 8 * j + cq)) =
-            __floats2bfloat162_rn(v0, v1);
-      }
-    }
+    if (leader) proj::store_wait_read();  // the last tile's block has left
+    proj::group_sync(g);
+    proj::stage_blocks<1>(
+        [&](int, int half, int j) {
+          const float2 bb = *reinterpret_cast<const float2*>(Bg + 8 * j + cq);
+          return make_float2(acc.d[4 * j + 2 * half] + bb.x,
+                             acc.d[4 * j + 2 * half + 1] + bb.y);
+        },
+        rotary, CSs + s * CS_BYTES, Og);
     __syncwarp();
     if (lane == 0) wg::bar_arrive(&empty[s]);  // x, cos and sin of s read
-    fence_async_shared();
-    group_sync(g);
+    proj::fence_async_shared();
+    proj::group_sync(g);
     if (leader) {
-      const int c = col0 + g * HD;
-      if (c < split)
-        tma_store(&maps.out0, Og, c, t0);
-      else
-        tma_store(&maps.out1, Og, c - split, t0);
-      store_commit();
+      proj::store_block(&maps.out0, &maps.out1, Og, col0 + g * HD, t0, split);
+      proj::store_commit();
     }
   }
-  if (leader) store_wait_all();
+  if (leader) proj::store_wait_all();
 }
 
 }  // namespace
@@ -298,30 +200,14 @@ extern "C" int pram_project_bf16(const void* x, const void* w, const void* b,
       (split < n_out && out1 == nullptr))
     return (int)cudaErrorInvalidValue;
   Maps maps;
-  const int rows = (int)tokens;
-  if (!wg::make_map(&maps.x, x, D, rows, 1, D, (size_t)tokens * D) ||
-      !wg::make_map(&maps.w, w, D, n_out, 1, D, (size_t)n_out * D) ||
-      !wg::make_map(&maps.out0, out0, split, rows, 1, split,
-                    (size_t)tokens * split))
+  const int tiles = (int)(tokens / TR), slices = n_out / NC;
+  int step = 0;
+  if (!proj::make_io_maps(maps, x, cos, sin, out0, out1, (int)tokens, n_out,
+                          split, rot_cols) ||
+      !wg::make_map(&maps.w, w, D, n_out, 1, D, (size_t)n_out * D))
     return (int)cudaErrorInvalidValue;
-  maps.out1 = maps.out0;
-  maps.cos = maps.sin = maps.x;
-  if (rot_cols > 0 && (!make_map_f32(&maps.cos, cos, rows) ||
-                       !make_map_f32(&maps.sin, sin, rows)))
-    return (int)cudaErrorInvalidValue;
-  if (split < n_out &&
-      !wg::make_map(&maps.out1, out1, n_out - split, rows, 1, n_out - split,
-                    (size_t)tokens * (n_out - split)))
-    return (int)cudaErrorInvalidValue;
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  const int slices = n_out / NC;
-  const int tiles = (int)(tokens / TR);
-  const int per_slice = sms / slices < 1 ? 1 : sms / slices;
-  const int step = per_slice < tiles ? per_slice : tiles;
+  if (cudaError_t err = proj::persistent_grid(slices, tiles, &step))
+    return (int)err;
   return wg::launch(proj_kernel, dim3(slices * step), wg::THREADS, SMEM,
                     (cudaStream_t)stream, maps, (const float*)b, tiles, slices,
                     split, rot_cols);

@@ -15,7 +15,11 @@ versions of kernels 1 and 5 are built.
 
 :func:`self_attention_int8` is the same function with the projection in
 int8 (``int8=True`` of the JAX function, kernel 17): x quantized per row,
-the weights per output column, the product exact in s32.
+the weights per output column, the product exact in s32. On CUDA it is two
+launches too: the s8 projection pass ``csrc/proj_int8.cu`` (the same
+epilogue, rotary included), then kernel 12's message pass.
+:func:`project_int8` is that pass alone (also kernel 17 cross-attention's,
+with two outputs), and :func:`project_int8_plain` its plain version.
 
 Weights are in torch ``Linear`` layout: ``w_qkv [3 * d, d_in]`` whose output
 index is ``(head * head_dim + i) * 3 + c`` for c in (q, k, v), the flax
@@ -34,14 +38,22 @@ from pram_tpu_torch._build import check_status, check_tensor, library, ptr, ptr_
 from pram_tpu_torch.ops.quant import int_matmul, quant_rows
 
 # "projection" counts the standalone wrapper :func:`project` only: kernels
-# 1 and 5 launch the same pass from their C entries
-LAUNCHES = {"self_attention": 0, "self_attention_int8": 0, "projection": 0}
+# 1 and 5 launch the same pass from their C entries. "projection_int8"
+# counts every launch of the s8 pass: :func:`project_int8`'s and those of
+# kernel 17's two forms (self_attention_int8 here, cross_attention_int8 in
+# ops/cross_attention.py), whose C entries launch it before their message
+# pass.
+LAUNCHES = {"self_attention": 0, "self_attention_int8": 0, "projection": 0, "projection_int8": 0}
 
 # shapes the CUDA kernel is written for
 KERNEL_D_IN = 256
 KERNEL_HEAD_DIM = 64
 KERNEL_QUERY_TILE = 128
 KERNEL_MAX_SPLITS = 8
+# output columns of a CTA of the projection passes: n_out and rotary_cols
+# are multiples of them
+KERNEL_PROJ_SLICE = 128
+KERNEL_PROJ_INT8_SLICE = 256
 
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:
@@ -184,6 +196,37 @@ def check_aligned(**tensors) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _projection_outputs(x, n_out, b, cos, sin, rotary_cols, split, slice_cols, name):
+    """Check what the projection passes take (x ``[..., 256]`` bf16, the
+    bias, cos/sin with ``rotary_cols``, the shape) and allocate their
+    outputs: ``(b f32, split, out0, out1 or None, tokens)``."""
+    dev = x.device
+    split = n_out if split is None else split
+    b = b.to(torch.float32).contiguous()
+    check_tensor(x, "x", (*x.shape[:-1], KERNEL_D_IN), torch.bfloat16, dev)
+    check_tensor(b, "b", (n_out,), torch.float32, dev)
+    tokens = x.numel() // KERNEL_D_IN
+    if (tokens % 64 or n_out % slice_cols or rotary_cols % slice_cols or rotary_cols > n_out
+            or split % 64 or not 0 < split <= n_out):
+        raise ValueError(
+            f"{name} needs tokens % 64 == 0, n_out and rotary_cols multiples of {slice_cols} "
+            f"and split of 64; got {tokens} tokens, n_out {n_out}, rotary_cols {rotary_cols}, "
+            f"split {split}"
+        )
+    check_aligned(x=x, b=b)
+    if rotary_cols:
+        for t_name, t in (("cos", cos), ("sin", sin)):
+            check_tensor(t, t_name, (*x.shape[:-1], KERNEL_HEAD_DIM), torch.float32, dev)
+        check_aligned(cos=cos, sin=sin)
+    out0 = torch.empty((*x.shape[:-1], split), dtype=torch.bfloat16, device=dev)
+    out1 = torch.empty((*x.shape[:-1], n_out - split), dtype=torch.bfloat16, device=dev) if split < n_out else None
+    return b, split, out0, out1, tokens
+
+
+def _split_plain(y, split):
+    return y if split is None else (y[..., :split], y[..., split:])
+
+
 def project(x, w, b, cos=None, sin=None, rotary_cols=0, split=None):
     """:func:`project_plain` on the CPU; ``csrc/proj_bf16.cu`` on CUDA.
 
@@ -194,39 +237,66 @@ def project(x, w, b, cos=None, sin=None, rotary_cols=0, split=None):
     and the tokens of 64.
     """
     if x.device.type == "cpu":
-        y = project_plain(x, w, b, cos, sin, rotary_cols)
-        return y if split is None else (y[..., :split], y[..., split:])
-    dev = x.device
+        return _split_plain(project_plain(x, w, b, cos, sin, rotary_cols), split)
     n_out = w.shape[0]
-    split = n_out if split is None else split
-    b = b.to(torch.float32).contiguous()
-    check_tensor(x, "x", (*x.shape[:-1], KERNEL_D_IN), torch.bfloat16, dev)
-    check_tensor(w, "w", (n_out, KERNEL_D_IN), torch.bfloat16, dev)
-    check_tensor(b, "b", (n_out,), torch.float32, dev)
-    tokens = x.numel() // KERNEL_D_IN
-    if (tokens % 64 or n_out % 128 or rotary_cols % 128 or rotary_cols > n_out
-            or split % 64 or not 0 < split <= n_out):
-        raise ValueError(
-            f"the CUDA projection needs tokens % 64 == 0, n_out and rotary_cols multiples of "
-            f"128 and split of 64; got {tokens} tokens, n_out {n_out}, rotary_cols "
-            f"{rotary_cols}, split {split}"
-        )
-    check_aligned(x=x, w=w, b=b)
-    if rotary_cols:
-        for name, t in (("cos", cos), ("sin", sin)):
-            check_tensor(t, name, (*x.shape[:-1], KERNEL_HEAD_DIM), torch.float32, dev)
-        check_aligned(cos=cos, sin=sin)
-    out0 = torch.empty((*x.shape[:-1], split), dtype=torch.bfloat16, device=dev)
-    out1 = torch.empty((*x.shape[:-1], n_out - split), dtype=torch.bfloat16, device=dev) if split < n_out else None
+    b, split, out0, out1, tokens = _projection_outputs(
+        x, n_out, b, cos, sin, rotary_cols, split, KERNEL_PROJ_SLICE, "the CUDA projection")
+    check_tensor(w, "w", (n_out, KERNEL_D_IN), torch.bfloat16, x.device)
+    check_aligned(w=w)
     check_status(
         library().pram_project_bf16(
             ptr(x), ptr(w), ptr(b), ptr_or_null(cos if rotary_cols else None),
             ptr_or_null(sin if rotary_cols else None), ptr(out0), ptr_or_null(out1),
-            tokens, n_out, split, rotary_cols, stream_of(dev),
+            tokens, n_out, split, rotary_cols, stream_of(x.device),
         ),
         "pram_project_bf16",
     )
     LAUNCHES["projection"] += 1
+    return out0 if out1 is None else (out0, out1)
+
+
+def project_int8_plain(x, wq, ws, b, cos=None, sin=None, rotary_cols=0):
+    """``bf16((acc * rs) * ws + b)`` ``[..., n_out]`` in x's dtype, and with
+    ``rotary_cols`` its first columns rotated as :func:`project_plain`
+    rotates them (the plain version of ``csrc/proj_int8.cu``).
+
+    x is quantized per row (``quant_rows``: scales ``rs``), ``wq [n_out,
+    d_in]`` int8 carries the column scales ``ws [n_out]`` f32
+    (``quant_linear``), and ``acc`` is the exact integer product; each
+    product and the bias sum are rounded once in f32.
+    """
+    xq, xrs = quant_rows(x)
+    y = ((int_matmul(xq, wq.T) * xrs) * ws.float() + b.float()).to(x.dtype)
+    return _rotate_columns(y, cos, sin, rotary_cols) if rotary_cols else y
+
+
+def project_int8(x, wq, ws, b, cos=None, sin=None, rotary_cols=0, split=None):
+    """:func:`project_int8_plain` on the CPU; ``csrc/proj_int8.cu`` on CUDA.
+
+    x ``[..., 256]`` bf16; wq ``[n_out, 256]`` int8 and ws ``[n_out]``;
+    b ``[n_out]``; cos/sin ``[..., 64]`` f32 with ``rotary_cols``. With
+    ``split`` the result is two tensors, the columns before and from
+    ``split``. On CUDA n_out and rotary_cols are multiples of 256, split of
+    64, and the tokens of 64.
+    """
+    if x.device.type == "cpu":
+        return _split_plain(project_int8_plain(x, wq, ws, b, cos, sin, rotary_cols), split)
+    n_out = wq.shape[0]
+    b, split, out0, out1, tokens = _projection_outputs(
+        x, n_out, b, cos, sin, rotary_cols, split, KERNEL_PROJ_INT8_SLICE, "the CUDA s8 projection")
+    ws = ws.to(torch.float32).contiguous()
+    check_tensor(wq, "wq", (n_out, KERNEL_D_IN), torch.int8, x.device)
+    check_tensor(ws, "ws", (n_out,), torch.float32, x.device)
+    check_aligned(wq=wq, ws=ws)
+    check_status(
+        library().pram_project_int8(
+            ptr(x), ptr(wq), ptr(ws), ptr(b), ptr_or_null(cos if rotary_cols else None),
+            ptr_or_null(sin if rotary_cols else None), ptr(out0), ptr_or_null(out1),
+            tokens, n_out, split, rotary_cols, stream_of(x.device),
+        ),
+        "pram_project_int8",
+    )
+    LAUNCHES["projection_int8"] += 1
     return out0 if out1 is None else (out0, out1)
 
 
@@ -268,14 +338,6 @@ def self_attention(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads, splits=Non
     return out
 
 
-def int8_projection_plain(x, wq, ws, b):
-    """``bf16((acc * rs) * ws + b)`` in x's dtype: x quantized per row
-    (``quant_rows``), ``wq [out, in]`` int8 with ``ws [out]`` f32 scales,
-    ``acc`` the exact integer product."""
-    xq, xrs = quant_rows(x)
-    return ((int_matmul(xq, wq.T) * xrs) * ws.float() + b.float()).to(x.dtype)
-
-
 def qkv_block_order(d: int, device) -> torch.Tensor:
     """Row indices that take the interleaved qkv order ``(h * hd + i) * 3 +
     c`` to the ``[q heads | k heads | v heads]`` blocks of kernel 12."""
@@ -289,18 +351,21 @@ def _block_order(d: int, device: torch.device) -> torch.Tensor:
 
 def self_attention_int8_plain(x, wq, ws, b_qkv, cos, sin, key_bias, scale, heads, splits=None):
     """:func:`self_attention_plain` with the projection in int8
-    (:func:`int8_projection_plain`): ``wq [3 * d, d_in]`` int8 and ``ws [3 *
-    d]`` f32 are ``quant_linear`` of the interleaved ``w_qkv``."""
+    (:func:`project_int8_plain` on the rows in kernel 12's block order):
+    ``wq [3 * d, d_in]`` int8 and ``ws [3 * d]`` f32 are ``quant_linear``
+    of the interleaved ``w_qkv``."""
     d = wq.shape[0] // 3
-    qkv = int8_projection_plain(x, wq, ws, b_qkv).index_select(-1, qkv_block_order(d, x.device))
-    if cos is not None:
-        qkv = _rotate_columns(qkv, cos, sin, 2 * d)
+    order = qkv_block_order(d, x.device)
+    qkv = project_int8_plain(x, wq.index_select(0, order), ws.index_select(0, order),
+                             b_qkv.index_select(0, order), cos, sin, 0 if cos is None else 2 * d)
     return _attend_blocks_plain(qkv, key_bias, scale, heads, splits)
 
 
 def self_attention_int8(x, wq, ws, b_qkv, cos, sin, key_bias, scale, heads, splits=None):
-    """:func:`self_attention_int8_plain` on the CPU; on CUDA
-    ``csrc/proj_int8.cu`` (kernel 17) then kernel 12's blocked attention pass.
+    """:func:`self_attention_int8_plain` on the CPU; on CUDA kernel 17's C
+    entry in ``csrc/proj_int8.cu``: the s8 projection pass into a ``[B, N,
+    768]`` qkv scratch, q and k rotated in its epilogue, then kernel 12's
+    message pass on it (no rotate launch).
 
     The rows of wq, their scales and the bias are gathered into kernel 12's
     column order here, each scale with its row. Inference only.
@@ -320,18 +385,18 @@ def self_attention_int8(x, wq, ws, b_qkv, cos, sin, key_bias, scale, heads, spli
     check_tensor(cos, "cos", (b, n, KERNEL_HEAD_DIM), torch.float32, dev)
     check_tensor(sin, "sin", (b, n, KERNEL_HEAD_DIM), torch.float32, dev)
     check_tensor(key_bias, "key_bias", (b, n), torch.float32, dev)
-    check_aligned(x=x, key_bias=key_bias)
+    check_aligned(x=x, cos=cos, sin=sin, key_bias=key_bias)
     qkv = torch.empty((b, n, 3 * d_in), dtype=torch.bfloat16, device=dev)
-    qr = torch.empty((b, n, d_in), dtype=torch.bfloat16, device=dev)
-    kr, out = torch.empty_like(qr), torch.empty_like(qr)
+    out = torch.empty((b, n, d_in), dtype=torch.bfloat16, device=dev)
     side_lengths = (ctypes.c_int * len(sides))(*sides)
     check_status(
         library().pram_self_attention_int8(
             ptr(x), ptr(wq), ptr(ws), ptr(bq), ptr(cos), ptr(sin), ptr(key_bias),
-            ptr(qkv), ptr(qr), ptr(kr), ptr(out), b, n, heads, ctypes.c_float(scale),
+            ptr(qkv), ptr(out), b, n, heads, ctypes.c_float(scale),
             ctypes.cast(side_lengths, ctypes.c_void_p), len(sides), stream_of(dev),
         ),
         "pram_self_attention_int8",
     )
     LAUNCHES["self_attention_int8"] += 1
+    LAUNCHES["projection_int8"] += 1
     return out

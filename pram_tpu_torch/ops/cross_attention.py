@@ -11,7 +11,8 @@ A CPU tensor takes :func:`cross_attention_plain`; a CUDA tensor launches
 message pass without statistics on views of them. Weights are in torch
 ``Linear`` layout (``[out, in]``). :func:`cross_attention_int8` is the same
 function with both projections in int8 (``int8=True`` of the JAX function,
-kernel 17) and the same message pass.
+kernel 17): the s8 projection pass ``csrc/proj_int8.cu`` into the same
+scratch tensors, then the same message pass.
 
 :func:`cross_attention_packed` replaces
 ``pram_tpu/ops/attention_pallas.py:fused_cross_attention_packed``: the same
@@ -28,7 +29,8 @@ import ctypes
 import torch
 
 from pram_tpu_torch._build import check_status, check_tensor, library, ptr, ptr_or_null, stream_of
-from pram_tpu_torch.ops.attention import attend_plain, check_aligned, int8_projection_plain, project_plain
+from pram_tpu_torch.ops import attention
+from pram_tpu_torch.ops.attention import attend_plain, check_aligned, project_int8_plain, project_plain
 
 LAUNCHES = {"cross_attention": 0, "cross_attention_packed": 0, "cross_attention_int8": 0}
 
@@ -65,17 +67,18 @@ def _cross_attend_plain(qk, v, bias0, bias1, scale, heads, n0):
 
 def cross_attention_int8_plain(x_cat, wq_qk, ws_qk, b_qk, wq_v, ws_v, b_v, bias0, bias1, scale, heads, n0):
     """:func:`cross_attention_plain` with both projections in int8 from one
-    per-row quantization of x_cat (``int8_projection_plain``): ``wq_* [d,
-    d]`` int8 and ``ws_* [d]`` f32 are ``quant_linear`` of to_qk and to_v."""
-    qk = int8_projection_plain(x_cat, wq_qk, ws_qk, b_qk)
-    v = int8_projection_plain(x_cat, wq_v, ws_v, b_v)
+    per-row quantization of x_cat (``project_int8_plain``): ``wq_* [d, d]``
+    int8 and ``ws_* [d]`` f32 are ``quant_linear`` of to_qk and to_v."""
+    qk = project_int8_plain(x_cat, wq_qk, ws_qk, b_qk)
+    v = project_int8_plain(x_cat, wq_v, ws_v, b_v)
     return _cross_attend_plain(qk, v, bias0, bias1, scale, heads, n0)
 
 
 def cross_attention_int8(x_cat, wq_qk, ws_qk, b_qk, wq_v, ws_v, b_v, bias0, bias1, scale, heads, n0):
-    """:func:`cross_attention_int8_plain` on the CPU; on CUDA
-    ``csrc/proj_int8.cu`` (kernel 17) then kernel 5's attention pass.
-    Inference only."""
+    """:func:`cross_attention_int8_plain` on the CPU; on CUDA kernel 17's C
+    entry in ``csrc/proj_int8.cu``: the s8 projection pass into qk and v
+    scratch tensors, then kernel 5's message pass (kernel 11's). Inference
+    only."""
     if x_cat.device.type == "cpu":
         return cross_attention_int8_plain(
             x_cat, wq_qk, ws_qk, b_qk, wq_v, ws_v, b_v, bias0, bias1, scale, heads, n0
@@ -104,6 +107,7 @@ def cross_attention_int8(x_cat, wq_qk, ws_qk, b_qk, wq_v, ws_v, b_v, bias0, bias
         "pram_cross_attention_int8",
     )
     LAUNCHES["cross_attention_int8"] += 1
+    attention.LAUNCHES["projection_int8"] += 1
     return out
 
 

@@ -14,8 +14,9 @@ at most 2^-7 of the value), and on the rotated q and k columns <= 2^-7
 (|ref| + |y0| + |y1|), y the pair before the rotary (a one-step difference
 in y0 or y1 carries through the rotation, and the result rounds once
 more), plus 2^-13 of the output's scale near zero, where the sums' own f32
-rounding decides; kernels 1 and 5 and the int8 projections give the same bits on two
-launches; Sinkhorn's real block within 1e-4 and its dustbin row and column within
+rounding decides; kernel 17's s8 projection pass (csrc/proj_int8.cu) the
+same against project_int8_plain; kernels 1 and 5 and the int8 projections give the
+same bits on two launches; Sinkhorn's real block within 1e-4 and its dustbin row and column within
 0.3%; refinement NN indices and keep flags agreeing on 99% of queries (f32
 sums in another order flip near-ties of the 0.995 ratio test) and d1 within
 1e-4 (chip_smoke.py allows 1e-3 because its rendered queries carry exact
@@ -772,6 +773,8 @@ def _attn_inputs(g, b, n, dev):
 
 @pytest.mark.parametrize("b,splits", [(2, (512,)), (2, (512, 1024)), (3, (128, 256))])
 def test_self_attention_int8_kernel(dev, b, splits):
+    """Kernel 17 self-attention: one call is one launch of the s8 pass and
+    the rotated message pass (no kernel 12 entry, so no rotate launch)."""
     n = sum(splits)
     g = torch.Generator().manual_seed(n + 11)
     x, cos, sin = _attn_inputs(g, b, n, dev)
@@ -780,11 +783,14 @@ def test_self_attention_int8_kernel(dev, b, splits):
     mask = _masks(g, b, n, 0.8)
     kb = attention.mask_to_bias(mask, b, n, "cpu").to(dev)
     args = (x, wq, ws, bias, cos, sin, kb, 64**-0.5, 4, splits)
-    before = attention.LAUNCHES["self_attention_int8"]
+    before = dict(attention.LAUNCHES, **attention_qkv.LAUNCHES)
     got = attention.self_attention_int8(*args)
     torch.cuda.synchronize()
-    assert attention.LAUNCHES["self_attention_int8"] == before + 1
+    after = dict(attention.LAUNCHES, **attention_qkv.LAUNCHES)
+    assert {k: after[k] - before[k] for k in after} == dict(
+        {k: 0 for k in after}, self_attention_int8=1, projection_int8=1)
     assert _rel_err(got, attention.self_attention_int8_plain(*args)) <= 0.02
+    assert torch.equal(attention.self_attention_int8(*args), got)
 
 
 @pytest.mark.parametrize("b,n0,n1", [(2, 128, 256), (2, 512, 1024)])
@@ -799,11 +805,68 @@ def test_cross_attention_int8_kernel(dev, b, n0, n1):
     args = (x, wq_qk, ws_qk, _rand(g, 256, scale=0.1).to(dev), wq_v, ws_v,
             _rand(g, 256, scale=0.1).to(dev), b0, b1, 64**-0.5, 4, n0)
     before = cross_attention.LAUNCHES["cross_attention_int8"]
+    before_pass = attention.LAUNCHES["projection_int8"]
     got = cross_attention.cross_attention_int8(*args)
     torch.cuda.synchronize()
     assert cross_attention.LAUNCHES["cross_attention_int8"] == before + 1
+    assert attention.LAUNCHES["projection_int8"] == before_pass + 1
     assert _rel_err(got, cross_attention.cross_attention_int8_plain(*args)) <= 0.02
     assert torch.equal(cross_attention.cross_attention_int8(*args), got)
+
+
+# 5 and 400 tiles of 64 tokens: fewer than one a CTA, and several a CTA
+# with a remainder (the self-attention's 768 columns run 3 x 44 CTAs)
+@pytest.mark.parametrize("b,n", [(1, 320), (25, 1024)])
+@pytest.mark.parametrize("epilogue", ["rotary", "plain", "split"])
+def test_projection_int8_kernel(dev, b, n, epilogue):
+    """csrc/proj_int8.cu (kernel 17's s8 pass) against project_int8_plain:
+    768 columns with q and k rotated (rotary_cols 512) and without, and 512
+    columns into qk and v; a zero row and rows with one large outlier; two
+    launches bit-equal."""
+    g = torch.Generator().manual_seed(n + b + 17)
+    x, cos, sin = _attn_inputs(g, b, n, dev)
+    x[0, 5] = 0
+    x[0, 9, 17] = 300.0
+    x[-1, 0, 255] = -1e4
+    n_out = 512 if epilogue == "split" else 768
+    wq, ws = _i8_linear(g, n_out, 256, dev)
+    bias = _rand(g, n_out, scale=0.1).to(dev)
+    rot = 512 if epilogue == "rotary" else 0
+    before = attention.LAUNCHES["projection_int8"]
+    ref = attention.project_int8_plain(x, wq, ws, bias, cos, sin, rotary_cols=rot)
+    if epilogue == "split":
+        qk, v = attention.project_int8(x, wq, ws, bias, split=256)
+        assert qk.shape == v.shape == (b, n, 256)
+        got = torch.cat([qk, v], -1)
+        again = torch.cat(attention.project_int8(x, wq, ws, bias, split=256), -1)
+    else:
+        got = attention.project_int8(x, wq, ws, bias, cos, sin, rotary_cols=rot)
+        again = attention.project_int8(x, wq, ws, bias, cos, sin, rotary_cols=rot)
+    _check_projection(got, ref, attention.project_int8_plain(x, wq, ws, bias), rot)
+    assert torch.equal(again, got)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES["projection_int8"] == before + 2
+
+
+def test_projection_int8_wrapper_refuses_what_the_pass_does_not_take(dev):
+    """Tokens not a multiple of 64, column counts off the 256-column slice,
+    float weights, cos of the wrong shape: raised before any launch."""
+    g = torch.Generator().manual_seed(3)
+    x, cos, sin = _attn_inputs(g, 1, 128, dev)
+    wq, ws = _i8_linear(g, 768, 256, dev)
+    bias = torch.zeros(768, device=dev)
+    with pytest.raises(ValueError, match="tokens % 64"):
+        attention.project_int8(x[:, :100].contiguous(), wq, ws, bias)
+    with pytest.raises(ValueError, match="multiples of 256"):
+        attention.project_int8(x, wq[:640].contiguous(), ws[:640].contiguous(), bias[:640])
+    with pytest.raises(ValueError, match="multiples of 256"):
+        attention.project_int8(x, wq, ws, bias, cos, sin, rotary_cols=128)
+    with pytest.raises(ValueError, match="split of 64"):
+        attention.project_int8(x, wq, ws, bias, split=100)
+    with pytest.raises(ValueError, match="dtype"):
+        attention.project_int8(x, wq.to(torch.bfloat16), ws, bias)
+    with pytest.raises(ValueError, match="shape"):
+        attention.project_int8(x, wq, ws, bias, cos[:, :64], sin[:, :64], rotary_cols=512)
 
 
 def _conv_i8_case(g, b, h, w, cin, cout, dev):

@@ -57,7 +57,7 @@ from pram_tpu_torch.models.convert import flax_to_state_dict, int8_extractor_sta
 from pram_tpu_torch.models.sfd2 import extract, preprocess_image
 from pram_tpu_torch.models.sfd2_int8 import Int8ResNet4x, quantize_extractor
 from pram_tpu_torch.ops import conv_int8, convpair, mlp
-from pram_tpu_torch.ops.attention import int8_projection_plain, self_attention_int8_plain
+from pram_tpu_torch.ops.attention import project_int8_plain, self_attention_int8_plain
 from pram_tpu_torch.ops.cross_attention import cross_attention_int8_plain
 from pram_tpu_torch.ops.quant import quant_cols, quant_linear, quant_rows, quant_w
 
@@ -282,7 +282,7 @@ def test_self_attention_int8_matches_pallas(rng):
     jproj = np.asarray(jax.lax.dot_general(
         jq, jwq, (((2,), (0,)), ((), ())), preferred_element_type=jnp.int32,
     ).astype(jnp.float32) * jrs * jws + jnp.asarray(bias))
-    np.testing.assert_array_equal(int8_projection_plain(T(x), wq, ws, T(bias)).numpy(), jproj)
+    np.testing.assert_array_equal(project_int8_plain(T(x), wq, ws, T(bias)).numpy(), jproj)
 
 
 def test_cross_attention_int8_matches_pallas(rng):
