@@ -130,10 +130,15 @@ Phases, each printed with its elapsed seconds:
                 share printed; two launches bit-equal), timed beside its
                 bound, torch._int_mm of the same s8 operands and F.linear
                 of the same bf16 projection, and each form's launches by
-                torch.profiler; the int8 conv (18) on each of
-                the extractor's 14 int8 3x3 layers with both tails; the
-                conv pair (19) on the float extractor's conv3a + conv3b at
-                32 x 120 x 160; the yardsticks (SDPA, cuDNN).
+                torch.profiler; the int8 conv (18, csrc/conv_tile.cuh's
+                wgmma tile; ptxas's registers and spills of both conv
+                sources checked) on each of the extractor's 14 int8 3x3
+                layers with both tails, two launches bit-equal, each
+                layer's time printed beside its bound and cuDNN's bf16
+                convolution of the same shape; the conv pair (19) on the
+                float extractor's conv3a + conv3b at 32 x 120 x 160, two
+                launches bit-equal, its two launches' device time by
+                torch.profiler; the yardsticks (SDPA, cuDNN).
 19. int8 slice  RenderedGuard.recall on the 32 noisy queries through the
                 int8 path, counted: kernels 16, 17 (self, cross), 17's s8
                 pass and 18 exactly 33, 24, 9, 33 and 14 launches (12 at
@@ -2037,14 +2042,18 @@ def main() -> int:
             f"{rows['cross_attention_int8']['library_ms'] + cross_pass['proj_linear_ms']:.4f} ms; by launch "
             f"(device ms a call, torch.profiler): {json.dumps(by_launch)}")
 
-        # kernel 18 on each int8 3x3 layer of one extraction, with both tails
+        # kernel 18 on each int8 3x3 layer of one extraction, with both tails,
+        # two launches bit-equal, and each layer's time beside its bound and
+        # cuDNN's bf16 convolution of the same shape
+        require_no_spills(_build, ("conv_int8.cu", "conv_pair.cu"))
         conv_calls = recorded["conv3x3_int8"]
         conv = torch.nn.functional.conv2d
         k_ms = p_ms = c_lib_ms = 0.0
         c_bytes = c_ops = 0.0
         worst = 0.0
+        layer_ms = []
         log(f"conv3x3_int8: {len(conv_calls)} launches in one extraction")
-        for (xc8, wqc, sac, wsc, bc), kw in conv_calls:
+        for li, ((xc8, wqc, sac, wsc, bc), kw) in enumerate(conv_calls):
             stride, relu, own_tail = kw["stride"], kw["relu"], kw["bf16_tail"]
             x_coff = kw.get("x_coff", 0)
             cin, cout = wqc.shape[2], wqc.shape[3]
@@ -2060,29 +2069,36 @@ def main() -> int:
                         f"conv3x3_int8 {tuple(xin.shape)} -> {cout} (stride {stride}, "
                         f"{'bf16' if tail else 'f32'} tail) disagrees with its plain version: "
                         f"{equal:.5f} equal, max abs err {e:.3e}")
+                require(torch.equal(conv_int8.conv3x3_int8(xc8, wqc, sac, wsc, bc, x_coff=x_coff, **ckw), got),
+                        f"conv3x3_int8 {tuple(xin.shape)} -> {cout}: two launches differ")
             own = dict(stride=stride, relu=relu, bf16_tail=own_tail)
-            k_ms += cuda_ms(torch, lambda: conv_int8.conv3x3_int8(xc8, wqc, sac, wsc, bc, x_coff=x_coff, **own),
-                            iters=10)
-            p_ms += cuda_ms(torch, lambda: conv_int8.conv3x3_int8_plain(xin, wqc, sac, wsc, bc, **own),
-                            iters=2, warmup=1)
+            l_ms = cuda_ms(torch, lambda: conv_int8.conv3x3_int8(xc8, wqc, sac, wsc, bc, x_coff=x_coff, **own),
+                           iters=10)
+            l_plain = cuda_ms(torch, lambda: conv_int8.conv3x3_int8_plain(xin, wqc, sac, wsc, bc, **own),
+                              iters=2, warmup=1)
             # yardstick: cuDNN's bf16 conv of the same shape (dequantized weights), bias and ReLU
             wf = (wqc.float() * wsc.float()).permute(3, 2, 0, 1).to(bf16).contiguous(memory_format=torch.channels_last)
             xnchw = xin.contiguous().permute(0, 3, 1, 2)
             bfb = bc.to(bf16)
-            c_lib_ms += cuda_ms(torch, lambda: torch.relu(conv(xnchw, wf, bfb, stride=stride, padding=1)),
-                                iters=10)
+            l_lib = cuda_ms(torch, lambda: torch.relu(conv(xnchw, wf, bfb, stride=stride, padding=1)), iters=10)
             b_, h_, w_ = xin.shape[:3]
             ho_, wo_ = (h_ - 1) // stride + 1, (w_ - 1) // stride + 1
-            c_bytes += b_ * h_ * w_ * cin * 2 + b_ * ho_ * wo_ * cout * 2 + 9 * cin * cout + 8 * cout
-            c_ops += 2.0 * b_ * ho_ * wo_ * cout * 9 * cin
-            log(f"  {tuple(xin.shape)} -> {cout}, stride {stride}, {'bf16' if own_tail else 'f32'} tail: "
-                f"both tails equal to the plain version")
+            l_bytes = b_ * h_ * w_ * cin * 2 + b_ * ho_ * wo_ * cout * 2 + 9 * cin * cout + 8 * cout
+            l_ops = 2.0 * b_ * ho_ * wo_ * cout * 9 * cin
+            l_bnd, l_by = bound_ms(l_bytes, l_ops, INT8_TENSOR_OPS)
+            k_ms, p_ms, c_lib_ms = k_ms + l_ms, p_ms + l_plain, c_lib_ms + l_lib
+            c_bytes, c_ops = c_bytes + l_bytes, c_ops + l_ops
+            layer_ms.append(round(l_ms, 4))
+            log(f"  layer {li}: {tuple(xin.shape)} -> {cout}, stride {stride}, {'bf16' if own_tail else 'f32'} "
+                f"tail: {l_ms:.4f} ms against its bound {l_bnd:.4f} ms ({l_by}, {l_ops / 1e9:.1f} G s8 "
+                f"operations, {l_ops / l_ms / 1e9:.1f} T/s); cuDNN bf16 {l_lib:.4f} ms, plain {l_plain:.3f} ms; "
+                f"both tails equal to the plain version, two launches bit-equal")
         bnd, by = bound_ms(c_bytes, c_ops, INT8_TENSOR_OPS)
         rows["conv3x3_int8"] = dict(
             name="conv3x3_int8", route="cuda", source="pram_tpu_torch/csrc/conv_int8.cu",
             replaces="pram_tpu/ops/conv_int8_pallas.py:269",
             launches=None, max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
-            bound_ms=bnd, bound_by=by, library_ms=None,
+            bound_ms=bnd, bound_by=by, library_ms=None, layer_ms=layer_ms, cudnn_bf16_ms=c_lib_ms,
         )
         log(f"conv3x3_int8: {k_ms:.4f} ms for the {len(conv_calls)} layers of a batch; cuDNN's bf16 "
             f"convolutions of the same shapes {c_lib_ms:.4f} ms (a footnote, not library_ms: no PyTorch "
@@ -2095,8 +2111,10 @@ def main() -> int:
         st = stem.fused_stem(xq8, *sf.conv1a.stem_args(), *sf.conv1b.stem_args())
         xin = sf.conv2b(sf.conv2a(st.permute(0, 3, 1, 2))).permute(0, 2, 3, 1).contiguous()
         p_args = (xin, *sf.conv3a.stem_args(), *sf.conv3b.stem_args())
-        err = check_scaled(f"fused_conv_pair ({tuple(xin.shape)})", convpair.fused_conv_pair(*p_args),
+        pair_out = convpair.fused_conv_pair(*p_args)
+        err = check_scaled(f"fused_conv_pair ({tuple(xin.shape)})", pair_out,
                            convpair.fused_conv_pair_plain(*p_args), INT8_TOL)
+        require(torch.equal(convpair.fused_conv_pair(*p_args), pair_out), "fused_conv_pair: two launches differ")
         k3a, b3a = stem.fold_bn(*sf.conv3a.stem_args()[:2], *sf.conv3a.stem_args()[2])
         k3b, b3b = stem.fold_bn(*sf.conv3b.stem_args()[:2], *sf.conv3b.stem_args()[2])
         cl = torch.channels_last
@@ -2118,7 +2136,11 @@ def main() -> int:
             plain_ms=cuda_ms(torch, lambda: convpair.fused_conv_pair_plain(*p_args), iters=5),
             bound_ms=bnd, bound_by=by, library_ms=cuda_ms(torch, cudnn_pair),
         )
-        del sf, xq8, st, xin, p_args, xinc
+        by_launch = launch_ms(torch, lambda: convpair.fused_conv_pair(*p_args))
+        log(f"fused_conv_pair: {rows['fused_conv_pair']['ms']:.4f} ms against its bound {bnd:.4f} ms ({by}); "
+            f"cuDNN's pair {rows['fused_conv_pair']['library_ms']:.4f} ms; by launch (device ms a call, "
+            f"torch.profiler): {json.dumps(by_launch)}")
+        del sf, xq8, st, xin, p_args, xinc, pair_out
     phase("int8_kernels", t)
 
     # ---- 19. the int8 image slice, counted

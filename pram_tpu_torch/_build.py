@@ -172,14 +172,36 @@ def library() -> ctypes.CDLL:
 
 
 def _short_name(mangled: str) -> str:
-    """The kernel's own name from its mangled one: the second component of
-    ``_ZN<n><namespace><n><name>...``, e.g. ``grad_kernel``."""
-    m = re.match(r"_ZN(\d+)", mangled)
-    if m is None:
+    """The kernel's own name from its mangled one: the last component of
+    ``_ZN<n><namespace>...<n><name>``, e.g. ``grad_kernel``, with a
+    template's arguments after it (type names, builtin type letters,
+    integer values), e.g. ``conv3x3_kernel<a,1,256,0>``."""
+    if not mangled.startswith("_ZN"):
         return mangled
-    rest = mangled[m.end() + int(m.group(1)):]
-    m = re.match(r"\d+", rest)
-    return rest[m.end():m.end() + int(m.group())] if m else mangled
+    rest, name = mangled[3:], mangled
+    while (m := re.match(r"\d+", rest)) is not None:
+        name = rest[m.end():m.end() + int(m.group())]
+        rest = rest[m.end() + int(m.group()):]
+    if not rest.startswith("I"):
+        return name
+    args, i, depth = [], 1, 1  # type names, builtin type letters, integer literals
+    while i < len(rest) and depth:
+        ch = rest[i]
+        if ch.isdigit():
+            m = re.match(r"\d+", rest[i:])
+            j = i + m.end()
+            args.append(rest[j:j + int(m.group())])
+            i = j + int(m.group())
+        elif ch == "L":
+            j = rest.index("E", i)
+            args.append(rest[i + 2:j])
+            i = j + 1
+        else:
+            depth += 1 if ch in "IN" else -1 if ch == "E" else 0
+            if ch not in "INE":
+                args.append(ch)
+            i += 1
+    return f"{name}<{','.join(args)}>"
 
 
 def ptxas_report(source: str) -> list:

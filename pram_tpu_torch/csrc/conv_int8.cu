@@ -11,24 +11,32 @@
 // layers too, with that tail (EPI_I8_BF16), and any H, W and a channel
 // count that is a multiple of 32.
 //
-// What bounds it: the extractor's thick layers at 32 x 120 x 160 (conv3b:
-// 256 -> 256) do 725 G s8 operations against 630 MB of bf16 in and out, so
-// the tensor cores bound them (0.37 ms at 1979 TOP/s against 0.19 ms).
-// The design (conv_tile.cuh) loads each block's input halo once, quantizing
-// it on the way into shared memory as the TPU kernel quantizes its tile once,
-// and reads the im2col rows in place with mma.sync m16n8k32; the per-channel
-// scale and bias are applied to the s32 sums in registers. A residual
-// block's grouped convolution runs as two 128-channel dense splits
+// What bounds it: operations. The 14 layers of one int8 batch (32 frames of
+// 480 x 640) do 4.53 T s8 operations against 2.06 GB of bf16 in and out and
+// s8 weights: 2.29 ms at 1979 TOP/s against 0.61 ms at 3.35 TB/s. The
+// thickest, conv3b (256 -> 256 at 32 x 120 x 160), does 725 G: 0.37 ms
+// against 0.19 ms of bytes.
+//
+// Design (conv_tile.cuh): an implicit GEMM on wgmma m64nNk32.s32.s8.s8 with
+// TMA-fed operands. A CTA tile is 8 x 16 output pixels x all the layer's
+// output channels (up to 256), so the bf16 halo is loaded by TMA and
+// quantized into shared memory once a CTA, by three converter warps, while
+// the consumer warpgroups' products run; the A operand is that halo in the
+// no-swizzle K-major layout, each tap a shifted descriptor; the weights
+// stream in (tap, 64-channel) stages through a TMA ring; the per-channel
+// scale and bias are applied to the s32 sums in registers and the bf16
+// result leaves through shared memory by TMA stores. A residual block's
+// grouped convolution runs as two 128-channel dense splits
 // (pram_tpu/models/sfd2_int8.py:_expand_grouped): the channel offset and
 // stride arguments let each split read its slice of the input and write its
-// slice of one output, with no copy. wgmma with TMA-staged weights is the
-// next step for speed.
+// slice of one output, with no copy.
 //
 // Layouts: x [B, H, W, x_cstride] bf16, channels x_coff .. + cin read; wq
 // [cout, 9, cin] s8 (tap dy * 3 + dx); scale, bias [cout] f32 (for
 // EPI_I8_BF16 both hold bf16 values: bf16(in_scale * w_scale) and
 // bf16(bias)); out [B, Ho, Wo, out_cstride] bf16, channels out_coff .. +
-// cout written.
+// cout written. Channel offsets and strides are multiples of 8, cout of
+// 128; every pointer 16-byte aligned.
 
 #include "conv_tile.cuh"
 

@@ -9,13 +9,14 @@
 //
 // What bounds it: at 32 x 120 x 160 the two convolutions are 1.09 TFLOP of
 // bf16 products against 470 MB of input and output, so the tensor cores
-// bound them (1.1 ms at 989 TFLOP/s against 0.14 ms). The TPU kernel keeps a row tile's
-// 256-channel intermediate in VMEM; a Hopper block cannot hold the
+// bound them (1.1 ms at 989 TFLOP/s against 0.14 ms). The TPU kernel keeps a
+// row tile's 256-channel intermediate in VMEM; a Hopper CTA cannot hold the
 // intermediate rows that a tile of conv3b reads without recomputing conv3a
-// on every tile's halo (2.1x the conv3a work at this tile), so the pair runs
-// as two launches of kernel 18's tile (conv_tile.cuh, bf16 mma.sync
-// m16n8k16 in place of s8) on one stream, through an intermediate scratch
-// tensor the wrapper allocates (9.8 MB a frame, read back from L2 in part).
+// on every tile's halo, so the pair runs as two launches of kernel 18's
+// tile (conv_tile.cuh: wgmma m64nNk16.f32.bf16.bf16 in place of s8, its
+// converter warps copying the TMA-loaded halo into the A layout instead of
+// quantizing it) on one stream, through an intermediate scratch tensor the
+// wrapper allocates (9.8 MB a frame, read back from L2 in part).
 //
 // Layouts: x [B, H, W, cin] bf16; w1 [cmid, 9, cin], w2 [cout, 9, cmid] bf16
 // (tap dy * 3 + dx); b1 [cmid], b2 [cout] f32; mid [B, H, W, cmid] bf16

@@ -1,10 +1,10 @@
-// Warp-level pieces of the int8 kernels (16, 18) and the bf16 conv tile
-// (19): the mma.sync instructions and the per-row quantizer.
+// Warp-level pieces of the int8 MLP kernel (16): the s8 mma.sync
+// instruction and the per-row quantizer.
 //
-// s8 m16n8k32 and bf16 m16n8k16 read their operands in the same byte
-// pattern (32-byte K chunks): lane (g = lane / 4, t = lane % 4) holds bytes
-// 4t and 16 + 4t of a chunk of A's rows g and g + 8 and of B's column g,
-// and the accumulator's rows g and g + 8, columns 2t and 2t + 1.
+// s8 m16n8k32 reads its operands in 32-byte K chunks: lane (g = lane / 4,
+// t = lane % 4) holds bytes 4t and 16 + 4t of a chunk of A's rows g and
+// g + 8 and of B's column g, and the accumulator's rows g and g + 8,
+// columns 2t and 2t + 1.
 
 #pragma once
 
@@ -19,15 +19,6 @@ __device__ __forceinline__ void mma(int (&c)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

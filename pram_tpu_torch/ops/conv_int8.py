@@ -13,13 +13,16 @@ A CPU tensor takes :func:`conv3x3_int8_plain`; a CUDA tensor launches
 :func:`conv3x3_int8_supported` and :func:`conv3x3s2_int8_supported` are the
 TPU kernel's, copied as they are: the int8 extractor takes the f32 tail on
 exactly the layers where the JAX package takes its kernel. The CUDA kernel
-itself takes any H and W and channel counts that are multiples of 32 (in)
-and 128 (out), so it also runs the layers the gates refuse, with the bf16
-tail: the card has no s8 convolution in PyTorch.
+itself takes any H and W (at least 2 columns at stride 2) and channel
+counts that are multiples of 32 (in) and 128 (out), so it also runs the
+layers the gates refuse, with the bf16 tail: the card has no s8
+convolution in PyTorch.
 
 The weights are ``[3, 3, Cin, Cout]`` int8 (the JAX HWIO layout, one scale
 per output channel). ``x_coff``, ``out`` and ``out_coff`` read and write
-channel slices in place (a residual block's two dense splits).
+channel slices in place (a residual block's two dense splits); on CUDA the
+offsets and the tensors' channel counts are multiples of 8 (the kernel's
+TMA copies move 16-byte aligned rows).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ _VMEM_BUDGET = 14 << 20  # the TPU kernel's budget, kept for its gates
 # shapes the CUDA kernel is written for
 KERNEL_CIN_MULTIPLE = 32
 KERNEL_COUT_MULTIPLE = 128
+KERNEL_CHANNEL_ALIGN = 8  # channel offsets and pixel strides, for 16-byte TMA rows
 
 
 def conv3x3_int8_supported(h: int, w: int, cin: int, cout: int) -> bool:
@@ -152,11 +156,16 @@ def conv3x3_int8(
             f"CUDA int8 conv needs Cin % {KERNEL_CIN_MULTIPLE} == 0 and Cout % "
             f"{KERNEL_COUT_MULTIPLE} == 0; got {cin} and {cout}"
         )
-    if x_coff % 4 or c_all % 4 or x_coff + cin > c_all:
-        raise ValueError(f"input channels {x_coff}..{x_coff + cin} of {c_all} are not readable")
+    if stride == 2 and w < 2:
+        raise ValueError(f"CUDA int8 conv at stride 2 needs at least 2 columns, got {w}")
+    a = KERNEL_CHANNEL_ALIGN
+    if x_coff % a or c_all % a or x_coff + cin > c_all:
+        raise ValueError(f"input channels {x_coff}..{x_coff + cin} of {c_all} are not readable "
+                         f"(offset and count multiples of {a})")
     c_out_all = out.shape[-1]
-    if out_coff % 2 or c_out_all % 2 or out_coff + cout > c_out_all:
-        raise ValueError(f"output channels {out_coff}..{out_coff + cout} of {c_out_all} are not writable")
+    if out_coff % a or c_out_all % a or out_coff + cout > c_out_all:
+        raise ValueError(f"output channels {out_coff}..{out_coff + cout} of {c_out_all} are not writable "
+                         f"(offset and count multiples of {a})")
     scale = w_scale.float() * float(in_scale)
     if bf16_tail:
         scale, bias = scale.to(torch.bfloat16).float(), bias.to(torch.bfloat16).float()

@@ -37,9 +37,10 @@ kernels 13-15: bf16 outputs within 2% of their scale, f32 reductions
 within 1%; a training step's f32 master gradients, kernel path against
 plain path, within 3% of each tensor's scale. Kernels 16-19 (int8 MLP,
 int8 projections, int8 conv, conv pair): bf16 outputs within 2% of their
-scale, the int8 conv equal on >= 99.9% of its elements; the int8
-extractor's kernel path against its plain path by the extraction A/B
-bounds.
+scale, the int8 conv equal on >= 99.9% of its elements (also on inputs on
+exact half-steps of its scale and beyond the clip) and the same bits on two
+launches; the int8 extractor's kernel path against its plain path by the
+extraction A/B bounds.
 """
 
 import pytest
@@ -884,8 +885,12 @@ def _conv_i8_case(g, b, h, w, cin, cout, dev):
     (1, 2, 21, 37, 256, 128, False, False),
     (1, 2, 30, 50, 64, 128, True, True),
     (1, 1, 60, 80, 256, 256, True, False),
+    (1, 2, 60, 80, 256, 256, False, True),
+    (1, 1, 9, 13, 32, 128, True, True),
     (2, 2, 48, 64, 128, 128, False, True),
     (2, 2, 25, 35, 256, 256, True, True),
+    (2, 2, 31, 45, 128, 128, False, True),
+    (2, 1, 17, 3, 64, 384, True, False),
 ])
 def test_conv3x3_int8_kernel(dev, stride, b, h, w, cin, cout, bf16_tail, relu):
     from pram_tpu_torch.ops import conv_int8
@@ -901,6 +906,45 @@ def test_conv3x3_int8_kernel(dev, stride, b, h, w, cin, cout, bf16_tail, relu):
     assert got.shape == ref.shape
     assert _rel_err(got, ref) <= 0.02
     assert (got == ref).float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv3x3_int8_kernel_two_launches_equal(dev, stride):
+    """Each output element is one s32 sum and one tail: two launches give
+    the same bits."""
+    from pram_tpu_torch.ops import conv_int8
+
+    g = torch.Generator().manual_seed(11 + stride)
+    x, wq, sa, ws, bias = _conv_i8_case(g, 2, 40, 56, 256, 256, dev)
+    got = conv_int8.conv3x3_int8(x, wq, sa, ws, bias, stride=stride)
+    assert torch.equal(conv_int8.conv3x3_int8(x, wq, sa, ws, bias, stride=stride), got)
+
+
+@pytest.mark.parametrize("bf16_tail", [False, True])
+def test_conv3x3_int8_kernel_ties_and_clip(dev, bf16_tail):
+    """Signed inputs on exact half-steps of a power-of-two scale (x / s =
+    k + 1/2 exactly, rounded half to even) and beyond +-127 s (clipped),
+    with random values between: the kernel quantizes as quant_static."""
+    from pram_tpu_torch.ops import conv_int8
+    from pram_tpu_torch.ops.quant import quant_w
+
+    g = torch.Generator().manual_seed(5)
+    sa = 2.0**-6
+    b, h, w, cin, cout = 2, 24, 40, 128, 256
+    k = torch.randint(-128, 128, (b, h, w, cin), generator=g).float()
+    x = (k + 0.5) * sa                                      # ties, up to +-127.5 s
+    pick = torch.rand(b, h, w, cin, generator=g)
+    x = torch.where(pick < 0.2, torch.randn(b, h, w, cin, generator=g) * 300 * sa, x)  # beyond the clip
+    x = torch.where(pick > 0.8, torch.randn(b, h, w, cin, generator=g) * 40 * sa, x)
+    x = x.to(dev, torch.bfloat16)
+    wq, ws = quant_w(_rand(g, 3, 3, cin, cout, scale=0.05))
+    bias = _rand(g, cout, scale=0.1).to(dev)
+    for stride in (1, 2):
+        kw = dict(stride=stride, relu=True, bf16_tail=bf16_tail)
+        got = conv_int8.conv3x3_int8(x, wq.to(dev), sa, ws.to(dev), bias, **kw)
+        ref = conv_int8.conv3x3_int8_plain(x, wq.to(dev), sa, ws.to(dev), bias, **kw)
+        assert _rel_err(got, ref) <= 0.02
+        assert (got == ref).float().mean().item() >= 0.999
 
 
 def test_conv3x3_int8_kernel_channel_slices(dev):

@@ -5,7 +5,10 @@ The JAX side runs as its own tests run it here: the Pallas kernels with
 The port runs its plain versions (the kernels' wrappers take them for CPU
 tensors). Inputs are made from a seed with numpy. Tolerances:
 
-- the quantizers: bit-equal integers and scales, .5 ties included;
+- the quantizers: bit-equal integers and scales, .5 ties included; the
+  int8 conv kernel's quantizer arithmetic (``csrc/conv_tile.cuh``,
+  mirrored in numpy with exact fmas) bit-equal to ``quant_static`` on
+  every bf16 value at fixed and calibrated scales;
 - kernel 18 (int8 conv, both strides) against the Pallas kernel: within
   rtol = atol = 1e-5 (``tests/test_conv_int8.py:57``'s bound; the integer
   sums are exact on both sides, the f32 tails may differ by FMA
@@ -59,7 +62,7 @@ from pram_tpu_torch.models.sfd2_int8 import Int8ResNet4x, quantize_extractor
 from pram_tpu_torch.ops import conv_int8, convpair, mlp
 from pram_tpu_torch.ops.attention import project_int8_plain, self_attention_int8_plain
 from pram_tpu_torch.ops.cross_attention import cross_attention_int8_plain
-from pram_tpu_torch.ops.quant import quant_cols, quant_linear, quant_rows, quant_w
+from pram_tpu_torch.ops.quant import quant_cols, quant_linear, quant_rows, quant_static, quant_w
 
 T = torch.from_numpy
 
@@ -391,6 +394,53 @@ def test_quantize_extractor_matches_pram_tpu(quantized_pair):
         else:
             tol = 1e-5 * r.abs().max().clamp(min=1e-30)
             assert ((g - r).abs() <= tol).all(), (name, (g - r).abs().max())
+
+
+def _fma32(a, b, c):
+    """fmaf(a, b, c) of f32 arrays, rounded once to nearest even: the exact
+    product in f64 (24 + 24 bits), its sum with c and that sum's error by
+    TwoSum, rounded to f32; a sum that lands on an f32 midpoint goes to the
+    side its error points to."""
+    a, b, c = (np.asarray(v, np.float32).astype(np.float64) for v in (a, b, c))
+    p = a * b
+    s = p + c
+    bp = s - p
+    e = (p - (s - bp)) + (c - bp)  # s + e == p + c exactly
+    r = s.astype(np.float32)
+    r64 = r.astype(np.float64)
+    up, dn = np.nextafter(r, np.float32(np.inf)), np.nextafter(r, np.float32(-np.inf))
+    r = np.where(((s - r64) * 2 == up.astype(np.float64) - r64) & (e > 0), up, r)
+    return np.where(((r64 - s) * 2 == r64 - dn.astype(np.float64)) & (e < 0), dn, r)
+
+
+def _conv_tile_quant(x, s):
+    """``csrc/conv_tile.cuh:quant_bits`` in numpy: v clamped to +-128 s,
+    Markstein's two corrections of RN(v * RN(1 / s)) by fmas, the clip to
+    +-127, then + 1.5 * 2^23, which rounds half to even into the low
+    mantissa bits; the low byte is the s8 value."""
+    s = np.float32(s)
+    y, lim = np.float32(1) / s, np.float32(128) * s
+    xc = np.minimum(np.maximum(x, -lim), lim)
+    t = xc * y
+    t1 = _fma32(y, _fma32(-s, t, xc), t)
+    d = _fma32(y, _fma32(-s, t1, xc), t1)
+    d = np.minimum(np.maximum(d, np.float32(-127)), np.float32(127)).astype(np.float32)
+    return ((d + np.float32(12582912.0)).view(np.int32) & 0xFF).astype(np.uint8).view(np.int8)
+
+
+def test_conv_tile_quantizer_equals_quant_static(quantized_pair):
+    """The int8 conv kernel's quantizer arithmetic equals quant_static on
+    every bf16 value but NaN, at fixed scales and at every input scale that
+    quantize_extractor calibrates."""
+    _, _, port = quantized_pair
+    x = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16).float()
+    x = x[~torch.isnan(x)]
+    assert x.numel() == 65536 - 254 and torch.isinf(x).sum() == 2
+    scales = [2.0**-6, 1 / 127, 0.0123, 3.7e-3, 1e-4, 1.0, 45.0, *port.in_scales.values()]
+    assert len(scales) > 20
+    for s in scales:
+        np.testing.assert_array_equal(_conv_tile_quant(x.numpy(), s), quant_static(x, s).to(torch.int8).numpy(),
+                                      err_msg=f"scale {s}")
 
 
 @pytest.fixture(scope="module")
