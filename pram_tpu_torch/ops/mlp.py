@@ -4,15 +4,16 @@
 A CPU tensor takes :func:`residual_mlp_plain`; a CUDA tensor launches
 ``csrc/mlp.cu`` or raises. Weights are in torch ``Linear`` layout
 (``[out, in]``); ``w0``'s input columns are ``[x | proj(msg)]``. The kernel
-takes bf16, the working type, or f32 (products on the CUDA cores), which
-the f32 A/B checks of the matcher use.
+takes bf16, the working type (the TMA/wgmma tile of ``csrc/mlp_tile.cuh``),
+or f32 (products on the CUDA cores), which the f32 A/B checks of the
+matcher use.
 
 :func:`residual_mlp_int8` replaces
 ``pram_tpu/ops/mlp_pallas.py:fused_residual_mlp_int8`` (kernel 16, inference
 only): the same function with the three products in int8, weights per output
 column (``ops/quant.py:quant_linear``, once per model), activations per row;
 a CPU tensor takes :func:`residual_mlp_int8_plain`, a CUDA tensor launches
-``csrc/mlp_int8.cu`` or raises. :func:`fused_mlp_int8_supported` is the JAX
+``csrc/mlp_int8.cu`` (the s8 instance of the same tile) or raises. :func:`fused_mlp_int8_supported` is the JAX
 package's gate, copied as it is.
 """
 
@@ -161,7 +162,7 @@ def residual_mlp_int8(x, msg, wpq, wps, bp, w0q, w0s, b0, ln_w, ln_b, w3q, w3s, 
                        ("b0", b0, KERNEL_HIDDEN), ("ln_w", ln_w, KERNEL_HIDDEN),
                        ("ln_b", ln_b, KERNEL_HIDDEN), ("w3s", w3s, d), ("b3", b3, d)):
         check_tensor(t, name, (n,), f32, dev)
-    for name, t in (("x", x), ("msg", msg)):
+    for name, t in (("x", x), ("msg", msg), ("wpq", wpq), ("w0q", w0q), ("w3q", w3q)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty_like(x)

@@ -252,6 +252,35 @@ def test_residual_mlp_kernel(dev):
     assert err <= 0.02 * ref.float().abs().max().item()
 
 
+def _mlp_bf16_args(g, tokens, dev):
+    d = 256
+    x = _rand(g, tokens, d).to(dev, torch.bfloat16)
+    msg = _rand(g, tokens, d, scale=0.1).to(dev, torch.bfloat16)
+
+    def w(o, i):
+        return _rand(g, o, i, scale=i**-0.5).to(dev, torch.bfloat16)
+
+    return (
+        x, msg, w(d, d), _rand(g, d, scale=0.1).to(dev), w(2 * d, 2 * d),
+        _rand(g, 2 * d, scale=0.1).to(dev), (1 + _rand(g, 2 * d, scale=0.1)).to(dev),
+        _rand(g, 2 * d, scale=0.1).to(dev), w(d, 2 * d), _rand(g, d, scale=0.1).to(dev),
+    )
+
+
+@pytest.mark.parametrize("tokens", [32, 96, 16384 + 32])
+def test_residual_mlp_kernel_ragged_tokens(dev, tokens):
+    """Kernel 2's TMA/wgmma tile on token counts that leave its last
+    64-token tile part empty: within 2% of the plain version's scale, the
+    same bits on two launches, one counted launch a call."""
+    args = _mlp_bf16_args(torch.Generator().manual_seed(tokens), tokens, dev)
+    before = mlp.LAUNCHES["residual_mlp"]
+    got = mlp.residual_mlp(*args)
+    torch.cuda.synchronize()
+    assert mlp.LAUNCHES["residual_mlp"] == before + 1
+    assert _rel_err(got, mlp.residual_mlp_plain(*args)) <= 0.02
+    assert torch.equal(mlp.residual_mlp(*args), got)
+
+
 def _pnp_problems(g, p, n):
     cam = torch.tensor([500.0, 500.0, 320.0, 240.0, 0.01, -0.005, 0.0, 0.0]).repeat(p, 1)
     R = so3_exp(_rand(g, p, 3, scale=0.2))
@@ -762,6 +791,31 @@ def test_residual_mlp_int8_kernel(dev, tokens):
     ref = mlp.residual_mlp_int8_plain(*args)
     assert _rel_err(got, ref) <= 0.02
     assert (got == ref).float().mean().item() >= 0.9
+
+
+@pytest.mark.parametrize("tokens", [32, 96, 16384 + 32])
+def test_residual_mlp_int8_kernel_edges(dev, tokens):
+    """Kernel 16's s8 tile on ragged token counts, with a zero row (scale
+    floored at 1e-6 / 127, every value quantized to 0) and an outlier row
+    (one value 300x the rest) in x and msg: within 2% of the plain version's
+    scale, the same bits on two launches, one counted launch a call."""
+    g = torch.Generator().manual_seed(tokens + 13)
+    x = _rand(g, tokens, 256)
+    msg = _rand(g, tokens, 256)
+    x[0], msg[0] = 0.0, 0.0
+    x[tokens - 1, 7], msg[tokens - 1, 200] = 300.0, -300.0
+    x, msg = x.to(dev, torch.bfloat16), msg.to(dev, torch.bfloat16)
+    (wpq, wps), (w0q, w0s), (w3q, w3s) = (_i8_linear(g, o, i, dev) for o, i in ((256, 256), (512, 512), (256, 512)))
+    vec = [_rand(g, n, scale=0.1).to(dev) for n in (256, 512, 512, 512, 256)]
+    args = (x, msg, wpq, wps, vec[0], w0q, w0s, vec[1], 1.0 + vec[2], vec[3], w3q, w3s, vec[4])
+    before = mlp.LAUNCHES["residual_mlp_int8"]
+    got = mlp.residual_mlp_int8(*args)
+    torch.cuda.synchronize()
+    assert mlp.LAUNCHES["residual_mlp_int8"] == before + 1
+    ref = mlp.residual_mlp_int8_plain(*args)
+    assert _rel_err(got, ref) <= 0.02
+    assert _rel_err(got[0], ref[0]) <= 0.02
+    assert torch.equal(mlp.residual_mlp_int8(*args), got)
 
 
 def _attn_inputs(g, b, n, dev):
