@@ -41,7 +41,10 @@ Phases, each printed with its elapsed seconds:
                 its shapes, 32 x 480 x 640: the SFD2 stem (kernel 8) on the
                 32 noisy query images in bf16 and f32, and NMS (kernel 9)
                 on the model's score maps of those images in bf16 and f32;
-                the stem's cuDNN yardstick.
+                the stem's cuDNN yardstick; two launches of the stem
+                bit-equal in both types, its kernel's device time by
+                torch.profiler beside the call's, and its registers and
+                spills as ptxas reported them (none may spill).
 10. image slice the main path, bench.py's image recall guard: 32 noisy
                 rendered queries (seed 11) -> SFD2 extraction -> SegNetViT
                 -> GML -> RANSAC PnP -> projection refinement, through
@@ -99,7 +102,10 @@ Phases, each printed with its elapsed seconds:
                 bit-equal; the backward passes' registers and spills as
                 ptxas reported them at the build (none may spill); the
                 SDPA-backward yardsticks (for 13 at GML's splits one call
-                a side); 13's and 14's launches timed by torch.profiler.
+                a side); 13's and 14's launches timed by torch.profiler;
+                15 two launches bit-equal, its three launches (token pass,
+                weight-gradient pass, reduction) by torch.profiler beside
+                the call, and its registers and spills.
 16. train slice the gradient A/B at the loaded weights: one step's f32
                 master gradients by the kernel path and the plain path in
                 bf16 (and the plain path in f32 as the reference of both),
@@ -294,6 +300,15 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_name(key: str) -> str:
+    """A profiler key's kernel name without its return type, namespaces,
+    template arguments and parameters, e.g. ``token_kernel``."""
+    if "::" not in key:
+        return key[:32]
+    head = key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0].split()
+    return head[-1].split("::")[-1] if head else key[:32]
+
+
 def launch_ms(torch, fn, n: int = 10, tries: int = 3, want=None) -> dict:
     """Device ms a launch of each kernel that ``fn`` launches, by
     torch.profiler over ``n`` calls after one warm-up: free of the host's
@@ -310,13 +325,27 @@ def launch_ms(torch, fn, n: int = 10, tries: int = 3, want=None) -> dict:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        by_launch = {(e.key.split("::")[1].split("(")[0] if "::" in e.key else e.key[:32]):
-                     round(e.device_time_total / e.count / 1e3, 4)
+        by_launch = {kernel_name(e.key): round(e.device_time_total / e.count / 1e3, 4)
                      for e in prof.key_averages() if e.device_time_total > 0 and e.count}
         if by_launch and (want is None or any(want(k) for k in by_launch)):
             return by_launch
         log(f"torch.profiler session {attempt} of {tries} over {n} calls saw {sorted(by_launch)}")
     return {}
+
+
+def log_ptxas(build, sources) -> list:
+    """Log the registers and spills ptxas reported for every kernel of
+    ``sources`` when the library was built; returns the reports."""
+    reports = []
+    for src in sources:
+        report = build.ptxas_report(src)
+        require(len(report) > 0, f"no ptxas report of {src}")
+        for k in report:
+            log(f"ptxas {src} {k['kernel']}: {k['registers']} registers at launch, spilled "
+                f"{k['spill_stores']} bytes stored / {k['spill_loads']} loaded"
+                + "".join(f"; {note}" for note in k["notes"]))
+            reports.append((src, k))
+    return reports
 
 
 def f32_vectors(args: tuple) -> tuple:
@@ -425,16 +454,9 @@ def check_projection(name: str, got, ref, pre=None, rot_cols: int = 0) -> float:
 
 
 def require_no_spills(build, sources) -> None:
-    """Log the registers and spills ptxas reported for every kernel of
-    ``sources`` when the library was built, and fail on a spill."""
-    for src in sources:
-        report = build.ptxas_report(src)
-        require(len(report) > 0, f"no ptxas report of {src}")
-        for k in report:
-            log(f"ptxas {src} {k['kernel']}: {k['registers']} registers at launch, spilled "
-                f"{k['spill_stores']} bytes stored / {k['spill_loads']} loaded"
-                + "".join(f"; {note}" for note in k["notes"]))
-            require(k["spill_stores"] == 0 and k["spill_loads"] == 0, f"{src} {k['kernel']} spills registers")
+    """log_ptxas, and fail on a spill."""
+    for src, k in log_ptxas(build, sources):
+        require(k["spill_stores"] == 0 and k["spill_loads"] == 0, f"{src} {k['kernel']} spills registers")
 
 
 def mlp_chain(x, msg, wp, bp, w0, b0, ln_w, ln_b, w3, b3, eps=1e-6):
@@ -1158,6 +1180,16 @@ def main() -> int:
             plain_ms=cuda_ms(torch, lambda: stem.fused_stem_plain(x, *st_args), iters=5),
             bound_ms=bnd, bound_by=by, library_ms=lib_ms,
         )
+        require(torch.equal(stem.fused_stem(x, *st_args), y), "fused_stem (bf16): two launches differ")
+        require(torch.equal(stem.fused_stem(x32, *st32), y32), "fused_stem (f32): two launches differ")
+        require_no_spills(_build, ("stem.cu",))
+        st_dev = launch_ms(torch, lambda: stem.fused_stem(x, *st_args),
+                           want=lambda k: k == "stem_kernel_bf16").get("stem_kernel_bf16")
+        log(f"fused_stem (bf16, {batch} x {h_img} x {w_img}): {rows['fused_stem']['ms']:.4f} ms a call "
+            f"(CUDA events, the wrapper's BN folding included), the kernel {st_dev} ms a launch "
+            f"(torch.profiler); bound {bnd:.4f} ms ({by}; it counts conv1a's K as its 27 taps x channels, "
+            f"the kernel multiplies 32, zero-padded: {2.0 * 32 * 64 * n_img / 1e9:.1f} against "
+            f"{2.0 * 27 * 64 * n_img / 1e9:.1f} GFLOP of conv1a); cuDNN's pair {lib_ms:.4f} ms")
         log(f"fused_stem f32: {cuda_ms(torch, lambda: stem.fused_stem(x32, *st32), iters=5):.4f} ms")
 
         # kernel 9 on the model's score maps of the same images
@@ -1735,6 +1767,17 @@ def main() -> int:
             plain_ms=cuda_ms(torch, lambda: mlp_bwd.residual_mlp_bwd_plain(*m15), iters=5),
             bound_ms=bnd, bound_by=by, library_ms=None,
         )
+        require(bit_equal(mlp_bwd.residual_mlp_bwd(*m15), mlp_bwd.residual_mlp_bwd(*m15)),
+                "residual_mlp_bwd (training layer 0): two launches differ")
+        log_ptxas(_build, ("mlp_bwd.cu",))
+        passes = {k: v for k, v in launch_ms(torch, lambda: mlp_bwd.residual_mlp_bwd(*m15),
+                                              want=lambda k: k == "token_kernel").items()
+                  if k in ("token_kernel", "weight_kernel", "reduce_kernel")}
+        dev15 = sum(passes.values())
+        log(f"residual_mlp_bwd ({tok} tokens, vectors {blk.mlp_0.bias.dtype}): {rows['residual_mlp_bwd']['ms']:.4f} "
+            f"ms a call (CUDA events), the kernel {dev15:.4f} ms (torch.profiler, its three launches: "
+            + ", ".join(f"{k} {v:.4f} ({v / dev15:.0%})" for k, v in passes.items())
+            + f") against its bound {bnd:.4f} ms ({by})")
 
         # kernel 13 on layer 0 (32 x 512 tokens), the attention cotangent
         # through the MLP's plain backward (dmsg = dpm wp)

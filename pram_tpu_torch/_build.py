@@ -69,8 +69,9 @@ _SIGNATURES = {
     # cam, R0, t0, xyz, uv, mask, threshold, min_inliers, damping, gn_iters,
     # lo_rounds, R, t, num, inliers, P, N, stream
     "pram_gn_polish": [_P] * 6 + [_F, _F, _F, _I, _I] + [_P] * 4 + [_I, _I, _P],
-    # image, w1, b1, w2, b2, out, B, H, W, is_bf16, stream
-    "pram_stem": [_P] * 6 + [_I] * 4 + [_P],
+    # image, w1, b1, w2, b2, out, B, H, W, the image's pixels a row, is_bf16,
+    # stream
+    "pram_stem": [_P] * 6 + [_I] * 5 + [_P],
     # scores, out, B, H, W, radius, num_iters, is_bf16, stream
     "pram_nms": [_P] * 2 + [_I] * 6 + [_P],
     # qkv, cos, sin, key_bias, g, packed scratch, dqkv, dcos, dsin, dbias,
@@ -81,8 +82,9 @@ _SIGNATURES = {
     # heads, scale, stream
     "pram_cross_attention_bwd": [_P] * 10 + [_I] * 4 + [_F, _P],
     # x, pm, ct, w0, b0, ln_w, ln_b, w3, dx, dpm, dw0, db0, dln_w, dln_b, dw3,
-    # db3, y, dh, colsums and partial scratch, tokens, splits, eps, stream
-    "pram_residual_mlp_bwd": [_P] * 20 + [_I, _I, _F, _P],
+    # db3, y, dh, colsums and partial scratch, tokens, splits, vec_bf16,
+    # eps, stream
+    "pram_residual_mlp_bwd": [_P] * 20 + [_I, _I, _I, _F, _P],
     # x, msg, wpq, wps, bp, w0q, w0s, b0, ln_w, ln_b, w3q, w3s, b3, out,
     # tokens, eps, stream
     "pram_residual_mlp_int8": [_P] * 14 + [_I, _F, _P],

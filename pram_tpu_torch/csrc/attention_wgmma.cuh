@@ -243,16 +243,18 @@ __device__ __forceinline__ void mma_ss(Acc& c, uint64_t da, uint64_t db,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// c += A B: A [64 x 16] bf16 from registers (the accumulator layout's
-// fragments), B [16 x 64] MN-major in shared memory
+// c (+)= A B: A [64 x 16] bf16 from registers (the accumulator layout's
+// fragments), B [16 x 64] MN-major in shared memory (TB = 0: K-major, B^T,
+// as the stem's conv1a reads it); accumulate 0 overwrites c
+template <int TB = 1>
 __device__ __forceinline__ void mma_rs(Acc& c, const uint32_t (&a)[4],
-                                       uint64_t db) {
+                                       uint64_t db, int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : WG_ACC32(c)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
 }
 
 // issues S = A B^T over head dim 64 (four k-steps of K-major tiles) as one

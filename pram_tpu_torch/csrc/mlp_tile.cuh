@@ -365,6 +365,10 @@ __device__ __forceinline__ const float* opaque(const float* p) {
   asm volatile("" : "+l"(p));
   return p;
 }
+__device__ __forceinline__ const void* opaque(const void* p) {
+  asm volatile("" : "+l"(p));
+  return p;
+}
 __device__ __forceinline__ int opaque(int x) {
   asm volatile("" : "+r"(x));
   return x;
@@ -936,12 +940,13 @@ inline bool make_weight_map(CUtensorMap* map, const void* w, int rows, int k,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// the persistent grid of clusters of CL CTAs over `tiles` 64-token tiles
-template <typename In, int CL>
-int launch_tiles(const Maps& maps, const Vecs& v, int tiles, cudaStream_t stream) {
-  const int groups = (tiles + CL - 1) / CL;
-  void (*kernel)(const Maps, const Vecs, int) = mlp_kernel<In, CL>;
-  constexpr size_t smem = Layout<Cfg<In>>::BYTES;
+// A persistent grid of clusters of CL CTAs of THREADS threads and `smem`
+// bytes over `groups` groups of CL tiles: as many clusters as fit on the
+// card at once (`resident`, the caller's, found at its first launch), at
+// most one a group. Shared with the residual-MLP backward (mlp_bwd.cu).
+template <int CL, typename... P, typename... A>
+int launch_persistent(void (*kernel)(P...), size_t smem, int groups, int& resident,
+                      cudaStream_t stream, A... args) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -957,16 +962,23 @@ int launch_tiles(const Maps& maps, const Vecs& v, int tiles, cudaStream_t stream
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  static int resident = 0;  // clusters resident on the card at once
   if (resident == 0) {
     err = cudaOccupancyMaxActiveClusters(&resident, kernel, &cfg);
     if (err != cudaSuccess) return (int)err;
     if (resident <= 0) return (int)cudaErrorInvalidConfiguration;
   }
   cfg.gridDim = dim3(CL * (groups < resident ? groups : resident));
-  err = cudaLaunchKernelEx(&cfg, kernel, maps, v, tiles);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// the persistent grid of clusters of CL CTAs over `tiles` 64-token tiles
+template <typename In, int CL>
+int launch_tiles(const Maps& maps, const Vecs& v, int tiles, cudaStream_t stream) {
+  static int resident = 0;  // clusters resident on the card at once
+  return launch_persistent<CL>(mlp_kernel<In, CL>, Layout<Cfg<In>>::BYTES, (tiles + CL - 1) / CL,
+                               resident, stream, maps, v, tiles);
 }
 
 // x, msg, out [tokens, 256] bf16; wp [256, 256], w0 [512, 512] (input

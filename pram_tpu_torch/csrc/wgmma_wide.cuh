@@ -3,7 +3,8 @@
 // products that fill it from two shared-memory descriptors, and the
 // register hand-over between warpgroups (setmaxnreg). Shared by the conv
 // tile (conv_tile.cuh, kernels 18 and 19) and the residual-MLP tile
-// (mlp_tile.cuh, kernels 2 and 16).
+// (mlp_tile.cuh, kernels 2 and 16) and the residual-MLP backward (mlp_bwd.cu,
+// kernel 15), whose products read MN-major operands too (mma_t).
 
 #pragma once
 
@@ -79,14 +80,21 @@ __device__ __forceinline__ void mma(Acc<int, 128>& c, uint64_t da, uint64_t db,
       : WGW_K64(c, "+r", 0)
       : "l"(da), "l"(db), "r"(accumulate));
 }
-__device__ __forceinline__ void mma(Acc<float, 256>& c, uint64_t da,
-                                    uint64_t db, int accumulate) {
+// bf16: TA = 1 and / or TB = 1 read A and / or B MN-major (wgmma's
+// transpose bits, which bf16 takes and s8 does not)
+template <int TA, int TB>
+__device__ __forceinline__ void mma_t(Acc<float, 256>& c, uint64_t da,
+                                      uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WGW_R128
-      ", %128, %129, p, 1, 1, 0, 0;\n}\n"
+      ", %128, %129, p, 1, 1, %131, %132;\n}\n"
       : WGW_K64(c, "+f", 0), WGW_K64(c, "+f", 64)
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+__device__ __forceinline__ void mma(Acc<float, 256>& c, uint64_t da,
+                                    uint64_t db, int accumulate) {
+  mma_t<0, 0>(c, da, db, accumulate);
 }
 __device__ __forceinline__ void mma(Acc<float, 128>& c, uint64_t da,
                                     uint64_t db, int accumulate) {

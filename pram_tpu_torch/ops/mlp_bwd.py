@@ -8,7 +8,9 @@ residual included), dpm and the gradients of mlp_0, the LayerNorm and
 mlp_3, summed over every token. A CPU tensor takes
 :func:`residual_mlp_bwd_plain`; a CUDA tensor launches ``csrc/mlp_bwd.cu``
 or raises. Weights are in torch ``Linear`` layout (``[out, in]``), and so
-are their gradients.
+are their gradients. The kernel reads b0, ln_w and ln_b as the caller holds
+them (all bf16, as the training step's casts leave them, or f32) and widens
+them exactly as it loads them.
 """
 
 from __future__ import annotations
@@ -25,9 +27,11 @@ LAUNCHES = {"residual_mlp_bwd": 0}
 # shapes the CUDA kernel is written for
 KERNEL_D = 256
 KERNEL_HIDDEN = 512
-KERNEL_TOKEN_TILE = 32
-# the weight-gradient pass sums every 4th 32-token chunk in one block
-KERNEL_SPLITS = 4
+KERNEL_TOKEN_TILE = 32  # tokens must be a multiple of this
+KERNEL_TILE = 64  # tokens of a tile of the token pass (the last may be half empty)
+# the weight-gradient pass splits the tokens into this many contiguous
+# ranges (12 output tiles x 11 = 132 CTAs, one an SM of the H100)
+KERNEL_SPLITS = 11
 
 
 def residual_mlp_bwd_plain(x, pm, ct, w0, b0, ln_w, ln_b, w3, eps=1e-6):
@@ -79,7 +83,10 @@ def residual_mlp_bwd(x, pm, ct, w0, b0, ln_w, ln_b, w3, eps=1e-6):
         )
     if tokens % KERNEL_TOKEN_TILE:
         raise ValueError(f"CUDA residual MLP backward needs tokens % {KERNEL_TOKEN_TILE} == 0")
-    b0, ln_w, ln_b = (t.to(f32).contiguous() for t in (b0, ln_w, ln_b))
+    # the vectors go in as the caller holds them: all bf16, or else f32
+    vdt = torch.bfloat16 if all(t.dtype == torch.bfloat16 for t in (b0, ln_w, ln_b)) else f32
+    if any(t.dtype != vdt for t in (b0, ln_w, ln_b)):
+        b0, ln_w, ln_b = (t.to(vdt) for t in (b0, ln_w, ln_b))
     for name, t in (("x", x), ("pm", pm), ("ct", ct)):
         check_tensor(t, name, x.shape, torch.bfloat16, dev)
         if t.data_ptr() % 16:
@@ -87,10 +94,10 @@ def residual_mlp_bwd(x, pm, ct, w0, b0, ln_w, ln_b, w3, eps=1e-6):
     check_tensor(w0, "w0", (KERNEL_HIDDEN, 2 * d), torch.bfloat16, dev)
     check_tensor(w3, "w3", (d, KERNEL_HIDDEN), torch.bfloat16, dev)
     for name, t in (("b0", b0), ("ln_w", ln_w), ("ln_b", ln_b)):
-        check_tensor(t, name, (KERNEL_HIDDEN,), f32, dev)
-    for name, t in (("w0", w0), ("w3", w3)):
-        if t.data_ptr() % 32:
-            raise ValueError(f"{name} must be 32-byte aligned")
+        check_tensor(t, name, (KERNEL_HIDDEN,), vdt, dev)
+    for name, t in (("w0", w0), ("w3", w3), ("b0", b0), ("ln_w", ln_w), ("ln_b", ln_b)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     dx, dpm = torch.empty_like(x), torch.empty_like(x)
     dw0 = torch.empty((KERNEL_HIDDEN, 2 * d), dtype=f32, device=dev)
     dw3 = torch.empty((d, KERNEL_HIDDEN), dtype=f32, device=dev)
@@ -98,14 +105,18 @@ def residual_mlp_bwd(x, pm, ct, w0, b0, ln_w, ln_b, w3, eps=1e-6):
     db3 = torch.empty(d, dtype=f32, device=dev)
     y = torch.empty((tokens, KERNEL_HIDDEN), dtype=torch.bfloat16, device=dev)
     dh = torch.empty_like(y)
-    colsums = torch.empty((tokens // KERNEL_TOKEN_TILE, 3 * KERNEL_HIDDEN + d), dtype=f32, device=dev)
-    partial = torch.empty((KERNEL_SPLITS, dw0.numel() + dw3.numel()), dtype=f32, device=dev)
+    tiles = -(-tokens // KERNEL_TILE)
+    splits = min(KERNEL_SPLITS, tiles)
+    # each tile's column sums of dz hhat, dz and dh by warp (4 x 16 rows), then ct's
+    colsums = torch.empty((tiles, 4 * 3 * KERNEL_HIDDEN + d), dtype=f32, device=dev)
+    partial = torch.empty((splits, dw0.numel() + dw3.numel()), dtype=f32, device=dev)
     check_status(
         library().pram_residual_mlp_bwd(
             ptr(x), ptr(pm), ptr(ct), ptr(w0), ptr(b0), ptr(ln_w), ptr(ln_b),
             ptr(w3), ptr(dx), ptr(dpm), ptr(dw0), ptr(db0), ptr(dln_w),
             ptr(dln_b), ptr(dw3), ptr(db3), ptr(y), ptr(dh), ptr(colsums),
-            ptr(partial), tokens, KERNEL_SPLITS, ctypes.c_float(eps), stream_of(dev),
+            ptr(partial), tokens, splits, int(vdt == torch.bfloat16), ctypes.c_float(eps),
+            stream_of(dev),
         ),
         "pram_residual_mlp_bwd",
     )

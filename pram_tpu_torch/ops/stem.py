@@ -20,6 +20,10 @@ from pram_tpu_torch._build import check_status, check_tensor, library, ptr, stre
 
 LAUNCHES = {"fused_stem": 0}
 
+# the bf16 kernel reads the image by TMA, whose rows must be a multiple of
+# 16 bytes: a multiple of 8 pixels of 3 bf16 channels
+KERNEL_ROW_PIXELS = 8
+
 BN = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]  # scale, bias, mean, var
 
 
@@ -72,18 +76,32 @@ def fused_stem(image, k1, b1, bn1: BN, k2, b2, bn2: BN) -> torch.Tensor:
         raise ValueError(f"stem kernels must be [64, 3, 3, 3] and [64, 64, 3, 3], "
                          f"got {tuple(k1.shape)} and {tuple(k2.shape)}")
     w1, c1, w2, c2 = _folded(k1, b1, bn1, k2, b2, bn2, dt)
-    # rows (dy, dx, c), columns the output channel
-    w1 = w1.float().permute(2, 3, 1, 0).reshape(27, 64).contiguous()
-    w2 = w2.permute(2, 3, 1, 0).reshape(576, 64).contiguous()
+    # rows K = (dy, dx, c), columns the output channel
+    w1 = w1.float().permute(2, 3, 1, 0).reshape(27, 64)
+    w2 = w2.permute(2, 3, 1, 0).reshape(576, 64)
     c1, c2 = c1.contiguous(), c2.contiguous()
-    check_tensor(w1, "w1", (27, 64), torch.float32, dev)
-    check_tensor(w2, "w2", (576, 64), dt, dev)
+    wp = w
+    if dt == torch.bfloat16:
+        # the wgmma instance's K-major planes [K / 8, 64, 8], conv1a's K
+        # zero-padded to 32; the image's rows padded with zero pixels to a
+        # multiple of 16 bytes for its TMA map
+        w1 = torch.cat([w1, w1.new_zeros(5, 64)]).to(dt).reshape(4, 8, 64).transpose(1, 2).contiguous()
+        w2 = w2.reshape(72, 8, 64).transpose(1, 2).contiguous()
+        check_tensor(w1, "w1", (4, 64, 8), dt, dev)
+        check_tensor(w2, "w2", (72, 64, 8), dt, dev)
+        wp = -(-w // KERNEL_ROW_PIXELS) * KERNEL_ROW_PIXELS
+        if wp != w or image.data_ptr() % 16:
+            image = F.pad(image, (0, 0, 0, wp - w))
+    else:
+        w1, w2 = w1.contiguous(), w2.contiguous()
+        check_tensor(w1, "w1", (27, 64), torch.float32, dev)
+        check_tensor(w2, "w2", (576, 64), dt, dev)
     check_tensor(c1, "b1", (64,), torch.float32, dev)
     check_tensor(c2, "b2", (64,), torch.float32, dev)
     out = torch.empty((b, (h + 1) // 2, (w + 1) // 2, 64), dtype=dt, device=dev)
     check_status(
         library().pram_stem(
-            ptr(image), ptr(w1), ptr(c1), ptr(w2), ptr(c2), ptr(out), b, h, w,
+            ptr(image), ptr(w1), ptr(c1), ptr(w2), ptr(c2), ptr(out), b, h, w, wp,
             int(dt == torch.bfloat16), stream_of(dev),
         ),
         "pram_stem",

@@ -394,6 +394,7 @@ def test_stem_kernel(dev, dtype, b, h, w):
         assert err <= 0.02 * ref.float().abs().max().item()
     else:
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    assert torch.equal(stem.fused_stem(image, *args), got)  # two launches bit-equal
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -690,21 +691,26 @@ def test_cross_attention_bwd_kernel(dev, b, n0, n1):
     assert _bit_equal(attention_bwd.cross_attention_bwd(*args), got)
 
 
-@pytest.mark.parametrize("tokens", [96, 16384])
-def test_residual_mlp_bwd_kernel(dev, tokens):
+@pytest.mark.parametrize("tokens,vec_dtype", [(96, torch.float32), (16384, torch.float32),
+                                              (16384, torch.bfloat16), (16416, torch.bfloat16)])
+def test_residual_mlp_bwd_kernel(dev, tokens, vec_dtype):
+    """16416 tokens: the last 64-token tile holds 32; bf16 vectors as the
+    training step holds them (read as they are, widened in the kernel)."""
     g = torch.Generator().manual_seed(tokens)
     d = 256
     x, pm, ct = (_rand(g, 2, tokens // 2, d).to(dev, torch.bfloat16) for _ in range(3))
     args = (
         x, pm, ct, _rand(g, 2 * d, 2 * d, scale=(2 * d) ** -0.5).to(dev, torch.bfloat16),
-        _rand(g, 2 * d, scale=0.1).to(dev), (1 + _rand(g, 2 * d, scale=0.1)).to(dev),
-        _rand(g, 2 * d, scale=0.1).to(dev), _rand(g, d, 2 * d, scale=(2 * d) ** -0.5).to(dev, torch.bfloat16),
+        _rand(g, 2 * d, scale=0.1).to(dev, vec_dtype), (1 + _rand(g, 2 * d, scale=0.1)).to(dev, vec_dtype),
+        _rand(g, 2 * d, scale=0.1).to(dev, vec_dtype),
+        _rand(g, d, 2 * d, scale=(2 * d) ** -0.5).to(dev, torch.bfloat16),
     )
     before = mlp_bwd.LAUNCHES["residual_mlp_bwd"]
     got = mlp_bwd.residual_mlp_bwd(*args)
     torch.cuda.synchronize()
     assert mlp_bwd.LAUNCHES["residual_mlp_bwd"] == before + 1
     _check_bwd(got, mlp_bwd.residual_mlp_bwd_plain(*args), 2)
+    assert _bit_equal(mlp_bwd.residual_mlp_bwd(*args), got)
 
 
 def test_backward_wrappers_refuse_what_the_kernels_do_not_take(dev):
