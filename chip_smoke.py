@@ -453,6 +453,13 @@ def check_projection(name: str, got, ref, pre=None, rot_cols: int = 0) -> float:
     return err
 
 
+def ptxas_summary(build, source: str) -> dict:
+    """{kernel: [registers, spilled bytes stored + loaded, stack frame
+    bytes]} of csrc/<source>."""
+    return {k["kernel"]: [k["registers"], k["spill_stores"] + k["spill_loads"], k["stack"]]
+            for k in build.ptxas_report(source)}
+
+
 def require_no_spills(build, sources) -> None:
     """log_ptxas, and fail on a spill."""
     for src, k in log_ptxas(build, sources):
@@ -1020,11 +1027,20 @@ def main() -> int:
             f"relative err {rel:.3e} (tol {SINKHORN_DUSTBIN_RTOL})")
         require(err <= SINKHORN_ATOL and rel <= SINKHORN_DUSTBIN_RTOL,
                 "sinkhorn kernel disagrees with its plain version")
+        require(torch.equal(sinkhorn.sinkhorn(*k_args).view(torch.int32), plan.view(torch.int32)),
+                "sinkhorn: two launches differ")
+        cl_size, cl_active = sinkhorn.instance(n0, n1, dev)
+        log(f"sinkhorn ({batch} x {n0} x {n1}): the cluster instance with {cl_size} blocks a problem; "
+            f"cudaOccupancyMaxActiveClusters places {cl_active} such clusters at once")
+        require(cl_size > 0, "sinkhorn: GML's shape did not take the cluster instance")
         plan_elems = batch * (n0 + 1) * (n1 + 1)
         k_bytes = sim.numel() * 4 + plan_elems * 4 + batch * (n0 + n1 + 2) * 4
         # softmax ~4 ops an entry, each iteration 4 (row and column multiply-add), the plan 2
         k_ops = plan_elems * (4 + 4 * gml.config.sinkhorn_iterations + 2)
         bnd, by = bound_ms(k_bytes, k_ops, F32_FLOPS)
+        require_no_spills(_build, ("sinkhorn.cu", "nms.cu"))
+        require(all(k[2] == 0 for src in ("sinkhorn.cu", "nms.cu") for k in ptxas_summary(_build, src).values()),
+                "a kernel of sinkhorn.cu / nms.cu keeps an array on the stack")
         rows["sinkhorn"] = dict(
             name="sinkhorn", route="cuda", source="pram_tpu_torch/csrc/sinkhorn.cu",
             replaces="pram_tpu/ops/sinkhorn_pallas.py:70",
@@ -1032,7 +1048,13 @@ def main() -> int:
             ms=cuda_ms(torch, lambda: sinkhorn.sinkhorn(*k_args)),
             plain_ms=cuda_ms(torch, lambda: sinkhorn.sinkhorn_matching(*k_args), iters=5),
             bound_ms=bnd, bound_by=by, library_ms=None,
+            device_ms=launch_ms(torch, lambda: sinkhorn.sinkhorn(*k_args),
+                                want=lambda k: k == "cluster_kernel").get("cluster_kernel"),
+            cluster=cl_size, active_clusters=cl_active, ptxas=ptxas_summary(_build, "sinkhorn.cu"),
         )
+        log(f"sinkhorn: {rows['sinkhorn']['ms']:.4f} ms a call (CUDA events), the kernel "
+            f"{rows['sinkhorn']['device_ms']} ms a launch (torch.profiler); bound {bnd:.4f} ms ({by}); "
+            f"ptxas {rows['sinkhorn']['ptxas']}")
 
         # kernel 7 on the refinement inputs of the first slice's poses
         cam_dev = Camera(cam_params.to(dev), cam_size.to(dev))
@@ -1201,18 +1223,32 @@ def main() -> int:
             log(f"nms ({name}): {diff} elements differ of {ref.numel()}; "
                 f"{int((ref > 0).sum().item())} maxima survive")
             require(diff == 0, f"nms ({name}) kernel is not bit-equal to its plain version")
+            require(torch.equal(nms.nms(sm, 4), got), f"nms ({name}): two launches differ")
         n_px = smap.numel()
-        # 5 separable pools of 2 * 8 max a pixel, and ~8 tests and selects
-        bnd, by = bound_ms(2 * n_px * 2, 88.0 * n_px, F32_FLOPS)
+        # The cheapest exact form of the chain, a pixel: three float pools at
+        # ~3 max a pixel a direction (van Herk / Gil-Werman), two binary pools
+        # as word operations (a column OR of 2R + 1 words, 2R funnel shifts and
+        # 2R ORs along the row, for 32 pixels), three equality tests, the two
+        # re-detections' and-not and or, the output's select. The bytes bind.
+        nms_r = 4
+        nms_ops = n_px * (3 * 2 * 3 + 2 * 6 * nms_r / 32 + 3 + 2 * 2 + 1)
+        bnd, by = bound_ms(2 * n_px * smap.element_size(), nms_ops, F32_FLOPS)
         rows["nms"] = dict(
             name="nms", route="cuda", source="pram_tpu_torch/csrc/nms.cu",
             replaces="pram_tpu/ops/nms_pallas.py:102",
             launches=None, max_abs_err=0.0,
-            ms=cuda_ms(torch, lambda: nms.nms(smap, 4)),
-            plain_ms=cuda_ms(torch, lambda: nms.simple_nms(smap, 4), iters=5),
+            ms=cuda_ms(torch, lambda: nms.nms(smap, nms_r)),
+            plain_ms=cuda_ms(torch, lambda: nms.simple_nms(smap, nms_r), iters=5),
             bound_ms=bnd, bound_by=by, library_ms=None,
+            device_ms=launch_ms(torch, lambda: nms.nms(smap, nms_r),
+                                want=lambda k: k == "nms_kernel").get("nms_kernel"),
+            f32_ms=cuda_ms(torch, lambda: nms.nms(smap32, nms_r), iters=5),
+            ptxas=ptxas_summary(_build, "nms.cu"),
         )
-        log(f"nms f32: {cuda_ms(torch, lambda: nms.nms(smap32, 4), iters=5):.4f} ms")
+        log(f"nms (bf16, {tuple(smap.shape)}): {rows['nms']['ms']:.4f} ms a call (CUDA events), the kernel "
+            f"{rows['nms']['device_ms']} ms a launch (torch.profiler); f32 {rows['nms']['f32_ms']:.4f} ms; "
+            f"bound {bnd:.4f} ms ({by}: {2 * n_px * smap.element_size() / 1e6:.1f} MB, "
+            f"{nms_ops / n_px:.2f} operations a pixel); ptxas {rows['nms']['ptxas']}")
         del sfd2_f32, x32, y32, r32, smap32
     phase("extract_kernels", t)
 

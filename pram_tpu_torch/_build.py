@@ -59,8 +59,11 @@ _SIGNATURES = {
     # frame strides, row scratch, stat0, stat1, B, N, M, heads, scale,
     # is_f32, stream
     "pram_cross_attention_packed": [_P] * 4 + [_L] * 4 + [_P] * 4 + [_L] * 2 + [_P] * 3 + [_I] * 4 + [_F, _I, _P],
-    # sim, r, c, bin, out, B, n, m, iters, stream
-    "pram_sinkhorn": [_P] * 5 + [_I, _I, _I, _I, _P],
+    # sim, r, c, bin, out, B, n, m, iters, cluster size (0: the streaming
+    # instance), stream
+    "pram_sinkhorn": [_P] * 5 + [_I] * 5 + [_P],
+    # n, m, cluster size and clusters placed at once (int pointers)
+    "pram_sinkhorn_plan": [_I, _I, _P, _P],
     # descs, pdesc, kpts, uv, in_img, qmask, gate_r, ratio, nn_idx, d1, keep,
     # B, N, P, stream
     "pram_refine_nn": [_P] * 6 + [_F, _F] + [_P] * 3 + [_I, _I, _I, _P],
@@ -209,8 +212,9 @@ def _short_name(mangled: str) -> str:
 def ptxas_report(source: str) -> list:
     """What ptxas said of each kernel of ``csrc/<source>`` when the loaded
     library was built: ``[{"kernel", "registers", "spill_stores",
-    "spill_loads", "notes"}]`` (spills in bytes; ``notes``: ptxas's
-    warnings and performance remarks on the kernel)."""
+    "spill_loads", "stack", "notes"}]`` (spills and the stack frame, where
+    arrays indexed at run time live, in bytes; ``notes``: ptxas's warnings
+    and performance remarks on the kernel)."""
     path = library_path().with_suffix(".ptxas.txt")
     text = path.read_text() if path.exists() else ""
     section = text.split(f"# {source}\n", 1)[1].split("\n# ", 1)[0] if f"# {source}\n" in text else ""
@@ -219,11 +223,14 @@ def ptxas_report(source: str) -> list:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             current = dict(kernel=_short_name(m.group(1)), registers=None, spill_stores=None,
-                           spill_loads=None, notes=[])
+                           spill_loads=None, stack=None, notes=[])
             kernels.append(current)
             continue
         if current is None:
             continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            current["stack"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             current["spill_stores"], current["spill_loads"] = int(m.group(1)), int(m.group(2))

@@ -15,6 +15,7 @@ or raises. :func:`dual_softmax_matching` has no kernel in either package.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -22,9 +23,12 @@ import torch
 from pram_tpu_torch._build import check_status, check_tensor, library, ptr, stream_of
 
 LAUNCHES = {"sinkhorn": 0}
+# (device index, n, m) -> (cluster size, clusters the card places at once)
+# of the instance that takes [n, m] problems; (0, 0): the streaming one
+CLUSTERS = {}
 
 _EPS = 1e-8
-KERNEL_MAX_COLS = 32 * 48  # M + 1 the CUDA kernel holds per row
+KERNEL_MAX_COLS = 32 * 48  # M + 1 the streaming CUDA instance holds per row
 
 
 def _augment_with_dustbin(sim: torch.Tensor, dustbin) -> torch.Tensor:
@@ -101,6 +105,30 @@ def dual_softmax_matching(
     return out
 
 
+def instance(n: int, m: int, device) -> Tuple[int, int]:
+    """The CUDA instance that takes ``[n, m]`` problems on ``device``, as
+    ``(cluster size, clusters the card places at once)``: the cluster
+    instance where a cluster of 16 blocks holds the n + 1 rows in shared
+    memory (m + 1 <= 1152 and ceil((n + 1) / 16) rows of m + 1 floats, with
+    v and the exchange's scratch, within 227 KB a block: n <= 863 at m =
+    1024; GML's 512 x 1024 takes 141 KB) and the card places one, else the
+    smallest cluster whose rows fit and that it places; ``(0, 0)`` for the
+    streaming instance, which takes every other shape up to m + 1 = 1536.
+    Asked of the card (cudaOccupancyMaxActiveClusters) once a shape and
+    kept in :data:`CLUSTERS`."""
+    dev = torch.device(device)
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(), n, m)
+    if key not in CLUSTERS:
+        size, active = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(key[0]):
+            check_status(
+                library().pram_sinkhorn_plan(n, m, ctypes.byref(size), ctypes.byref(active)),
+                "pram_sinkhorn_plan",
+            )
+        CLUSTERS[key] = (size.value, active.value)
+    return CLUSTERS[key]
+
+
 def sinkhorn(
     sim: torch.Tensor,
     dustbin,
@@ -111,7 +139,11 @@ def sinkhorn(
     """:func:`sinkhorn_matching` on the CPU; ``csrc/sinkhorn.cu`` on CUDA.
 
     ``dustbin`` is a scalar tensor or float; the kernel reads it from the
-    device.
+    device. On CUDA the instance is chosen by shape before the launch
+    (:func:`instance`): the cluster instance, which keeps the plan in a
+    16-block cluster's shared memory, for every shape whose rows fit it;
+    the streaming instance, which holds at most 1536 columns (M + 1) and
+    any number of rows, for the others. A failed launch raises.
     """
     if sim.device.type == "cpu":
         return sinkhorn_matching(sim, dustbin, num_iters, mask0, mask1)
@@ -120,6 +152,7 @@ def sinkhorn(
     f32 = torch.float32
     if m + 1 > KERNEL_MAX_COLS:
         raise ValueError(f"CUDA Sinkhorn holds at most {KERNEL_MAX_COLS} columns, got {m + 1}")
+    cluster, _ = instance(n, m, dev)
     check_tensor(sim, "sim", (b, n, m), f32, dev)
     r, c = marginals(b, n, m, mask0, mask1, f32, dev)
     check_tensor(r, "row marginals (mask0)", (b, n + 1), f32, dev)
@@ -128,7 +161,7 @@ def sinkhorn(
     bin_ = torch.as_tensor(dustbin).to(device=dev, dtype=f32).reshape(1).contiguous()
     check_status(
         library().pram_sinkhorn(
-            ptr(sim), ptr(r), ptr(c), ptr(bin_), ptr(out), b, n, m, num_iters,
+            ptr(sim), ptr(r), ptr(c), ptr(bin_), ptr(out), b, n, m, num_iters, cluster,
             stream_of(dev),
         ),
         "pram_sinkhorn",

@@ -210,6 +210,30 @@ def test_sinkhorn_kernel(dev, b, n, m):
     assert (got[:, :, :m].transpose(1, 2)[~m1.to(dev)] == 0).all()
 
 
+@pytest.mark.parametrize("b,n,m,clustered", [(2, 512, 1024, True), (2, 70, 301, True), (1, 600, 1500, False)])
+def test_sinkhorn_kernel_instances(dev, b, n, m, clustered):
+    """GML's shape takes the cluster instance (16 blocks a problem), and so
+    does 70 x 301 (m % 4 != 0: the similarity read without 16-byte
+    copies); 600 x 1500 (m + 1 > 1152) takes the streaming one. Either
+    gives the same bits on two launches."""
+    size, active = sinkhorn.instance(n, m, dev)
+    assert (size, active > 0) == ((16, True) if clustered else (0, False))
+    g = torch.Generator().manual_seed(m)
+    sim = _rand(g, b, n, m, scale=3.0).to(dev)
+    m0 = (torch.rand(b, n, generator=g) > 0.1).to(dev)
+    m1 = (torch.rand(b, m, generator=g) > 0.4).to(dev)
+    args = (sim, torch.tensor(0.9, device=dev), 20, m0, m1)
+    before = sinkhorn.LAUNCHES["sinkhorn"]
+    got = sinkhorn.sinkhorn(*args)
+    torch.cuda.synchronize()
+    assert sinkhorn.LAUNCHES["sinkhorn"] == before + 1
+    ref = sinkhorn.sinkhorn_matching(*args)
+    assert (got[:, :n, :m] - ref[:, :n, :m]).abs().max().item() <= 1e-4
+    for a, r in ((got[:, n, :], ref[:, n, :]), (got[:, :, m], ref[:, :, m])):
+        assert ((a - r).abs() / r.abs().clamp(min=1e-6)).max().item() <= 3e-3
+    assert torch.equal(sinkhorn.sinkhorn(*args).view(torch.int32), got.view(torch.int32))
+
+
 @pytest.mark.parametrize("b,n,p", [(2, 128, 256), (4, 512, 2048)])
 def test_refine_nn_kernel(dev, b, n, p):
     g = torch.Generator().manual_seed(p)
@@ -409,6 +433,18 @@ def test_nms_kernel(dev, dtype, b, h, w, r):
         torch.cuda.synchronize()
         assert nms.LAUNCHES["nms"] == before + 1
         assert torch.equal(got, nms.simple_nms(s, r))
+
+
+@pytest.mark.parametrize("dtype,bits", [(torch.bfloat16, torch.int16), (torch.float32, torch.int32)])
+@pytest.mark.parametrize("b,h,w,r", [(3, 129, 437, 4), (2, 77, 250, 2)])
+def test_nms_kernel_ragged_two_launches(dev, dtype, bits, b, h, w, r):
+    """Ragged tiles on both edges (437 = 2 x 216 + 5 columns at R = 4),
+    signed maps (the -inf padding), bit for bit on two launches."""
+    g = torch.Generator().manual_seed(h * w + r)
+    s = torch.randn(b, h, w, generator=g).to(dev, dtype)
+    got = nms.nms(s, r)
+    assert torch.equal(got.view(bits), nms.simple_nms(s, r).view(bits))
+    assert torch.equal(nms.nms(s, r).view(bits), got.view(bits))
 
 
 def test_extractor_wrappers_refuse_what_the_kernels_do_not_take(dev):
