@@ -406,6 +406,26 @@ def attention_bounds(name: str, k: dict) -> dict:
                 no_stats_ms=k["no_stats_ms"])
 
 
+def polish_bound(P: int, N: int, cfg) -> dict:
+    """bound_ms / bound_by of kernel 4 on P problems of N points: its inputs
+    read once and outputs written once; ~150 f32 operations a point a GN
+    step and ~50 a count, as many counts and steps as the JAX kernel runs."""
+    n_gn = (cfg.lo_rounds + 3) * cfg.gn_iters
+    n_count = 2 * (cfg.lo_rounds + 3) + 1
+    g_bytes = P * N * (12 + 8 + 1 + 1) + P * (12 + 12 + 12 + 4) * 4
+    bnd, by = bound_ms(g_bytes, float(P * N * (150 * n_gn + 50 * n_count)), F32_FLOPS)
+    return dict(bound_ms=bnd, bound_by=by)
+
+
+def refine_bound(B: int, N: int, P: int) -> dict:
+    """bound_ms / bound_by of kernel 7 on B problems of N queries and P
+    points: the bf16 similarities on the tensor cores against the bytes of
+    the inputs and outputs."""
+    r_bytes = B * (N * (128 * 2 + 8 + 1) + P * (128 * 2 + 8 + 1) + N * (4 + 4 + 1))
+    bnd, by = bound_ms(r_bytes, 2.0 * B * N * P * 128, BF16_TENSOR_FLOPS)
+    return dict(bound_ms=bnd, bound_by=by)
+
+
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -809,18 +829,27 @@ def main() -> int:
         f"max |count diff| {dN}, max flag diffs per problem {dI} (tol {POLISH_COUNT_DIFF})")
     require(max(dR, dT) <= POLISH_POSE_ATOL, "gn_polish pose disagrees with its plain version")
     require(dN <= POLISH_COUNT_DIFF and dI <= POLISH_COUNT_DIFF, "gn_polish inliers disagree")
-    n_gn = (loc_cfg.lo_rounds + 3) * loc_cfg.gn_iters
-    n_count = 2 * (loc_cfg.lo_rounds + 3) + 1
-    g_bytes = P * N * (12 + 8 + 1 + 1) + P * (12 + 12 + 12 + 4) * 4
-    bnd, by = bound_ms(g_bytes, float(P * N * (150 * n_gn + 50 * n_count)), F32_FLOPS)
+    again = pnp.gn_polish(*g_args, **g_kw)
+    require(all(torch.equal(a.view(torch.uint8), b.view(torch.uint8)) for a, b in zip(again, got)),
+            "gn_polish: two launches differ")
+    require_no_spills(_build, ("pnp.cu", "refine.cu"))
+    require(all(k[2] == 0 for src in ("pnp.cu", "refine.cu") for k in ptxas_summary(_build, src).values()),
+            "a kernel of pnp.cu / refine.cu keeps an array on the stack")
     rows["gn_polish"] = dict(
         name="gn_polish", route="cuda", source="pram_tpu_torch/csrc/pnp.cu",
         replaces="pram_tpu/ops/pnp_pallas.py:378",
         launches=None, max_abs_err=max(dR, dT),
         ms=cuda_ms(torch, lambda: pnp.gn_polish(*g_args, **g_kw)),
         plain_ms=cuda_ms(torch, lambda: pnp.gn_polish_plain(*g_args, **g_kw), iters=5),
-        bound_ms=bnd, bound_by=by, library_ms=None,
+        library_ms=None, **polish_bound(P, N, loc_cfg),
+        device_ms=launch_ms(torch, lambda: pnp.gn_polish(*g_args, **g_kw),
+                            want=lambda k: k == "polish_kernel").get("polish_kernel"),
+        cluster=pnp.polish_cluster(N), ptxas=ptxas_summary(_build, "pnp.cu"),
     )
+    log(f"gn_polish ({P} x {N}): {rows['gn_polish']['ms']:.4f} ms a call (CUDA events), the kernel "
+        f"{rows['gn_polish']['device_ms']} ms a launch (torch.profiler), clusters of "
+        f"{rows['gn_polish']['cluster']} CTAs; bound {rows['gn_polish']['bound_ms']:.5f} ms; "
+        f"ptxas {rows['gn_polish']['ptxas']}")
     phase("kernels", t)
 
     # ---- 5. the first slice, counted; its matcher inputs are kept for phase 6
@@ -1075,17 +1104,24 @@ def main() -> int:
             f"{int(keep.sum())} of {int(qm.sum())} valid queries")
         require(idx_agree >= REFINE_AGREE and keep_agree >= REFINE_AGREE and err <= REFINE_D1_ATOL,
                 "refine_nn kernel disagrees with its plain version")
+        again = refine.refine_nn(*r_args)
+        require(all(torch.equal(a, b) for a, b in zip(again, (idx, dd1, keep))), "refine_nn: two launches differ")
         n_pts = rset.desc.shape[1]
-        r_bytes = batch * (n0 * (128 * 2 + 8 + 1) + n_pts * (128 * 2 + 8 + 1) + n0 * (4 + 4 + 1))
-        bnd, by = bound_ms(r_bytes, 2.0 * batch * n0 * n_pts * 128, BF16_TENSOR_FLOPS)
         rows["refine_nn"] = dict(
             name="refine_nn", route="cuda", source="pram_tpu_torch/csrc/refine.cu",
             replaces="pram_tpu/ops/refine_pallas.py:139",
             launches=None, max_abs_err=err,
             ms=cuda_ms(torch, lambda: refine.refine_nn(*r_args)),
             plain_ms=cuda_ms(torch, lambda: refine.refine_nn_plain(*r_args), iters=5),
-            bound_ms=bnd, bound_by=by, library_ms=None,
+            library_ms=None, **refine_bound(batch, n0, n_pts),
+            device_ms=launch_ms(torch, lambda: refine.refine_nn(*r_args),
+                                want=lambda k: k == "refine_nn_kernel").get("refine_nn_kernel"),
+            ptxas=ptxas_summary(_build, "refine.cu"),
         )
+        log(f"refine_nn ({batch} x {n0} x {n_pts}): {rows['refine_nn']['ms']:.4f} ms a call (CUDA events), "
+            f"the kernel {rows['refine_nn']['device_ms']} ms a launch (torch.profiler); bound "
+            f"{rows['refine_nn']['bound_ms']:.4f} ms ({rows['refine_nn']['bound_by']}); "
+            f"ptxas {rows['refine_nn']['ptxas']}")
         # GML layer 0's activations, for the backward kernels of phase 15
         gml_l0 = dict(x=x, cos=cos, sin=sin, m0=m0, m1=m1, y=y, splits=splits)
     phase("gml_kernels", t)
@@ -1373,8 +1409,25 @@ def main() -> int:
         return ada_fn(*args)
 
     a_loc.match_fn = recording_ada
-    with torch.no_grad():
-        a_loc.localize_batch(torch.Generator().manual_seed(7), *a_inputs(a_batches[0], dev))
+    # and the first inputs kernels 7 and 4 take on this run
+    from pram_tpu_torch.engine import localizer as localizer_mod
+    k47_inputs = {}
+
+    def recording(name, fn):
+        def wrapped(*args, **kwargs):
+            k47_inputs.setdefault(name, (args, kwargs))
+            return fn(*args, **kwargs)
+        return wrapped
+
+    polish_fn = pnp.gn_polish
+    localizer_mod.refine_nn = recording("refine_nn", refine.refine_nn)
+    pnp.gn_polish = recording("gn_polish", polish_fn)
+    try:
+        with torch.no_grad():
+            a_loc.localize_batch(torch.Generator().manual_seed(7), *a_inputs(a_batches[0], dev))
+    finally:
+        localizer_mod.refine_nn = refine.refine_nn
+        pnp.gn_polish = polish_fn
     a_loc.match_fn = ada_fn
     d0, nk0, _, m0, d1, nk1, _, m1 = ada_inputs[0]
     n0, n1 = d0.shape[1], d1.shape[1]
@@ -1542,6 +1595,68 @@ def main() -> int:
             library_ms=cuda_ms(torch, lambda: sdpa(gq_, gk_, gv_, attn_mask=gmask, scale=gscale)),
         )
         del q_, k_, v_, q0_, q1_, v0_, v1_, got, ref, msg, rmsg, stat, rstat
+
+        # kernels 7 and 4 at this slice's shapes, on their inputs of the
+        # uncounted run: against their plain versions at the GML rows'
+        # tolerances, two launches bit-equal, timed beside the GML rows
+        r_args, _ = k47_inputs["refine_nn"]
+        rb, rn, rp = r_args[0].shape[0], r_args[0].shape[1], r_args[1].shape[1]
+        idx, dd1, keep = refine.refine_nn(*r_args)
+        ridx, rd1, rkeep = refine.refine_nn_plain(*r_args)
+        qm = r_args[5]
+        idx_agree = (idx == ridx)[qm].float().mean().item()
+        keep_agree = (keep == rkeep).float().mean().item()
+        err = (dd1 - rd1).abs().max().item()
+        log(f"refine_nn ({rb} x {rn} x {rp}): index agreement {idx_agree:.5f}, keep agreement {keep_agree:.5f} "
+            f"(tol {REFINE_AGREE}), max |d1 diff| {err:.3e} (tol {REFINE_D1_ATOL}); kept {int(keep.sum())} of "
+            f"{int(qm.sum())} valid queries")
+        require(idx_agree >= REFINE_AGREE and keep_agree >= REFINE_AGREE and err <= REFINE_D1_ATOL,
+                "refine_nn kernel disagrees with its plain version at the AdaGML shape")
+        again = refine.refine_nn(*r_args)
+        require(all(torch.equal(a, b) for a, b in zip(again, (idx, dd1, keep))),
+                "refine_nn: two launches differ at the AdaGML shape")
+        ada7 = refine_bound(rb, rn, rp)
+        rows["refine_nn"].update(
+            shape_adagml=[rb, rn, rp], max_abs_err_adagml=err,
+            ms_adagml=cuda_ms(torch, lambda: refine.refine_nn(*r_args)),
+            plain_ms_adagml=cuda_ms(torch, lambda: refine.refine_nn_plain(*r_args), iters=3),
+            device_ms_adagml=launch_ms(torch, lambda: refine.refine_nn(*r_args),
+                                       want=lambda k: k == "refine_nn_kernel").get("refine_nn_kernel"),
+            bound_adagml_ms=ada7["bound_ms"], bound_adagml_by=ada7["bound_by"])
+        r7 = rows["refine_nn"]
+        log(f"refine_nn ({rb} x {rn} x {rp}): {r7['ms_adagml']:.4f} ms a call, the kernel {r7['device_ms_adagml']} "
+            f"ms a launch; plain {r7['plain_ms_adagml']:.4f} ms; bound {r7['bound_adagml_ms']:.4f} ms "
+            f"({r7['bound_adagml_by']})")
+        del idx, dd1, keep, ridx, rd1, rkeep, again
+
+        g_args, g_kw = k47_inputs["gn_polish"]
+        gp, gn = g_args[5].shape
+        got = pnp.gn_polish(*g_args, **g_kw)
+        ref = pnp.gn_polish_plain(*g_args, **g_kw)
+        dR = (got[0] - ref[0]).abs().max().item()
+        dT = (got[1] - ref[1]).abs().max().item()
+        dN = (got[2] - ref[2]).abs().max().item()
+        dI = (got[3] != ref[3]).sum(-1).max().item()
+        log(f"gn_polish ({gp} x {gn}): max |dR| {dR:.2e} |dt| {dT:.2e} (tol {POLISH_POSE_ATOL}), "
+            f"max |count diff| {dN}, max flag diffs per problem {dI} (tol {POLISH_COUNT_DIFF})")
+        require(max(dR, dT) <= POLISH_POSE_ATOL, "gn_polish pose disagrees with its plain version at the AdaGML shape")
+        require(dN <= POLISH_COUNT_DIFF and dI <= POLISH_COUNT_DIFF, "gn_polish inliers disagree at the AdaGML shape")
+        again = pnp.gn_polish(*g_args, **g_kw)
+        require(all(torch.equal(a.view(torch.uint8), b.view(torch.uint8)) for a, b in zip(again, got)),
+                "gn_polish: two launches differ at the AdaGML shape")
+        ada4 = polish_bound(gp, gn, a_cfg)
+        rows["gn_polish"].update(
+            shape_adagml=[gp, gn], max_abs_err_adagml=max(dR, dT), cluster_adagml=pnp.polish_cluster(gn),
+            ms_adagml=cuda_ms(torch, lambda: pnp.gn_polish(*g_args, **g_kw)),
+            plain_ms_adagml=cuda_ms(torch, lambda: pnp.gn_polish_plain(*g_args, **g_kw), iters=3),
+            device_ms_adagml=launch_ms(torch, lambda: pnp.gn_polish(*g_args, **g_kw),
+                                       want=lambda k: k == "polish_kernel").get("polish_kernel"),
+            bound_adagml_ms=ada4["bound_ms"], bound_adagml_by=ada4["bound_by"])
+        r4 = rows["gn_polish"]
+        log(f"gn_polish ({gp} x {gn}): clusters of {r4['cluster_adagml']} CTAs; {r4['ms_adagml']:.4f} ms a call, "
+            f"the kernel {r4['device_ms_adagml']} ms a launch; plain {r4['plain_ms_adagml']:.4f} ms; bound "
+            f"{r4['bound_adagml_ms']:.5f} ms ({r4['bound_adagml_by']})")
+        del got, ref, again
     phase("aachen_kernels", t)
 
     # ---- 13. the AdaGML slice (the main path of this slice), counted

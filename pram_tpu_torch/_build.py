@@ -70,8 +70,8 @@ _SIGNATURES = {
     # cam, R, t, valid, xyz, uv, mask, threshold, out, P, K, N, stream
     "pram_ransac_score": [_P] * 7 + [_F, _P, _I, _I, _I, _P],
     # cam, R0, t0, xyz, uv, mask, threshold, min_inliers, damping, gn_iters,
-    # lo_rounds, R, t, num, inliers, P, N, stream
-    "pram_gn_polish": [_P] * 6 + [_F, _F, _F, _I, _I] + [_P] * 4 + [_I, _I, _P],
+    # lo_rounds, R, t, num, inliers, P, N, cluster size, stream
+    "pram_gn_polish": [_P] * 6 + [_F, _F, _F, _I, _I] + [_P] * 4 + [_I, _I, _I, _P],
     # image, w1, b1, w2, b2, out, B, H, W, the image's pixels a row, is_bf16,
     # stream
     "pram_stem": [_P] * 6 + [_I] * 5 + [_P],

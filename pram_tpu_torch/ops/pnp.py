@@ -7,7 +7,8 @@ Two kernels of ``csrc/pnp.cu`` with their plain PyTorch twins:
 - :func:`gn_polish` replaces ``pram_tpu/ops/pnp_pallas.py:gn_polish_pallas``:
   ``lo_rounds`` rounds of [count, Gauss-Newton, count, accept] followed by
   the graduated polish (gates 1, 1/2, 1/4 of the threshold, floored at 2 px)
-  and a final count.
+  and a final count. On the card a problem takes a cluster of C CTAs,
+  chosen by :func:`polish_cluster` from the number of points.
 
 Both run over a batch of ``P`` independent problems. A CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises.
@@ -25,6 +26,10 @@ from pram_tpu_torch.geometry.pnp import _count_inliers, gauss_newton_pose
 
 # kernel launches, counted where each wrapper launches its kernel
 LAUNCHES = {"ransac_score": 0, "gn_polish": 0}
+# the polish's cluster sizes: points a CTA is given at most, and the largest
+# cluster (the largest portable size)
+POLISH_POINTS_PER_CTA = 512
+POLISH_MAX_CLUSTER = 8
 
 
 # ---------------------------------------------------------------------------
@@ -115,11 +120,22 @@ def gn_polish_plain(
     return R, t, num_inl.to(torch.int32), inliers
 
 
+def polish_cluster(n: int) -> int:
+    """The cluster size the polish takes for problems of ``n`` points: the
+    least power of two that gives a CTA at most POLISH_POINTS_PER_CTA points
+    (1 at GML's 512, 8 at AdaGML's 4096), capped at POLISH_MAX_CLUSTER."""
+    c = 1
+    while c < POLISH_MAX_CLUSTER and c * POLISH_POINTS_PER_CTA < n:
+        c *= 2
+    return c
+
+
 def gn_polish(
     cam_params, R0, t0, xyz, uv, mask, threshold, min_inliers,
     *, gn_iters: int = 8, lo_rounds: int = 2, damping: float = 1e-4,
 ):
-    """:func:`gn_polish_plain` on the CPU; ``csrc/pnp.cu:gn_polish`` on CUDA."""
+    """:func:`gn_polish_plain` on the CPU; ``csrc/pnp.cu:gn_polish`` on CUDA,
+    each problem on a cluster of :func:`polish_cluster` CTAs."""
     if xyz.device.type == "cpu":
         return gn_polish_plain(
             cam_params, R0, t0, xyz, uv, mask, threshold, min_inliers,
@@ -146,7 +162,7 @@ def gn_polish(
             ptr(cam_params), ptr(R0), ptr(t0), ptr(xyz), ptr(uv),
             ptr(mask), ctypes.c_float(threshold), ctypes.c_float(min_inliers),
             ctypes.c_float(damping), gn_iters, lo_rounds, ptr(R), ptr(t),
-            ptr(num), ptr(inliers), p, n, stream_of(dev),
+            ptr(num), ptr(inliers), p, n, polish_cluster(n), stream_of(dev),
         ),
         "pram_gn_polish",
     )

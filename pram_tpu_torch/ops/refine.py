@@ -65,7 +65,8 @@ def refine_nn(descs, pdesc, kpts, uv, in_img, qmask, gate_radius, ratio):
     check_tensor(uv, "uv", (b, p, 2), f32, dev)
     check_tensor(in_img, "in_img", (b, p), torch.bool, dev)
     check_tensor(qmask, "qmask", (b, n), torch.bool, dev)
-    for name, t in (("descs", descs), ("pdesc", pdesc)):
+    # TMA boxes (descriptors) and bulk copies (uv, in_img) start on 16 bytes
+    for name, t in (("descs", descs), ("pdesc", pdesc), ("uv", uv), ("in_img", in_img)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     nn_idx = torch.empty((b, n), dtype=torch.int32, device=dev)

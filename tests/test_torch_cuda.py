@@ -64,7 +64,6 @@ from pram_tpu_torch.ops import (
 
 pytestmark = pytest.mark.cuda
 
-
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -256,6 +255,58 @@ def test_refine_nn_kernel(dev, b, n, p):
     assert keep.any()
 
 
+def _refine_tie_case(g, b, n, p, dev):
+    """Near-duplicate map points for half the queries, exact duplicates of
+    the first 16 (and of the next 8 in the last tile) with their
+    projections, every point of the last problem outside the image."""
+    descs = torch.nn.functional.normalize(_rand(g, b, n, 128), dim=-1)
+    pdesc = torch.nn.functional.normalize(_rand(g, b, p, 128), dim=-1)
+    h = n // 2
+    pdesc[:, :h] = torch.nn.functional.normalize(descs[:, :h] + _rand(g, b, h, 128, scale=0.05), dim=-1)
+    pdesc[:, h : h + 16] = pdesc[:, :16]
+    pdesc[:, p - 8 :] = pdesc[:, 16:24]
+    kpts = torch.rand(b, n, 2, generator=g) * torch.tensor([640.0, 480.0])
+    uv = torch.rand(b, p, 2, generator=g) * torch.tensor([640.0, 480.0])
+    uv[:, :h] = kpts[:, :h] + _rand(g, b, h, 2, scale=3.0)
+    uv[:, h : h + 16] = uv[:, :16]
+    uv[:, p - 8 :] = uv[:, 16:24]
+    in_img = torch.rand(b, p, generator=g) > 0.1
+    in_img[:, :24] = True
+    in_img[:, h : h + 16] = True
+    in_img[:, p - 8 :] = True
+    in_img[-1] = False
+    qmask = torch.rand(b, n, generator=g) > 0.1
+    args = [descs.to(dev, torch.bfloat16), pdesc.to(dev, torch.bfloat16)]
+    return args + [a.to(dev).contiguous() for a in (kpts, uv, in_img, qmask)] + [16.0, 0.995]
+
+
+@pytest.mark.parametrize("b,n,p", [(4, 512, 2048), (2, 4096, 4096), (2, 192, 320)])
+def test_refine_nn_kernel_ties_and_launches(dev, b, n, p):
+    """Kernel 7's wgmma/TMA design at GML's and AdaGML's shapes (and one
+    whose last CTA has a warpgroup without queries, with an odd number of
+    point tiles): agreement as above, exact duplicates tie to the first
+    index on both sides and are never kept, a problem with every point
+    gated out keeps nothing, one counted launch a call, the same bits on
+    two launches."""
+    args = _refine_tie_case(torch.Generator().manual_seed(n + p), b, n, p, dev)
+    before = refine.LAUNCHES["refine_nn"]
+    idx, d1, keep = refine.refine_nn(*args)
+    torch.cuda.synchronize()
+    assert refine.LAUNCHES["refine_nn"] == before + 1
+    ridx, rd1, rkeep = refine.refine_nn_plain(*args)
+    assert (idx == ridx).float().mean().item() >= 0.99
+    assert (keep == rkeep).float().mean().item() >= 0.99
+    assert (d1 - rd1).abs().max().item() <= 1e-4
+    ties = torch.arange(16, device=dev).expand(b - 1, 16)
+    assert torch.equal(idx[:-1, :16], ties) and torch.equal(ridx[:-1, :16], ties)
+    assert not keep[:, :16].any() and not keep[-1].any()
+    assert (d1[-1] >= 100).all()
+    assert keep.any()
+    again = refine.refine_nn(*args)
+    for a, r in zip(again, (idx, d1, keep)):
+        assert torch.equal(a, r)
+
+
 def test_residual_mlp_kernel(dev):
     g = torch.Generator().manual_seed(1)
     t, d = 256, 256
@@ -346,6 +397,47 @@ def test_gn_polish_kernel(dev):
     assert (got[2] - ref[2]).abs().max().item() <= 2
     assert (got[3] != ref[3]).sum(-1).max().item() <= 2
     assert (got[1].cpu() - t).abs().max().item() < 2e-2
+
+
+@pytest.fixture(scope="module")
+def polish_problems():
+    """One seeded set of 32 problems of 4096 points; each case below takes
+    its first p problems and their first n points. Problem 14's start lies
+    12.5 cm from the truth and gates in one point at 512 points, so the
+    polish, the plain version's as the kernel's, cannot accept it there."""
+    g = torch.Generator().manual_seed(4097)
+    cam, R, t, xyz, uv, mask = _pnp_problems(g, 32, 4096)
+    R0 = so3_exp(_rand(g, 32, 3, scale=0.02)) @ R
+    t0 = t + _rand(g, 32, 3, scale=0.05)
+    return cam, R0, t0, xyz, uv, mask, t
+
+
+# (problems, points, the cluster size the wrapper picks): GML's shape, then
+# AdaGML's 8 problems cut to reach every size the picker gives
+@pytest.mark.parametrize("p,n,cluster", [(32, 512, 1), (8, 300, 1), (8, 1000, 2), (8, 2000, 4), (8, 4096, 8)])
+def test_gn_polish_kernel_clusters(dev, polish_problems, p, n, cluster):
+    """Kernel 4 on each cluster size the wrapper picks, at GML's and
+    AdaGML's shapes: within the tolerances above of the plain version, the
+    same bits on two launches."""
+    assert pnp.polish_cluster(n) == cluster
+    cam, R0, t0, xyz, uv, mask, t = polish_problems
+    args = [a[:p].to(dev).contiguous() for a in (cam, R0, t0)]
+    args += [a[:p, :n].to(dev).contiguous() for a in (xyz, uv, mask)] + [8.0, 32]
+    kw = dict(gn_iters=5, lo_rounds=1)
+    got = pnp.gn_polish(*args, **kw)
+    ref = pnp.gn_polish_plain(*args, **kw)
+    assert (got[0] - ref[0]).abs().max().item() <= 2e-3
+    assert (got[1] - ref[1]).abs().max().item() <= 2e-3
+    assert (got[2] - ref[2]).abs().max().item() <= 2
+    assert (got[3] != ref[3]).sum(-1).max().item() <= 2
+    assert torch.equal(got[2], got[3].sum(-1).to(torch.int32))
+    # every problem with min_inliers at the end lands on the truth
+    accepted = (got[2] >= 32).cpu()
+    assert accepted.sum().item() >= p - 1
+    assert (got[1].cpu() - t[:p])[accepted].abs().max().item() < 2e-2
+    again = pnp.gn_polish(*args, **kw)
+    for a, r in zip(again, got):
+        assert torch.equal(a.view(torch.uint8), r.view(torch.uint8))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
