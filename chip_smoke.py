@@ -13,7 +13,12 @@ Phases, each printed with its elapsed seconds:
                 bench.py's recall guard and 32 rendered queries of 512 keypoints.
 4. kernels      the first slice's kernels (self-attention and residual MLP at
                 SegNetViT's shapes, RANSAC scoring and GN polish at the PnP
-                shapes) against their plain versions on the card.
+                shapes) against their plain versions on the card; RANSAC
+                scoring also at AdaGML's 8 x 512 x 4096, matching
+                refinement's 32 x 512 x 10240 and 32 x 1024 x 10240 and a
+                tail (32 x 1000 x 10000), each a call, the kernel, its
+                bound and its issue floor (SASS instructions a pair by
+                cuobjdump), and the polish at 32 x 10240.
 5. slice        the first slice on the card: recognition -> mutual-NN matching
                 -> RANSAC PnP (seg_k=1, 128 hypotheses, gn_iters=5,
                 lo_rounds=1, no refinement), with every kernel's launch count
@@ -155,6 +160,17 @@ Phases, each printed with its elapsed seconds:
                 4 views (the extraction A/B bounds in bf16), and against the
                 float extractor (descriptor cosine >= 0.99).
 
+21. matching    refinement by matching on the GML slice's 32 queries (the
+                scene's 4 covisible frames), auto refinement (trust 64, then
+                none trusted) and the adaptive step at seg_k 10, each
+                counted (kernels 3, 4, 6, 7 exactly as the path needs them)
+                and its recall held; then refine_matching_core at the
+                configs' 20 covisible frames (a 24-frame scene, 640 GML
+                problems, 10240 correspondences a query) counted, timed by
+                stage (matcher, noise draw, P3P, kernels 3 and 4), its
+                recall and match precision, and 2 queries on the card
+                against the card machine's CPU with the card's triplets.
+
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Any failed
 check raises, so the script exits non-zero and prints no result. It needs a
@@ -164,6 +180,7 @@ CUDA device and the repository beside it.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -201,6 +218,11 @@ PROJ_STEP = 2.0**-7
 PROJ_FLOOR = 2.0**-13
 PROJ_EQUAL_SHARE = 0.99
 SCORE_MAX_DIFF = 2  # points at the gate edge flip with f32 summation/FMA order
+# kernel 3's shapes (problems, poses, points) beside GML's: AdaGML's,
+# matching refinement's at C = 20 frames of 512 keypoints with 128 and 256
+# hypotheses, and a tail (K not a multiple of 128, N of the 256-point chunk)
+SCORE_SHAPES = (("adagml", (8, 512, 4096)), ("matching_128", (32, 512, 10240)),
+                ("matching_256", (32, 1024, 10240)), ("tail", (32, 1000, 10000)))
 POLISH_POSE_ATOL = 2e-3  # R entries and t (scene units) after 20 GN steps in f32
 POLISH_COUNT_DIFF = 2
 # Sinkhorn: plan entries (<= 1) of the real block within 1e-4; the dustbin row
@@ -426,6 +448,117 @@ def refine_bound(B: int, N: int, P: int) -> dict:
     return dict(bound_ms=bnd, bound_by=by)
 
 
+# f32 operations a (pose, point) pair of kernel 3 by camera. Pinhole: the
+# camera-frame point (9 fmas, 18), the depth guard (compare, select: 2), one
+# reciprocal (1), du and dv (an fma each: 4), the squared norm (3), the two
+# gates, their AND and the count's add (4): 32. With distortion add x and
+# y (2), xy (1), r^2 (3), the radial polynomial (2 fmas: 4) and the two
+# distorted coordinates (8 each): 58.
+SCORE_OPS = {"pinhole": 32.0, "distorted": 58.0}
+
+
+def score_kinds(cam) -> dict:
+    """Kernel 3's problems by camera, as the kernel tells them apart (any of
+    k1, k2, p1, p2 nonzero): ``{"pinhole": n, "distorted": m}``."""
+    d = int((cam[:, 4:] != 0).any(-1).sum())
+    return {"pinhole": cam.shape[0] - d, "distorted": d}
+
+
+def score_bound(cam, K: int, N: int) -> dict:
+    """bound_ms / bound_by of kernel 3 on the problems of ``cam`` with K
+    poses and N points each: poses, flags and counts once, points once,
+    SCORE_OPS f32 operations a pair by each problem's camera."""
+    P = cam.shape[0]
+    s_bytes = P * K * (12 * 4 + 1 + 4) + P * N * (12 + 8 + 1) + P * 8 * 4
+    ops = sum(SCORE_OPS[c] * n for c, n in score_kinds(cam).items()) * K * N
+    bnd, by = bound_ms(s_bytes, ops, F32_FLOPS)
+    return dict(bound_ms=bnd, bound_by=by)
+
+
+def score_issue_ms(cam, K: int, N: int, sass: dict):
+    """Kernel 3's issue floor: the SASS instructions a (pose, point) pair of
+    each problem's camera (``score_sass_per_pair``) over 132 SMs x 128 lanes
+    at the 1.98 GHz boost clock; None without a SASS count."""
+    if not sass:
+        return None
+    pairs = sum(sass[c] * n for c, n in score_kinds(cam).items()) * K * N
+    return pairs / (132 * 128 * 1.98e9) * 1e3
+
+
+def score_case(torch, gen, P: int, K: int, N: int, distorted: bool = False, in_view: bool = True):
+    """Kernel 3's inputs, on the CPU: P problems of N points (30% outliers,
+    10% masked) seen by a pinhole camera (or one with radial and tangential
+    distortion), K hypotheses within ~3 deg / 5 cm of the truth, 20% of
+    them invalid; returns (cam, R, t, valid, xyz, uv, mask). The points lie
+    in the camera's view (inside the 640 x 480 image, 2-8 m deep), as
+    observed points do; with ``in_view`` False they are drawn around the
+    camera's axis, some outside the image, where a distortion polynomial
+    folds them back into it with errors of f32 rounding times its slope
+    (1e8 at x = 250)."""
+    from pram_tpu_torch.geometry import pnp as gpnp
+    from pram_tpu_torch.geometry.camera import Camera, project
+    from pram_tpu_torch.geometry.rotations import so3_exp
+
+    dist = [0.01, -0.005, 0.001, -0.0005] if distorted else [0.0] * 4
+    cam = torch.tensor([500.0, 500.0, 320.0, 240.0] + dist).repeat(P, 1)
+    R_gt = so3_exp(torch.randn(P, 3, generator=gen) * 0.2)
+    t_gt = torch.randn(P, 3, generator=gen) * 0.3 + torch.tensor([0.0, 0.0, 5.0])
+    if in_view:
+        z = 2.0 + 6.0 * torch.rand(P, N, 1, generator=gen)
+        xy = (torch.rand(P, N, 2, generator=gen) - 0.5) * torch.tensor([0.64 * 2, 0.48 * 2])
+        xc = torch.cat([xy * z, z], -1)
+        xyz = torch.einsum("pji,pnj->pni", R_gt, xc - t_gt[:, None])  # R^T (xc - t)
+    else:
+        xyz = torch.randn(P, N, 3, generator=gen) * 2.0
+    uv, _ = project(Camera(cam, None), R_gt, t_gt, xyz)
+    uv = uv + torch.randn(P, N, 2, generator=gen) * 0.3
+    outl = torch.rand(P, N, generator=gen) < 0.3
+    uv[outl] = torch.rand(int(outl.sum()), 2, generator=gen) * torch.tensor([640.0, 480.0])
+    mask = torch.rand(P, N, generator=gen) > 0.1
+    R_h = so3_exp(torch.randn(P, K, 3, generator=gen) * 0.05) @ R_gt[:, None]
+    t_h = t_gt[:, None] + torch.randn(P, K, 3, generator=gen) * 0.05
+    valid = torch.rand(P, K, generator=gen) > 0.2
+    return cam, R_h, t_h, valid, xyz, uv, mask
+
+
+def score_plain_by_poses(pnp, args, poses: int = 128):
+    """ransac_score_plain over ``poses`` hypotheses at a time (its [P, K, N]
+    intermediates would take tens of GB at 32 x 1024 x 10240)."""
+    import torch
+
+    cam, R, t, valid, xyz, uv, mask, th = args
+    return torch.cat([pnp.ransac_score_plain(cam, R[:, i:i + poses], t[:, i:i + poses],
+                                             valid[:, i:i + poses], xyz, uv, mask, th)
+                      for i in range(0, R.shape[1], poses)], dim=1)
+
+
+def score_sass_per_pair(build) -> dict:
+    """SASS instructions a (pose, point) pair in kernel 3's two point loops,
+    by ``cuobjdump -sass`` of the built library: each loop scores two
+    points for four poses a pass (eight reciprocals), so a loop's
+    instructions over 8. ``{"pinhole": x, "distorted": y}``; ``{}`` where
+    cuobjdump is missing."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    sass = subprocess.run([tool, "-sass", str(build.library_path())], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    fn = next(f for f in sass.split("Function : ")[1:] if "ransac_score_kernel" in f.split("\n")[0])
+    ins = [(int(a, 16), op) for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+    loops = []
+    for a, op in ins:
+        m = re.search(r"BRA (0x[0-9a-f]+)", op)
+        if m and int(m.group(1), 16) < a:
+            body = [o for x, o in ins if int(m.group(1), 16) <= x <= a]
+            if sum("MUFU.RCP" in o for o in body) == 8 and not any("BAR" in o for o in body):
+                loops.append(len(body) / 8)
+    require(len(loops) == 2, f"kernel 3's two point loops not found in its SASS ({loops})")
+    return {"pinhole": min(loops), "distorted": max(loops)}
+
+
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -559,8 +692,10 @@ def main() -> int:
         LocConfig,
         Localizer,
         gather_refine_set,
+        gather_vrf_tables,
         project_refine_set,
         rank_candidates,
+        refine_matching_core,
     )
     from pram_tpu_torch.engine.matching import (
         make_adagml_match_fn,
@@ -576,8 +711,9 @@ def main() -> int:
         load_extractor,
         render_views,
     )
+    from pram_tpu_torch.geometry import pnp as gpnp
     from pram_tpu_torch.geometry.camera import Camera, project
-    from pram_tpu_torch.geometry.rotations import compute_pose_error, qvec2rotmat, so3_exp
+    from pram_tpu_torch.geometry.rotations import compute_pose_error, qvec2rotmat, rotmat2qvec, so3_exp
     from pram_tpu_torch.maps.device import to_device
     from pram_tpu_torch.maps.synthetic import make_synthetic_scene
     from pram_tpu_torch.models.adagml import AdaGMLConfig, adagml_batched_adaptive_apply
@@ -804,16 +940,74 @@ def main() -> int:
     log(f"ransac_score: max |count diff| {diff} (tol {SCORE_MAX_DIFF}); mean count "
         f"{cnt_ref[cnt_ref >= 0].float().mean().item():.1f}")
     require(diff <= SCORE_MAX_DIFF, "ransac_score kernel disagrees with its plain version")
-    s_bytes = P * K * (12 * 4 + 1 + 4) + P * N * (12 + 8 + 1) + P * 8 * 4
-    bnd, by = bound_ms(s_bytes, 50.0 * P * K * N, F32_FLOPS)
     rows["ransac_score"] = dict(
         name="ransac_score", route="cuda", source="pram_tpu_torch/csrc/pnp.cu",
         replaces="pram_tpu/ops/pnp_pallas.py:101",
         launches=None, max_abs_err=float(diff),
         ms=cuda_ms(torch, lambda: pnp.ransac_score(*s_args)),
         plain_ms=cuda_ms(torch, lambda: pnp.ransac_score_plain(*s_args), iters=5),
-        bound_ms=bnd, bound_by=by, library_ms=None,
+        library_ms=None, **score_bound(cam_d, K, N),
     )
+
+    rows["ransac_score"]["device_ms"] = launch_ms(torch, lambda: pnp.ransac_score(*s_args),
+                                                  want=lambda k: "ransac" in k).get("ransac_score_kernel")
+    rows["ransac_score"]["slices"] = pnp.score_slices(P, K, N, torch.cuda.get_device_properties(dev).multi_processor_count)
+    # kernel 3 at the other shapes of the localizer's paths: AdaGML's,
+    # matching refinement's (C = 20 frames of 512 keypoints; 128 and 256
+    # hypotheses) and a tail (K not a multiple of 128, N of the 256-point
+    # chunk), pinhole cameras, points in view (score_case); its issue floor
+    # by the SASS instructions a pair of the built kernel
+    sass = score_sass_per_pair(_build)
+    log(f"ransac_score SASS instructions a pair: {sass}")
+    shapes = {"gml": (P, K, N)}
+    for label, (P3, K3, N3) in SCORE_SHAPES:
+        args3 = [a.to(dev).contiguous() for a in score_case(torch, gen, P3, K3, N3)] + [th]
+        got3 = pnp.ransac_score(*args3)
+        d3 = (got3 - score_plain_by_poses(pnp, args3)).abs().max().item()
+        require(d3 <= SCORE_MAX_DIFF and bool((got3[~args3[3]] == -1).all()),
+                f"ransac_score kernel disagrees with its plain version at {P3} x {K3} x {N3}")
+        require(torch.equal(pnp.ransac_score(*args3), got3), f"ransac_score: two launches differ at {label}")
+        shapes[label] = dict(
+            shape=[P3, K3, N3], max_count_diff=d3, ms=cuda_ms(torch, lambda: pnp.ransac_score(*args3)),
+            device_ms=launch_ms(torch, lambda: pnp.ransac_score(*args3),
+                                want=lambda k: "ransac" in k).get("ransac_score_kernel"),
+            slices=pnp.score_slices(P3, K3, N3, torch.cuda.get_device_properties(dev).multi_processor_count),
+            issue_ms=score_issue_ms(args3[0], K3, N3, sass), **score_bound(args3[0], K3, N3))
+        log(f"ransac_score {label} ({P3} x {K3} x {N3}): max |count diff| {d3} (tol {SCORE_MAX_DIFF}), "
+            f"{shapes[label]['ms']:.4f} ms a call, the kernel {shapes[label]['device_ms']} ms, "
+            f"{shapes[label]['slices']} slices; bound {shapes[label]['bound_ms']:.4f} ms, issue floor "
+            f"{shapes[label]['issue_ms']} ms")
+        if label == "matching_256":
+            # kernel 4 at matching refinement's 32 x 10240 (clusters of 8
+            # CTAs, 1280 points a CTA) from each problem's best hypothesis,
+            # as RANSAC starts it
+            best = got3.argmax(dim=1)
+            ar = torch.arange(P3, device=dev)
+            R0m = args3[1][ar, best].contiguous()
+            t0m = args3[2][ar, best].contiguous()
+            gm_args = (args3[0], R0m, t0m, *args3[4:7], th, loc_cfg.min_inliers)
+            gm_kw = dict(gn_iters=loc_cfg.gn_iters, lo_rounds=loc_cfg.lo_rounds)
+            gm, gm_ref = pnp.gn_polish(*gm_args, **gm_kw), pnp.gn_polish_plain(*gm_args, **gm_kw)
+            dRm = max((gm[0] - gm_ref[0]).abs().max().item(), (gm[1] - gm_ref[1]).abs().max().item())
+            dNm = max((gm[2] - gm_ref[2]).abs().max().item(), (gm[3] != gm_ref[3]).sum(-1).max().item())
+            require(dRm <= POLISH_POSE_ATOL and dNm <= POLISH_COUNT_DIFF,
+                    f"gn_polish disagrees with its plain version at {P3} x {N3}")
+            polish_10240 = dict(shape=[P3, N3], cluster=pnp.polish_cluster(N3), max_pose_diff=dRm,
+                                max_count_diff=dNm, ms=cuda_ms(torch, lambda: pnp.gn_polish(*gm_args, **gm_kw)),
+                                device_ms=launch_ms(torch, lambda: pnp.gn_polish(*gm_args, **gm_kw),
+                                                    want=lambda k: k == "polish_kernel").get("polish_kernel"),
+                                **polish_bound(P3, N3, loc_cfg))
+            log(f"gn_polish ({P3} x {N3}, clusters of {polish_10240['cluster']}): max |dpose| {dRm:.2e}, max count "
+                f"/ flag diff {dNm}; {polish_10240['ms']:.4f} ms a call, the kernel {polish_10240['device_ms']} ms")
+        del args3, got3
+    torch.cuda.empty_cache()  # the plain version's GB of intermediates at these shapes
+    shapes["gml"] = dict(shape=[P, K, N], max_count_diff=diff, ms=rows["ransac_score"]["ms"],
+                         device_ms=rows["ransac_score"]["device_ms"], slices=rows["ransac_score"]["slices"],
+                         issue_ms=score_issue_ms(cam_d, K, N, sass), **score_bound(cam_d, K, N))
+    rows["ransac_score"].update(shapes=shapes, sass_per_pair=sass, ptxas=ptxas_summary(_build, "pnp.cu"))
+    log(f"ransac_score ({P} x {K} x {N}): {rows['ransac_score']['ms']:.4f} ms a call (CUDA events), the kernel "
+        f"{rows['ransac_score']['device_ms']} ms (torch.profiler), {rows['ransac_score']['slices']} slices; "
+        f"bound {rows['ransac_score']['bound_ms']:.4f} ms, issue floor {shapes['gml']['issue_ms']} ms")
 
     R0 = (so3_exp(torch.randn(P, 3, generator=gen) * 0.02) @ R_gt).to(dev).contiguous()
     t0 = (t_gt + torch.randn(P, 3, generator=gen) * 0.05).to(dev).contiguous()
@@ -846,6 +1040,7 @@ def main() -> int:
                             want=lambda k: k == "polish_kernel").get("polish_kernel"),
         cluster=pnp.polish_cluster(N), ptxas=ptxas_summary(_build, "pnp.cu"),
     )
+    rows["gn_polish"]["at_32x10240"] = polish_10240
     log(f"gn_polish ({P} x {N}): {rows['gn_polish']['ms']:.4f} ms a call (CUDA events), the kernel "
         f"{rows['gn_polish']['device_ms']} ms a launch (torch.profiler), clusters of "
         f"{rows['gn_polish']['cluster']} CTAs; bound {rows['gn_polish']['bound_ms']:.5f} ms; "
@@ -2522,6 +2717,189 @@ def main() -> int:
             f"int8 extractor's descriptors below cosine {INT8_FLOAT_COS} of the float extractor's")
     del guard8
     phase("int8_ab", t)
+
+    # ---- 21. refinement by matching, auto refinement and the adaptive step
+    t = time.perf_counter()
+
+    def gml_inputs():
+        """The GML slice's batch on the card with its recognition logits."""
+        d = descs.to(dev, bf16)
+        logits = model(d, nk.to(dev), mask.to(dev))["prediction"].float()[:, :, :n_class]
+        return (Camera(cam_params.to(dev), cam_size.to(dev)), kpts.to(dev), scores.to(dev), d, mask.to(dev),
+                logits)
+
+    match_cfg = dataclasses.replace(gml_cfg, refinement_method="matching")
+    m_runs = {}
+    with torch.no_grad():
+        g_in = gml_inputs()
+        # (1) localize_batch with refinement by matching, the scene's 4 covisible frames
+        mloc = make_localizer(dev, gml_fn, match_cfg)
+        reset_counts()
+        mres = mloc.localize_batch(torch.Generator().manual_seed(7), *g_in)
+        torch.cuda.synchronize()
+        m_runs["matching"] = read_counts()
+        m_recall, mq_err, mt_err = recall_of(mres)
+        for name in ("self_attention", "residual_mlp", "cross_attention", "sinkhorn"):
+            require(m_runs["matching"][name] > 0, f"kernel {name} was not launched by refinement by matching")
+        require(m_runs["matching"]["ransac_score"] == 2 and m_runs["matching"]["gn_polish"] == 2
+                and m_runs["matching"]["sinkhorn"] == 2 and m_runs["matching"]["refine_nn"] == 0,
+                "refinement by matching launched other kernels than its path's")
+        require(m_recall >= grecall_gpu - 1.0 / batch, "refinement by matching: recall below the GML slice's")
+        m_batch_s = median_s(lambda: (mloc.localize_batch(torch.Generator().manual_seed(7), *g_in),
+                                      torch.cuda.synchronize()))
+        log(f"GML slice with refinement by matching (covisible frames 4): recall@5cm/5deg {m_recall:.4f} (max error "
+            f"{mq_err.max().item():.4f} deg, {mt_err.max().item():.5f} m), localization {m_batch_s * 1e3:.2f} ms a "
+            f"batch of {batch} (median of 5, recognition aside); launches {m_runs['matching']}")
+        # (2) auto refinement: trust 64 inliers (the default), then none
+        aloc = make_localizer(dev, gml_fn, gml_cfg)
+        for trust in (64, 10**6):
+            reset_counts()
+            ares = aloc.localize_batch_auto_refine(torch.Generator().manual_seed(7), *g_in, trust_inliers=trust)
+            torch.cuda.synchronize()
+            m_runs[f"auto_{trust}"] = read_counts()
+            a_recall = recall_of(ares)[0]
+            reran = bool((ares.initial_num_inliers < trust).any())
+            want = (4, 4, 3, 1) if reran else (2, 2, 1, 1)
+            got_n = tuple(m_runs[f"auto_{trust}"][k] for k in ("ransac_score", "gn_polish", "sinkhorn", "refine_nn"))
+            log(f"auto refinement (trust {trust}): rerun {reran}, recall@5cm/5deg {a_recall:.4f}; kernels 3, 4, 6, 7 "
+                f"launched {got_n}; launches {m_runs[f'auto_{trust}']}")
+            require(got_n == want, f"auto refinement (trust {trust}) launched kernels 3, 4, 6, 7 {got_n}, not {want}")
+            require(a_recall >= grecall_gpu - 1.0 / batch, "auto refinement: recall below the GML slice's")
+        # the adaptive step at seg_k = 10 (bench.py's value_adaptive)
+        k10 = make_localizer(dev, gml_fn, dataclasses.replace(gml_cfg, seg_k=10))
+        reset_counts()
+        dres = k10.localize_batch_adaptive(torch.Generator().manual_seed(7), *g_in)
+        torch.cuda.synchronize()
+        m_runs["adaptive"] = read_counts()
+        require(bool(dres.success.all()), "adaptive step: phase 1 failed a query")
+        require(tuple(m_runs["adaptive"][k] for k in ("ransac_score", "gn_polish", "sinkhorn", "refine_nn"))
+                == (2, 2, 1, 1), "adaptive step: the full sweep ran or kernels are missing")
+        d_recall = recall_of(dres)[0]
+        ad_s = median_s(lambda: (k10.localize_batch_adaptive(torch.Generator().manual_seed(7), *g_in),
+                                 torch.cuda.synchronize()))
+        k1_s = median_s(lambda: (aloc.localize_batch(torch.Generator().manual_seed(7), *g_in),
+                                 torch.cuda.synchronize()))
+        k10_s = median_s(lambda: (k10.localize_batch(torch.Generator().manual_seed(7), *g_in),
+                                  torch.cuda.synchronize()))
+        log(f"adaptive step (seg_k 10): recall@5cm/5deg {d_recall:.4f}, localization {ad_s * 1e3:.2f} ms a batch; "
+            f"the seg_k 1 step {k1_s * 1e3:.2f} ms, the full seg_k 10 sweep {k10_s * 1e3:.2f} ms (median of 5, "
+            f"recognition aside); launches {m_runs['adaptive']}")
+        del mloc, aloc, k10, g_in
+
+    # (3) refine_matching_core at the configs' operating point: C = 20
+    # covisible frame tables a query (configs/*.yaml covisibility_frame),
+    # the frames of a 24-frame scene sharing the most points with it, 20 x
+    # 512 = 10240 stacked correspondences and 640 GML problems a batch
+    rng21 = np.random.RandomState(21)
+    mscene = make_synthetic_scene(
+        rng21, n_cluster=16, points_per_cluster=400, n_ref_frames=24, desc_dim=128, width=width,
+        height=height, max_kp_per_frame=1024, max_ref_points=2048,
+    )
+    mqs = [mscene.render_query(rng21, noise_px=0.3, max_kpts=n_kpts) for _ in range(batch)]
+    n_covis = 20
+    fpi = mscene.map.frame_point_idx
+    covis = []
+    for q in mqs:
+        seen = set(q["point_idx"][q["mask"] & (q["point_idx"] >= 0)].tolist())
+        overlap = np.array([len(seen.intersection(row[row >= 0].tolist())) for row in fpi])
+        covis.append(np.argsort(-overlap, kind="stable")[:n_covis])
+    covis = torch.from_numpy(np.stack(covis))
+
+    def mstack(key, dtype=np.float32):
+        return torch.from_numpy(np.stack([q[key] for q in mqs]).astype(dtype))
+
+    core_cfg = LocConfig(**loc_kw)
+
+    mdmaps = {}
+
+    def matching_core(device, match_fn, queries=slice(None), generator=None, triplets=None):
+        if device not in mdmaps:
+            mdmaps[device] = to_device(mscene.map, device, desc_dtype=bf16)
+        b_ = len(range(batch)[queries])
+        tabs = gather_vrf_tables(mdmaps[device], covis[queries].to(device))
+        return refine_matching_core(
+            match_fn, Camera(cam_params[queries].to(device), cam_size[queries].to(device)),
+            mstack("keypoints")[queries].to(device), mstack("scores")[queries].to(device),
+            mstack("descriptors")[queries].to(device, bf16), mstack("mask", bool)[queries].to(device),
+            torch.ones(b_, n_covis, dtype=torch.bool, device=device), tabs, core_cfg, generator, triplets)
+
+    stage_s = {}
+
+    def timed_stage(name, fn):
+        def wrapped(*a, **kw):
+            t_s = sync(dev)
+            out = fn(*a, **kw)
+            stage_s.setdefault(name, []).append(sync(dev) - t_s)
+            return out
+        return wrapped
+
+    originals = (gpnp._sample_triplets, gpnp.p3p_grunert, pnp.ransac_score, pnp.gn_polish)
+    gpnp._sample_triplets = timed_stage("noise draw and triplets", gpnp._sample_triplets)
+    gpnp.p3p_grunert = timed_stage("P3P", gpnp.p3p_grunert)
+    pnp.ransac_score = timed_stage("kernel 3", pnp.ransac_score)
+    pnp.gn_polish = timed_stage("kernel 4", pnp.gn_polish)
+    try:
+        with torch.no_grad():
+            reset_counts()
+            core_out = matching_core(dev, timed_stage("GML matcher", gml_fn), generator=torch.Generator().manual_seed(9))
+            torch.cuda.synchronize()
+            m_runs["matching_core_c20"] = read_counts()
+            for _ in range(3):
+                t_b = sync(dev)
+                matching_core(dev, timed_stage("GML matcher", gml_fn), generator=torch.Generator().manual_seed(9))
+                stage_s.setdefault("total", []).append(sync(dev) - t_b)
+    finally:
+        gpnp._sample_triplets, gpnp.p3p_grunert, pnp.ransac_score, pnp.gn_polish = originals
+    require(m_runs["matching_core_c20"]["ransac_score"] == 1 and m_runs["matching_core_c20"]["gn_polish"] == 1
+            and m_runs["matching_core_c20"]["sinkhorn"] == 1, "refine_matching_core at C = 20: kernels 3, 4, 6 not "
+            "launched once each")
+    Rm, tm, nm, okm, pim, _ = core_out
+    mq_err, mt_err = compute_pose_error(rotmat2qvec(Rm).cpu(), tm.cpu(), mstack("qvec"), mstack("tvec"))
+    c20_recall = float((okm.cpu() & (mt_err < 0.05) & (mq_err < 5.0)).float().mean())
+    gt_pt = mstack("point_idx", np.int64)
+    assigned = pim.cpu() >= 0
+    c20_precision = float((pim.cpu() == gt_pt)[assigned].float().mean()) if assigned.any() else 0.0
+    stages = {k: round(sorted(v[-3:])[1] * 1e3, 3) for k, v in stage_s.items()}
+    log(f"refine_matching_core, {batch} queries x {n_covis} frames ({batch * n_covis} GML problems of {n_kpts} x "
+        f"{mscene.map.frame_point_idx.shape[1]} tokens, {n_covis * n_kpts} stacked correspondences a query): "
+        f"recall@5cm/5deg {c20_recall:.4f}, match precision {c20_precision:.4f} ({int(assigned.sum()) / batch:.1f} "
+        f"assigned keypoints a query), inliers median {nm.float().median().item():.0f}; ms by stage (synchronized "
+        f"host clock, median of 3): {json.dumps(stages)}; launches {m_runs['matching_core_c20']}")
+    require(bool(torch.isfinite(tm).all()) and c20_recall >= 31 / 32, "refine_matching_core at C = 20: recall below 31/32")
+
+    # (4) the first 2 queries on the card and on the card machine's CPU, the
+    # card's triplets fed to both
+    drawn = []
+
+    def recording_triplets(*a):
+        drawn.append(originals[0](*a))
+        return drawn[-1]
+
+    gpnp._sample_triplets = recording_triplets
+    try:
+        with torch.no_grad():
+            sub = slice(0, 2)
+            card = matching_core(dev, gml_fn, sub, torch.Generator().manual_seed(3))
+            t_cpu = time.perf_counter()
+            gml_cpu = load_gml(gml_weights, GMLConfig(), device="cpu", dtype=bf16)
+            cpu = matching_core("cpu", make_gml_match_fn(gml_cpu, gml_cpu.config.match_threshold), sub,
+                                triplets=drawn[0].cpu())
+    finally:
+        gpnp._sample_triplets = originals[0]
+    dq, dt = compute_pose_error(rotmat2qvec(card[0]).cpu(), card[1].cpu(), rotmat2qvec(cpu[0]), cpu[1])
+    both = card[3].cpu() & cpu[3]
+    log(f"refine_matching_core at C = 20 on the CPU: 2 queries in {time.perf_counter() - t_cpu:.1f} s; card vs CPU: "
+        f"success {card[3].tolist()} vs {cpu[3].tolist()}, inliers {card[2].tolist()} vs {cpu[2].tolist()}, pose diff "
+        f"max {dq[both].max().item() if both.any() else 0:.4f} deg, {dt[both].max().item() if both.any() else 0:.5f} m")
+    require(bool(torch.equal(card[3].cpu(), cpu[3])), "refine_matching_core: success differs card vs CPU")
+    require(bool((dq[both] < SLICE_R_TOL_DEG).all() and (dt[both] < SLICE_T_TOL).all()),
+            "refine_matching_core: pose differs card vs CPU")
+    del gml_cpu, core_out, card, cpu, mdmaps
+    rows["ransac_score"]["matching"] = dict(
+        launches=m_runs, recall_matching=m_recall, recall_c20=c20_recall, precision_c20=c20_precision,
+        stages_c20_ms=stages, localization_ms=dict(matching=m_batch_s * 1e3, adaptive=ad_s * 1e3,
+                                                   seg_k1=k1_s * 1e3, seg_k10=k10_s * 1e3))
+    phase("matching", t)
 
     table = []
     for name in ("self_attention", "residual_mlp", "ransac_score", "gn_polish",

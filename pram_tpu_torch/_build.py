@@ -67,8 +67,9 @@ _SIGNATURES = {
     # descs, pdesc, kpts, uv, in_img, qmask, gate_r, ratio, nn_idx, d1, keep,
     # B, N, P, stream
     "pram_refine_nn": [_P] * 6 + [_F, _F] + [_P] * 3 + [_I, _I, _I, _P],
-    # cam, R, t, valid, xyz, uv, mask, threshold, out, P, K, N, stream
-    "pram_ransac_score": [_P] * 7 + [_F, _P, _I, _I, _I, _P],
+    # cam, R, t, valid, xyz, uv, mask, threshold, out, P, K, N, slices of
+    # the point axis, stream
+    "pram_ransac_score": [_P] * 7 + [_F, _P, _I, _I, _I, _I, _P],
     # cam, R0, t0, xyz, uv, mask, threshold, min_inliers, damping, gn_iters,
     # lo_rounds, R, t, num, inliers, P, N, cluster size, stream
     "pram_gn_polish": [_P] * 6 + [_F, _F, _F, _I, _I] + [_P] * 4 + [_I, _I, _I, _P],
@@ -270,5 +271,8 @@ def ptr_or_null(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
 
 
 def stream_of(device) -> ctypes.c_void_p:
-    """PyTorch's current stream on ``device``, for a launch."""
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """PyTorch's current stream on ``device`` (a tensor's, so with its index),
+    for a launch: the raw handle, without building the ``torch.cuda.Stream``
+    that ``torch.cuda.current_stream`` returns (a fifth of a short kernel
+    call's host time)."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(device.index))

@@ -10,15 +10,21 @@ inlier gate is taken. Stages, each written with an explicit batch axis B:
   4. batched matching against the candidates' VRF keypoint tables
   5. batched PnP / RANSAC (geometry/pnp.py)
   6. candidate selection
-  7. projection refinement: the chosen landmark's covisible points are
-     projected with the first pose, matched to the query by a gated top-2
-     nearest neighbour (``ops/refine.py``), and PnP runs again
+  7. refinement, by projection (default): the chosen landmark's covisible
+     points are projected with the first pose, matched to the query by a
+     gated top-2 nearest neighbour (``ops/refine.py``), and PnP runs again;
+     or by matching (``refinement_method="matching"``): the query is matched
+     against the chosen landmark's covisible frames in one matcher call,
+     and one RANSAC runs over all their correspondences stacked
 
-Refinement by matching (``refinement_method="matching"``) is not ported yet.
+``Localizer`` also has the reference's two-pass forms: auto refinement
+(matching refinement only for frames with few first-stage inliers) and the
+adaptive step (one candidate first, the full sweep only when a frame fails).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional, Tuple
 
@@ -48,8 +54,11 @@ class LocConfig:
     num_hypotheses: int = 256
     gn_iters: int = 8
     lo_rounds: int = 2
+    match_threshold: float = 0.2  # matcher mutual-max gate (read by the match_fn's maker)
     projection_ratio: float = 0.995  # refinement NN ratio test
-    refinement_method: str = "projection"  # 'projection' ('matching' not ported)
+    refinement_method: str = "projection"  # 'projection' | 'matching'
+    covisibility_frame: int = 20  # covisible frames matching refinement uses
+    max_vrf_kpts: Optional[int] = None  # the reference's cap of matcher tokens; read by nothing
 
 
 def normalize_kpts_like_reference(kpts, width, height):
@@ -393,12 +402,85 @@ def refine_projection_core(
     return res.R, res.t, res.num_inliers, res.success, kpt_point_idx, m_xyz
 
 
+def gather_covis_tables(dmap: DeviceMap, slot: torch.Tensor, cfg: LocConfig):
+    """The first ``covisibility_frame`` covisible frames of VRF slots ``[B]``:
+    (valid ``[B, C]``, their tables ``[B, C, K, ...]``)."""
+    covis = dmap.vrf_covis[slot][:, : cfg.covisibility_frame]
+    frames = torch.clamp(covis, 0, dmap.frame_point_idx.shape[0] - 1)
+    return covis >= 0, gather_vrf_tables(dmap, frames)
+
+
+def refine_matching_core(
+    match_fn: MatchFn,
+    camera: Camera,  # params [B, 8], size [B, 2]
+    kpts: torch.Tensor,  # [B, N, 2]
+    scores: torch.Tensor,  # [B, N]
+    descs: torch.Tensor,  # [B, N, D]
+    mask: torch.Tensor,  # [B, N]
+    cvalid: torch.Tensor,  # [B, C]
+    tabs: VrfTables,  # [B, C, K, ...]
+    cfg: LocConfig,
+    generator: Optional[torch.Generator] = None,
+    triplets: Optional[torch.Tensor] = None,
+):
+    """Matching refinement on pre-gathered covisible frame tables.
+
+    One matcher call over the ``B * C`` (query, frame) pairs; each query's
+    ``C * N`` matches are stacked (a keypoint once per frame, with the
+    half-pixel offset) into one RANSAC problem, and each keypoint takes the
+    first frame whose match is an inlier. Returns ``(R, t, num_inliers,
+    success, kpt_point_idx, kpt_xyz)``. RANSAC draws from ``generator``
+    unless ``triplets [B, num_hypotheses, 3]`` are given.
+    """
+    b, n = kpts.shape[:2]
+    c = cvalid.shape[1]
+    ref_mask = tabs.mask & cvalid[..., None]
+    nk0 = normalize_kpts_like_reference(kpts, camera.size[:, 0], camera.size[:, 1])
+    nk1 = normalize_kpts_like_reference(tabs.uv, tabs.w, tabs.h)
+
+    def flat(t):
+        return t.reshape((b * c,) + t.shape[2:])
+
+    def rep(t):
+        return flat(t[:, None].expand((b, c) + t.shape[1:]))
+
+    matches = match_fn(
+        rep(descs), rep(nk0), rep(scores), rep(mask),
+        flat(tabs.desc), flat(nk1), flat(tabs.score), flat(ref_mask),
+    ).reshape(b, c, n)
+
+    m_valid = (matches >= 0) & mask[:, None]
+    safe_m = torch.clamp(matches, 0, tabs.xyz.shape[2] - 1)
+    m_xyz = torch.gather(tabs.xyz, 2, safe_m[..., None].expand(-1, -1, -1, 3))  # [B, C, N, 3]
+    m_pt = torch.where(m_valid, torch.gather(tabs.pt_idx, 2, safe_m), -1)
+
+    res = ransac_pnp(
+        camera,
+        (kpts + 0.5)[:, None].expand(b, c, n, 2).reshape(b, c * n, 2),
+        m_xyz.reshape(b, c * n, 3).float().contiguous(),
+        m_valid.reshape(b, c * n),
+        generator=generator,
+        triplets=triplets,
+        inlier_threshold=cfg.threshold,
+        num_hypotheses=cfg.num_hypotheses,
+        min_inliers=cfg.min_inliers,
+        gn_iters=cfg.gn_iters,
+        lo_rounds=cfg.lo_rounds,
+    )
+    inl = res.inliers.reshape(b, c, n)
+    pick_c = torch.argmax(inl.to(torch.int32), dim=1)  # the first inlier frame
+    has = inl.any(dim=1)
+    kpt_point_idx = torch.where(has, torch.gather(m_pt, 1, pick_c[:, None])[:, 0], -1)
+    kpt_xyz = torch.gather(m_xyz, 1, pick_c[:, None, :, None].expand(-1, 1, -1, 3))[:, 0]
+    return res.R, res.t, res.num_inliers, res.success, kpt_point_idx, kpt_xyz
+
+
 def finalize_result(core: CoreResult, refinement: Optional[Tuple] = None) -> LocResult:
     """Step 7 merge + output packing.
 
     ``refinement`` is ``(R, t, num_inliers, ok, kpt_point_idx, kpt_xyz)``
-    of :func:`refine_projection_core`; its pose is taken where it succeeded
-    and the first stage did too.
+    of :func:`refine_projection_core` or :func:`refine_matching_core`; its
+    pose is taken where it succeeded and the first stage did too.
     """
     R_fin, t_fin, inl_fin = core.R0, core.t0, core.inl0
     kpt_point_idx, kpt_xyz = core.kpt_point_idx, core.kpt_xyz
@@ -424,15 +506,18 @@ def finalize_result(core: CoreResult, refinement: Optional[Tuple] = None) -> Loc
     )
 
 
+def merge_results(take_first: torch.Tensor, first: LocResult, second: LocResult) -> LocResult:
+    """Per frame: ``first``'s fields where ``take_first [B]``, else ``second``'s."""
+    return LocResult(*(
+        torch.where(take_first.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
+        for a, b in zip(first, second)
+    ))
+
+
 class Localizer:
     """Device map + matcher + batched localization step."""
 
     def __init__(self, dmap: DeviceMap, match_fn: MatchFn, cfg: LocConfig):
-        if cfg.do_refinement and cfg.refinement_method == "matching":
-            raise NotImplementedError(
-                "refinement by matching is not ported yet; use "
-                "refinement_method='projection' or do_refinement=False"
-            )
         if cfg.refinement_method not in ("projection", "matching"):
             raise ValueError(f"unknown refinement_method {cfg.refinement_method!r}")
         self.dmap = dmap
@@ -462,7 +547,14 @@ class Localizer:
             self.cfg, generator=generator, triplets=triplets,
         )
         refinement = None
-        if self.cfg.do_refinement:
+        if self.cfg.do_refinement and self.cfg.refinement_method == "matching":
+            # refine_pose_by_matching against the chosen landmark's covisible frames
+            cvalid, ctabs = gather_covis_tables(self.dmap, core.picked_slot, self.cfg)
+            refinement = refine_matching_core(
+                self.match_fn, camera, kpts, scores, descs, rank.mask, cvalid, ctabs,
+                self.cfg, generator, refine_triplets,
+            )
+        elif self.cfg.do_refinement:
             # refine_pose_by_projection on the chosen landmark's VRF
             refinement = refine_projection_core(
                 camera, kpts, descs, rank.mask,
@@ -470,3 +562,59 @@ class Localizer:
                 self.cfg, generator, refine_triplets,
             )
         return finalize_result(core, refinement)
+
+    @torch.no_grad()
+    def localize_batch_auto_refine(
+        self, generator: torch.Generator, camera: Camera, kpts, scores, descs,
+        mask, seg_logits, trust_inliers: int = 64,
+        triplets: Optional[Tuple] = None, rerun_triplets: Optional[Tuple] = None,
+    ) -> LocResult:
+        """Auto refinement (the reference's multimap3d.py:251-255): the
+        projection refinement's result is kept for frames whose first stage
+        found >= ``trust_inliers`` inliers; if some frame found fewer, the
+        whole batch reruns with matching refinement and those frames take
+        the rerun's result.
+
+        Whether the rerun is needed is decided by one host read of a bool
+        (a synchronize), as pram_tpu decides it for a sharded map; pram_tpu's
+        replicated map keeps it on the device with ``lax.cond``. The rerun
+        draws its hypotheses from ``generator`` after the first pass's, or
+        from ``rerun_triplets``; ``triplets`` and ``rerun_triplets`` are each
+        ``(triplets, refine_triplets)`` of :meth:`localize_batch`.
+        """
+        first = self.localize_batch(generator, camera, kpts, scores, descs, mask, seg_logits,
+                                    *(triplets or ()))
+        trusted = first.initial_num_inliers >= trust_inliers
+        if self.cfg.refinement_method == "matching" or bool(trusted.all()):
+            return first
+        by_matching = Localizer(self.dmap, self.match_fn,
+                                dataclasses.replace(self.cfg, refinement_method="matching"))
+        rerun = by_matching.localize_batch(generator, camera, kpts, scores, descs, mask, seg_logits,
+                                           *(rerun_triplets or ()))
+        return merge_results(trusted, first, rerun)
+
+    @torch.no_grad()
+    def localize_batch_adaptive(
+        self, generator: torch.Generator, camera: Camera, kpts, scores, descs,
+        mask, seg_logits, triplets: Optional[Tuple] = None,
+        rerun_triplets: Optional[Tuple] = None,
+    ) -> LocResult:
+        """Two-phase early exit (the reference's multimap3d.py:114-239): a
+        pass over the top-ranked landmark only (``seg_k = 1``); if some frame
+        fails it, the full ``seg_k`` sweep runs on the batch and the failed
+        frames take its result.
+
+        Whether the sweep is needed is decided by one host read of a bool
+        (a synchronize), as pram_tpu decides it for a sharded map; pram_tpu's
+        replicated map keeps it on the device with ``lax.cond``. The sweep
+        draws its hypotheses from ``generator`` after the first pass's, or
+        from ``rerun_triplets``; ``triplets`` and ``rerun_triplets`` are each
+        ``(triplets, refine_triplets)`` of :meth:`localize_batch`.
+        """
+        top1 = Localizer(self.dmap, self.match_fn, dataclasses.replace(self.cfg, seg_k=1))
+        first = top1.localize_batch(generator, camera, kpts, scores, descs, mask, seg_logits, *(triplets or ()))
+        if self.cfg.seg_k == 1 or bool(first.success.all()):
+            return first
+        sweep = self.localize_batch(generator, camera, kpts, scores, descs, mask, seg_logits,
+                                    *(rerun_triplets or ()))
+        return merge_results(first.success, first, sweep)

@@ -3,7 +3,9 @@
 Two kernels of ``csrc/pnp.cu`` with their plain PyTorch twins:
 
 - :func:`ransac_score` replaces ``pram_tpu/ops/pnp_pallas.py:ransac_score_pallas``:
-  the inlier count of every pose hypothesis over all correspondences;
+  the inlier count of every pose hypothesis over all correspondences. On
+  the card a CTA takes 512 poses of a problem and one slice of its points;
+  :func:`score_slices` picks the slices from the shape;
 - :func:`gn_polish` replaces ``pram_tpu/ops/pnp_pallas.py:gn_polish_pallas``:
   ``lo_rounds`` rounds of [count, Gauss-Newton, count, accept] followed by
   the graduated polish (gates 1, 1/2, 1/4 of the threshold, floored at 2 px)
@@ -17,6 +19,7 @@ plain version; a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -26,6 +29,11 @@ from pram_tpu_torch.geometry.pnp import _count_inliers, gauss_newton_pose
 
 # kernel launches, counted where each wrapper launches its kernel
 LAUNCHES = {"ransac_score": 0, "gn_polish": 0}
+# the scoring kernel: poses a CTA, the least points a slice of the point
+# axis, and the CTAs it is given an SM (four waves of the four that fit)
+SCORE_POSES_PER_CTA = 512
+SCORE_MIN_SLICE = 64
+SCORE_CTAS_PER_SM = 16
 # the polish's cluster sizes: points a CTA is given at most, and the largest
 # cluster (the largest portable size)
 POLISH_POINTS_PER_CTA = 512
@@ -50,28 +58,43 @@ def ransac_score_plain(cam_params, R, t, valid, xyz, uv, mask, threshold):
     return torch.where(valid, counts, -1).to(torch.int32)
 
 
+def score_slices(p: int, k: int, n: int, sms: int) -> int:
+    """The slices the scoring kernel splits the point axis of ``p`` problems
+    of ``k`` poses and ``n`` points into: as many as give the card's ``sms``
+    SMs SCORE_CTAS_PER_SM CTAs each, no slice under SCORE_MIN_SLICE points
+    (8 at GML's 32 x 512 x 512, 64 at AdaGML's 8 x 512 x 4096, 66 at
+    32 x 512 x 10240 on 132 SMs)."""
+    ctas = p * -(-k // SCORE_POSES_PER_CTA)
+    return max(1, min(-(-sms * SCORE_CTAS_PER_SM // ctas), n // SCORE_MIN_SLICE))
+
+
+@functools.lru_cache(maxsize=None)
+def _slices_on(p: int, k: int, n: int, index: int) -> int:
+    """score_slices on card ``index``, once a shape."""
+    return score_slices(p, k, n, torch.cuda.get_device_properties(index).multi_processor_count)
+
+
+_SCORE_ARGS = ("cam_params", "R", "t", "valid", "xyz", "uv", "mask")
+_SCORE_DTYPES = (torch.float32,) * 3 + (torch.bool,) + (torch.float32,) * 2 + (torch.bool,)
+
+
 def ransac_score(cam_params, R, t, valid, xyz, uv, mask, threshold):
-    """:func:`ransac_score_plain` on the CPU; ``csrc/pnp.cu:ransac_score`` on CUDA."""
+    """:func:`ransac_score_plain` on the CPU; ``csrc/pnp.cu:ransac_score`` on
+    CUDA, for any number of poses and points."""
     if xyz.device.type == "cpu":
         return ransac_score_plain(cam_params, R, t, valid, xyz, uv, mask, threshold)
-    p, k = R.shape[:2]
-    n = xyz.shape[1]
+    p, k = valid.shape
+    n = mask.shape[1]
     dev = xyz.device
-    f32 = torch.float32
-    check_tensor(cam_params, "cam_params", (p, 8), f32, dev)
-    check_tensor(R, "R", (p, k, 3, 3), f32, dev)
-    check_tensor(t, "t", (p, k, 3), f32, dev)
-    check_tensor(valid, "valid", (p, k), torch.bool, dev)
-    check_tensor(xyz, "xyz", (p, n, 3), f32, dev)
-    check_tensor(uv, "uv", (p, n, 2), f32, dev)
-    check_tensor(mask, "mask", (p, n), torch.bool, dev)
+    args = (cam_params, R, t, valid, xyz, uv, mask)
+    shapes = ((p, 8), (p, k, 3, 3), (p, k, 3), (p, k), (p, n, 3), (p, n, 2), (p, n))
+    for a, shape, dtype, name in zip(args, shapes, _SCORE_DTYPES, _SCORE_ARGS):
+        check_tensor(a, name, shape, dtype, dev)
     out = torch.empty((p, k), dtype=torch.int32, device=dev)
-    lib = library()
     check_status(
-        lib.pram_ransac_score(
-            ptr(cam_params), ptr(R), ptr(t), ptr(valid), ptr(xyz),
-            ptr(uv), ptr(mask), ctypes.c_float(threshold), ptr(out),
-            p, k, n, stream_of(dev),
+        library().pram_ransac_score(
+            *(a.data_ptr() for a in args), threshold, out.data_ptr(), p, k, n,
+            _slices_on(p, k, n, dev.index), stream_of(dev),
         ),
         "pram_ransac_score",
     )

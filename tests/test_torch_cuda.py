@@ -383,6 +383,50 @@ def test_ransac_score_kernel(dev):
     assert (got - ref).abs().max().item() <= 2
 
 
+# kernel 3 past the first design's shared-memory ceiling (7264 points), at
+# matching refinement's 32 x 1024 x 10240, at a tail (K not a multiple of
+# 128 nor N of the 256-point chunk) with and without distortion, and at
+# GML's shape, where the point axis splits into several slices
+@pytest.mark.parametrize("p,k,n,distorted", [(32, 1024, 10240, False), (32, 1000, 10000, False),
+                                             (4, 1000, 10000, True), (32, 512, 512, False)])
+def test_ransac_score_kernel_point_tiles(dev, p, k, n, distorted):
+    """Counts within 2 of the plain version (summed over slices by
+    atomics), -1 for every invalid pose, one counted launch a call, and the
+    same counts on two launches."""
+    g = torch.Generator().manual_seed(n + k)
+    dist = [0.01, -0.005, 0.001, -0.0005] if distorted else [0.0] * 4
+    cam = torch.tensor([500.0, 500.0, 320.0, 240.0] + dist).repeat(p, 1)
+    R = so3_exp(_rand(g, p, 3, scale=0.2))
+    t = _rand(g, p, 3, scale=0.3) + torch.tensor([0.0, 0.0, 5.0])
+    # points inside the 640 x 480 image, 2-8 m deep, as observed points are
+    # (tests/test_torch_score_tile.py says why)
+    z = 2.0 + 6.0 * torch.rand(p, n, 1, generator=g)
+    xy = (torch.rand(p, n, 2, generator=g) - 0.5) * torch.tensor([1.28, 0.96])
+    xyz = torch.einsum("pji,pnj->pni", R, torch.cat([xy * z, z], -1) - t[:, None])
+    uv, _ = project(Camera(cam, None), R, t, xyz)
+    uv = uv + _rand(g, p, n, 2, scale=0.3)
+    out = torch.rand(p, n, generator=g) < 0.3
+    uv[out] = torch.rand(int(out.sum()), 2, generator=g) * torch.tensor([640.0, 480.0])
+    mask = torch.rand(p, n, generator=g) > 0.1
+    Rh = so3_exp(_rand(g, p, k, 3, scale=0.05)) @ R[:, None]
+    th = t[:, None] + _rand(g, p, k, 3, scale=0.05)
+    valid = torch.rand(p, k, generator=g) > 0.2
+    Rh[:, 0], th[:, 0], valid[:, 0] = R, t, True  # the true pose gates ~60% of the points in
+    args = [a.to(dev).contiguous() for a in (cam, Rh, th, valid, xyz, uv, mask)] + [8.0]
+    before = pnp.LAUNCHES["ransac_score"]
+    got = pnp.ransac_score(*args)
+    torch.cuda.synchronize()
+    assert pnp.LAUNCHES["ransac_score"] == before + 1
+    # the plain version 128 poses at a time: its [P, K, N] intermediates
+    ref = torch.cat([pnp.ransac_score_plain(args[0], args[1][:, i:i + 128], args[2][:, i:i + 128],
+                                            args[3][:, i:i + 128], *args[4:])
+                     for i in range(0, k, 128)], dim=1)
+    assert (got[~args[3]] == -1).all()
+    assert (got - ref).abs().max().item() <= 2
+    assert (got[:, 0] > 0.5 * n).all()
+    assert torch.equal(pnp.ransac_score(*args), got)
+
+
 def test_gn_polish_kernel(dev):
     g = torch.Generator().manual_seed(3)
     p, n = 5, 300

@@ -178,17 +178,15 @@ def test_refine_nn_plain_is_the_cpu_path():
 
 
 def test_localizer_refinement_methods_and_fixed_triplets(refine_problem):
-    """Refinement by projection runs in localize_batch; fixing both RANSAC
-    calls' triplets makes the result independent of the generator; refinement
-    by matching is not ported and says so."""
+    """Refinement by projection and by matching run in localize_batch;
+    fixing both RANSAC calls' triplets makes the result independent of the
+    generator; an unknown refinement method is refused."""
     from pram_tpu_torch.engine.localizer import Localizer
     from pram_tpu_torch.engine.matching import make_nn_match_fn
 
     scene, st, _, _, _ = refine_problem
     dmap = to_device(scene.map, "cpu")
     cfg = LocConfig(seg_k=1, min_inliers=32, threshold=8.0, num_hypotheses=128, gn_iters=5, lo_rounds=1)
-    with pytest.raises(NotImplementedError, match="matching"):
-        Localizer(dmap, make_nn_match_fn(), LocConfig(refinement_method="matching"))
     with pytest.raises(ValueError, match="refinement_method"):
         Localizer(dmap, make_nn_match_fn(), LocConfig(refinement_method="other"))
     gt = st["gt_seg"]
@@ -206,3 +204,14 @@ def test_localizer_refinement_methods_and_fixed_triplets(refine_problem):
         assert torch.equal(a, b)
     assert runs[0].success.all()
     assert (runs[0].num_inliers > runs[0].initial_num_inliers).all()
+    # by matching: the refinement's RANSAC runs over the covisible frames'
+    # stacked matches, C * N = 4 * 512 of them
+    mcfg = LocConfig(seg_k=1, min_inliers=32, threshold=8.0, num_hypotheses=128, gn_iters=5, lo_rounds=1,
+                     refinement_method="matching", covisibility_frame=4)
+    mtrip = T(trng.randint(0, 4 * 512, (2, 128, 3)))
+    loc = Localizer(dmap, make_nn_match_fn(), mcfg)
+    runs = [loc.localize_batch(torch.Generator().manual_seed(s), *args, triplets=trip, refine_triplets=mtrip)
+            for s in (1, 2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert runs[0].success.all()
