@@ -171,8 +171,31 @@ Phases, each printed with its elapsed seconds:
                 recall and match precision, and 2 queries on the card
                 against the card machine's CPU with the card's triplets.
 
+22. cli         both serving CLIs through main(argv) on the card, their inputs
+                written to a temporary directory in the reference layout:
+                cli.inference on the GML slice's scene (a compressed COLMAP
+                model, its frames holding their packed tables' points, 112
+                declared clusters for SegNetViT's nc113 head) and its 32
+                queries' feature caches, read back equal to the map in
+                memory, counted (kernels 1, 2, 5, 6 and 3, 4, 7 at one
+                SegNetViT, one GML and two PnPs; no other), recall@5cm/5deg
+                at most one query below the GML slice's, its report, stage
+                times and steady_fps, again at --batch 8; then
+                cli.online_localization on 32 rendered 480 x 640 frames
+                along a path with two jumps, written as PNG, against the
+                rendered map built on the card and read back equal,
+                counted (kernels 8, 9 and SegNetViT every frame, GML and two
+                PnPs every tracking step and relocalization), every frame
+                within 5 cm / 5 deg, tracked frames present, and the frame
+                after the first jump (whose view shares no map point with
+                the last one) falling back from a failed tracking step to
+                relocalization, its mean feat / rec / loc / total ms; and each CLI
+                with --device cpu on the first 4 queries / frames against
+                the card's flags.
+
 Prints the kernel table as one JSON line, then the card's name and power
-limit, then ``{"ok": true, "device": {...}}`` as the last line. Any failed
+limit, then ``{"ok": true, "device": {...}}`` as the last line. Each
+kernel's row carries ``launches_cli``, its launches on phase 22's two paths. Any failed
 check raises, so the script exits non-zero and prints no result. It needs a
 CUDA device and the repository beside it.
 """
@@ -665,6 +688,466 @@ def mlp_bound(tokens: int, int8: bool):
                         2.0 * tokens * w_elems, INT8_TENSOR_OPS)
     return bound_ms(3 * tokens * 256 * 2 + w_elems * 2 + (256 + 512 * 3 + 256) * 4,
                     2.0 * tokens * w_elems, BF16_TENSOR_FLOPS)
+
+
+# ---- the serving CLIs' inputs on disk: the reference's landmark and dataset
+# layout (pram_tpu_torch/maps/loader.py, data/scenes.py), written with the
+# port's COLMAP writers, numpy and a stdlib PNG writer
+
+
+def yaml_lines(obj, indent: int = 0) -> list:
+    """Block-style YAML of nested dicts, lists of scalars and scalars (the
+    subset pram_tpu_torch/core/config.py reads)."""
+
+    def scalar(v):
+        if v is None:
+            return "null"
+        if isinstance(v, bool):
+            return "true" if v else "false"
+        if isinstance(v, float):  # YAML 1.1 floats carry a dot, and a signed exponent
+            r = repr(v)
+            return r.replace("e", ".0e") if "e" in r and "." not in r else r
+        if isinstance(v, str) and (v == "" or v.strip() != v or ": " in v or v[0] in "-[{&*!|>'\"%@`#"):
+            return "'" + v.replace("'", "''") + "'"
+        return str(v)
+
+    pad = " " * indent
+    out = []
+    for key, value in obj.items():
+        if isinstance(value, dict):
+            out += [f"{pad}{key}:"] + yaml_lines(value, indent + 2)
+        elif isinstance(value, (list, tuple)):
+            out += [f"{pad}{key}:"] + [f"{pad}- {scalar(v)}" for v in value]
+        else:
+            out.append(f"{pad}{key}: {scalar(value)}")
+    return out
+
+
+def write_yaml(path, obj) -> None:
+    Path(path).write_text("\n".join(yaml_lines(obj)) + "\n")
+
+
+def write_png(path, img) -> None:
+    """uint8 [H, W] or [H, W, 3] -> an 8-bit gray / RGB PNG, every row with
+    the Sub filter (type 1)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    h, w = img.shape[:2]
+    ch = 1 if img.ndim == 2 else img.shape[2]
+    rows = img.reshape(h, w * ch).astype(np.int16)
+    sub = rows.copy()
+    sub[:, ch:] -= rows[:, :-ch]
+    raw = np.concatenate([np.ones((h, 1), np.uint8), (sub & 0xFF).astype(np.uint8)], axis=1)
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+    header = struct.pack(">IIBBBBB", w, h, 8, {1: 0, 3: 2}[ch], 0, 0, 0)
+    Path(path).write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+                           + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def write_landmarks(scene_dir, cameras, images, points3D, p3d_desc, p3d_seg, seg_vrf, n_cluster: int,
+                    compressed: bool, query_p3d: dict, feats: dict) -> None:
+    """One scene's landmark directory: the COLMAP model (``compress_model_birch/``
+    or ``model/``) with point3D_desc.npy, the cluster, VRF and query-point
+    files of ``n_cluster`` clusters (cluster_mode xz, method birch), and the
+    query feature cache ``feats/<name>.npy``."""
+    import numpy as np
+
+    from pram_tpu_torch.maps.colmap_io import write_compressed_model, write_model
+
+    scene_dir = Path(scene_dir)
+    tag = f"n{n_cluster}_xz_birch"
+    if compressed:
+        model_dir = scene_dir / "compress_model_birch"
+        write_compressed_model(cameras, images, points3D, str(model_dir))
+        np.save(model_dir / "point3D_desc.npy", p3d_desc)
+    else:
+        write_model(cameras, images, points3D, str(scene_dir / "model"), ".bin")
+        np.save(scene_dir / "point3D_desc.npy", p3d_desc)
+    ids = np.array(sorted(p3d_seg), np.int64)
+    np.save(scene_dir / f"point3D_cluster_{tag}.npy",
+            {"id": ids, "label": np.array([p3d_seg[i] for i in ids], np.int64)})
+    np.save(scene_dir / f"point3D_vrf_{tag}.npy", seg_vrf)
+    np.save(scene_dir / f"point3D_query_{tag}.npy", query_p3d)
+    (scene_dir / "feats").mkdir(parents=True, exist_ok=True)
+    for name, feat in feats.items():
+        np.save(scene_dir / "feats" / (name.replace("/", "+") + ".npy"), feat)
+
+
+def write_queries(data_dir, names, qvecs, tvecs, intrinsics=None, first: int = 4) -> None:
+    """``imglist.txt`` and ``queries_poses.txt`` (name qw qx qy qz tx ty tz),
+    and ``imglist_<first>.txt`` of the first ``first`` names; with
+    ``intrinsics`` (model, w, h, params) also ``queries_with_intrinsics.txt``
+    and ``queries_with_intrinsics_<first>.txt``."""
+    data_dir = Path(data_dir)
+    data_dir.mkdir(parents=True, exist_ok=True)
+    (data_dir / "imglist.txt").write_text("".join(f"{n}\n" for n in names))
+    (data_dir / f"imglist_{first}.txt").write_text("".join(f"{n}\n" for n in names[:first]))
+    (data_dir / "queries_poses.txt").write_text("".join(
+        f"{n} " + " ".join(repr(float(v)) for v in (*q, *t)) + "\n" for n, q, t in zip(names, qvecs, tvecs)))
+    if intrinsics is not None:
+        model, w, h, params = intrinsics
+        for fn, some in (("queries_with_intrinsics.txt", names),
+                         (f"queries_with_intrinsics_{first}.txt", names[:first])):
+            (data_dir / fn).write_text("".join(
+                f"{n} {model} {w} {h} " + " ".join(repr(float(p)) for p in params) + "\n" for n in some))
+
+
+def write_configs(root, dataset: str, scene: str, n_cluster: int, top: dict, config_dir=None,
+                  image_list: str = "imglist.txt") -> Path:
+    """The dataset YAML (``<config_dir>/configs/<dataset>.yaml``, listing the
+    queries of ``image_list``) and the top config ``<config_dir>/config.yaml``
+    (``top`` over the landmark and dataset paths under ``root``);
+    ``config_dir`` defaults to ``root``. Returns the top config's path."""
+    root = Path(root)
+    cdir = Path(config_dir) if config_dir is not None else root
+    (cdir / "configs").mkdir(parents=True, exist_ok=True)
+    write_yaml(cdir / "configs" / f"{dataset}.yaml", {
+        "dataset": dataset, "scenes": [scene],
+        scene: {"n_cluster": n_cluster, "cluster_mode": "xz", "cluster_method": "birch",
+                "training_sample_ratio": 1, "eval_sample_ratio": 1,
+                "gt_pose_path": "queries_poses.txt", "query_path": "queries_with_intrinsics.txt",
+                "image_path_prefix": "", "image_list": image_list},
+    })
+    cfg = {"dataset": [dataset], "landmark_path": str(root / "landmarks"),
+           "dataset_path": str(root / "datasets"), "config_path": str(cdir / "configs"), **top}
+    write_yaml(cdir / "config.yaml", cfg)
+    return cdir / "config.yaml"
+
+
+def seg_vrf_of(pmap, images) -> dict:
+    """A packed map's ``{sid: {0: {"image_id": fid}}}`` VRF table (the first
+    VRF frame of each segment), as point3D_vrf_*.npy stores it."""
+    fid_of = {im.name: fid for fid, im in images.items()}
+    return {sid: {0: {"image_id": fid_of[pmap.frame_names[pmap.vrf_frame_idx[slot]]]}}
+            for sid, slot in enumerate(pmap.seg_vrf_slot) if slot >= 0}
+
+
+def synthetic_layout(root, scene, queries, names, n_cluster: int, top: dict) -> Path:
+    """The GML slice's synthetic scene on disk: a compressed model whose
+    frames hold the points of their packed tables (at most the scene's 1024
+    keypoints a frame, as PRAM's compression caps a frame's keypoints), every
+    point with its track, and the queries' feature caches (valid keypoints
+    only, image_size (h, w)); returns the top config."""
+    import numpy as np
+
+    from pram_tpu_torch.maps.colmap_io import ColmapImage
+
+    m = scene.map
+    row = {name: r for r, name in enumerate(m.frame_names)}
+    images = {}
+    for fid, im in scene.images.items():
+        r = row.get(im.name)
+        pids = m.point_ids[m.frame_point_idx[r][m.frame_kp_mask[r]]] if r is not None else []
+        images[fid] = ColmapImage(fid, im.qvec, np.asarray(im.tvec), im.camera_id, im.name,
+                                  np.zeros((0, 2)), np.asarray(pids, np.int64))
+    feats, query_p3d = {}, {}
+    for name, q in zip(names, queries):
+        v = q["mask"]
+        feats[name] = {"keypoints": q["keypoints"][v], "scores": q["scores"][v],
+                       "descriptors": q["descriptors"][v], "image_size": np.array([scene.height, scene.width])}
+        query_p3d[name] = m.point_ids[q["point_idx"][v]]
+    root = Path(root)
+    write_landmarks(root / "landmarks" / "Synthetic" / "scene", scene.cameras, images, scene.points3D,
+                    scene.point_descs, dict(zip(m.point_ids.tolist(), m.point_seg.tolist())),
+                    seg_vrf_of(m, scene.images), n_cluster, True, query_p3d, feats)
+    write_queries(root / "datasets" / "Synthetic" / "scene", names, [q["qvec"] for q in queries],
+                  [q["tvec"] for q in queries])
+    return write_configs(root, "Synthetic", "scene", n_cluster, top)
+
+
+def rendered_layout(root, scene, n_cluster: int, top: dict) -> Path:
+    """The rendered world's map on disk as a full COLMAP model: a 3D point a
+    reference keypoint (track length 1), its descriptor and grid segment;
+    returns the top config."""
+    import numpy as np
+
+    from pram_tpu_torch.maps.colmap_io import ColmapCamera, ColmapImage, ColmapPoint3D
+    from pram_tpu_torch.maps.synthetic import _rotmat2qvec_np
+
+    cameras = {1: ColmapCamera(1, "PINHOLE", scene.width, scene.height, np.array(scene.cam, float))}
+    images, points, desc, seg = {}, {}, {}, {}
+    for i, v in enumerate(scene.ref_views):
+        images[i + 1] = ColmapImage(i + 1, _rotmat2qvec_np(v["R"]), np.asarray(v["t"]), 1,
+                                    f"ref_{i:03d}.png", v["kpts"], v["point_ids"])
+        for j, pid in enumerate(v["point_ids"].tolist()):
+            points[pid] = ColmapPoint3D(pid, v["xyz"][j], np.array([128, 128, 128], np.uint8), 0.5,
+                                        np.asarray([i + 1], np.int32), np.asarray([j], np.int64))
+            desc[pid] = v["descs"][j]
+            seg[pid] = int(v["seg"][j])
+    root = Path(root)
+    write_landmarks(root / "landmarks" / "Rendered" / "scene", cameras, images, points, desc, seg,
+                    seg_vrf_of(scene.map, images), n_cluster, False, {}, {})
+    return write_configs(root, "Rendered", "scene", n_cluster, top)
+
+
+def rendered_path(world, n: int, jumps=(11, 22), width: int = 640, height: int = 480, focal: float = 500.0,
+                  starts=(0.08, 0.78, 0.40), looks=((None, None),) * 3):
+    """``n`` views of the rendered world along a smooth path (the query
+    poses' corridor, ``maps/rendered.py:query_pose``) that jumps to another
+    part of the corridor at the frames in ``jumps``: images ``[n, H, W, 3]``
+    f32 in [0, 1], qvecs, tvecs. Segment ``k`` starts at corridor position
+    ``starts[k]``; ``looks[k]`` gives the x of the back-wall point its first
+    and its last view look at (None: the corridor's own), turning linearly
+    between them."""
+    import numpy as np
+
+    from pram_tpu_torch.maps.synthetic import _look_at, _rotmat2qvec_np
+
+    seg = np.searchsorted(np.asarray(jumps), np.arange(n), side="right")
+    bounds = np.concatenate([[0], np.asarray(jumps), [n]])
+    imgs, qvecs, tvecs = [], [], []
+    for i in range(n):
+        k = seg[i]
+        j, length = i - bounds[k], bounds[k + 1] - bounds[k]
+        a = starts[k] + 0.012 * j
+        eye = np.array([-1.6 + 3.0 * a, -0.1 + 0.2 * np.sin(0.3 * i), -0.4 + 0.5 * a])
+        x0, x1 = (-0.8 + 1.6 * a if x is None else x for x in looks[k])
+        target = np.array([x0 + (x1 - x0) * j / max(length - 1, 1), 0.2, 6.0])
+        R, t = _look_at(eye, target)
+        imgs.append(world.render(R, t, (focal, focal, width / 2, height / 2), width, height))
+        qvecs.append(_rotmat2qvec_np(R))
+        tvecs.append(t)
+    return np.stack(imgs).astype(np.float32), np.stack(qvecs), np.stack(tvecs)
+
+
+# phase 22's online path: the first segment turns far left and the second
+# starts far right, so the view after the first jump shares no point of the
+# map with the one before it (tracking has nothing to match and the frame
+# relocalizes); the second jump stays in the corridor's view
+ONLINE_JUMPS = (11, 22)
+ONLINE_STARTS = (0.08, 0.88, 0.40)
+ONLINE_LOOKS = ((None, -4.5), (4.0, None), (None, None))
+
+
+# kernels a pass of each model launches (kernel 12 runs as kernel 1's message
+# pass, counted as kernel 1's)
+SEGNETVIT_LAUNCHES = {"self_attention": 15, "residual_mlp": 15}
+GML_LAUNCHES = {"self_attention": 9, "cross_attention": 9, "residual_mlp": 18, "sinkhorn": 1}
+# a localization with projection refinement, or a tracking step (which
+# computes its projection refinement whether or not it takes it): two RANSAC
+# PnPs and the refinement NN, besides the matcher
+PNP_LAUNCHES = {"ransac_score": 2, "gn_polish": 2, "refine_nn": 1}
+
+
+def add_launches(total: dict, part: dict, times: int = 1) -> dict:
+    for k, v in part.items():
+        total[k] = total.get(k, 0) + v * times
+    return total
+
+
+def run_cli(log_name: str, fn, argv):
+    """``fn(argv)`` (a CLI's ``main``) with its printed lines logged after it;
+    returns (result, lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(argv)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"  {log_name} | {line}")
+    return out, lines
+
+
+def same_tables(name: str, built, loaded, n_seg: int) -> None:
+    """A packed map read back from disk against the one built in memory,
+    table by table (the declared 112 clusters pad seg_vrf_slot with -1)."""
+    import numpy as np
+
+    for f in ("point_xyz", "point_desc", "point_seg", "point_ids", "point_error", "frame_R", "frame_t",
+              "frame_cam", "frame_size", "frame_point_idx", "frame_kp_uv", "frame_kp_score", "frame_kp_mask",
+              "vrf_frame_idx"):
+        require(np.array_equal(getattr(built, f), getattr(loaded, f)), f"{name}: {f} read back differs")
+    require(built.frame_names == loaded.frame_names, f"{name}: frame names read back differ")
+    require(np.array_equal(loaded.seg_vrf_slot[:n_seg], built.seg_vrf_slot[:n_seg])
+            and bool((loaded.seg_vrf_slot[n_seg:] == -1).all()), f"{name}: seg_vrf_slot read back differs")
+
+
+def run_cli_phase(torch, np, dev, bf16, scene, queries, grecall, rec_w, gml_w, reset_counts, read_counts) -> dict:
+    """Phase 22: both serving CLIs through ``main(argv)`` on the card, on
+    their inputs written to a temporary directory; returns each path's
+    launches and figures."""
+    import tempfile
+
+    from pram_tpu_torch.cli import inference as cli_inference
+    from pram_tpu_torch.cli import online_localization as cli_online
+    from pram_tpu_torch.engine.rendered_guard import (
+        FOCAL, GML_W, HEIGHT, MAP_KPTS, REC_W, SFD2_W, WIDTH,
+    )
+    from pram_tpu_torch.geometry.rotations import compute_pose_error
+    from pram_tpu_torch.maps.loader import load_scene_map
+    from pram_tpu_torch.maps.rendered import build_rendered_scene
+    from pram_tpu_torch.models.convert import load_sfd2
+    from pram_tpu_torch.models.sfd2 import extract, preprocess_image
+
+    n_q = len(queries)
+    names_all = set(read_counts())
+    out = {}
+    loc_top = {"seg_k": 1, "threshold": 8.0, "min_inliers": 32, "do_refinement": True,
+               "matching_method": "gml", "refinement_method": "projection"}
+    with tempfile.TemporaryDirectory(prefix="pram_cli_") as tmp:
+        tmp = Path(tmp)
+        # -- offline: the GML slice's scene and queries from disk
+        names = [f"query_{i:03d}.png" for i in range(n_q)]
+        top = {"network": "segnetvit", "feat_dim": 128, "use_mid_feature": False, "layers": 15,
+               "eval_max_keypoints": 512, "localization": {**loc_top, "with_compress": True}}
+        t_w = time.perf_counter()
+        cfg = synthetic_layout(tmp / "offline", scene, queries, names, 112, top)
+        loaded = load_scene_map(str(tmp / "offline" / "landmarks" / "Synthetic" / "scene"), n_cluster=112,
+                                covisibility_frame=4, max_kp_per_frame=1024, max_ref_points=2048)
+        same_tables("offline map", scene.map, loaded, scene.n_cluster)
+        log(f"offline inputs written and the map read back equal in {time.perf_counter() - t_w:.2f} s: "
+            f"{loaded.num_points} points, {loaded.num_frames} frames of {loaded.frame_point_idx.shape[1]} "
+            f"keypoints (the covisibility and refinement sets are rebuilt from the compressed frames)")
+        argv = ["--config", str(cfg), "--rec_weight_path", rec_w, "--matcher_weight_path", gml_w]
+        reset_counts()
+        report, lines = run_cli("inference", cli_inference.main, argv + ["--batch", str(n_q)])
+        torch.cuda.synchronize()
+        got = read_counts()
+        want = add_launches(add_launches(add_launches({}, SEGNETVIT_LAUNCHES), GML_LAUNCHES), PNP_LAUNCHES)
+        log(f"inference CLI launches: {got}")
+        require(got == {k: want.get(k, 0) for k in names_all},
+                f"inference CLI: launches {got}, expected {want} and no other")
+        recall = report.bucket_counts[0] / max(report.n_total, 1)
+        require(report.n_total == n_q, "inference CLI: not every query was evaluated")
+        require(recall >= grecall - 1.0 / n_q,
+                f"inference CLI: recall@5cm/5deg {recall:.4f} more than one query below the GML slice's {grecall:.4f}")
+        # a second run at --batch 8: four batches, so steady_fps leaves the
+        # first drain out and still counts three
+        report8, lines8 = run_cli("inference --batch 8", cli_inference.main, argv + ["--batch", "8"])
+        require(report8.bucket_counts[0] / max(report8.n_total, 1) >= grecall - 1.0 / n_q,
+                "inference CLI (--batch 8): recall below the GML slice's")
+        # the first 4 queries on the card and on the CPU, each through the CLI
+        cfg4 = write_configs(tmp / "offline", "Synthetic", "scene", 112, top, config_dir=tmp / "offline_4",
+                             image_list="imglist_4.txt")
+        argv4 = ["--config", str(cfg4), "--rec_weight_path", rec_w, "--matcher_weight_path", gml_w, "--batch", "4"]
+        card4, _ = run_cli("inference, 4 queries", cli_inference.main, argv4)
+        t_cpu = time.perf_counter()
+        cpu4, _ = run_cli("inference, 4 queries, --device cpu", cli_inference.main, argv4 + ["--device", "cpu"])
+        log(f"inference CLI on the CPU: 4 queries in {time.perf_counter() - t_cpu:.1f} s (models and map loaded "
+            f"included); failed card {card4.failed_cases} CPU {cpu4.failed_cases}")
+        require(card4.failed_cases == cpu4.failed_cases, "inference CLI: success flags differ card vs CPU")
+        require(card4.bucket_counts[0] == card4.n_success and cpu4.bucket_counts[0] == cpu4.n_success,
+                "inference CLI: a localized query of the first 4 is outside 5 cm / 5 deg")
+        stage = next(line for line in lines if line.startswith("stage times:"))
+        out["inference"] = dict(
+            launches=got, recall=recall, n_success=report.n_success, fps=report.fps(),
+            steady_fps=report.steady_fps(), per_query_ms=1e3 * float(np.mean(report.time_results["total"])),
+            stage_times=stage, batch8=dict(recall=report8.bucket_counts[0] / max(report8.n_total, 1),
+                                           fps=report8.fps(), steady_fps=report8.steady_fps(),
+                                           stage_times=next(l for l in lines8 if l.startswith("stage times:"))),
+            card_vs_cpu=dict(failed_card=card4.failed_cases, failed_cpu=cpu4.failed_cases))
+        log(f"inference CLI on card: recall@5cm/5deg {recall:.4f} ({report.n_success}/{n_q} localized; the GML "
+            f"slice {grecall:.4f}), {report.fps():.1f} queries/s over the one batch of {n_q} (steady_fps "
+            f"{report.steady_fps():.1f}, the same run), {stage}; --batch 8: steady_fps {report8.steady_fps():.1f} "
+            f"queries/s over the last 3 of 4 batches, fps {report8.fps():.1f}, {out['inference']['batch8']['stage_times']}")
+
+        # -- online: the rendered world's map from disk and 32 frames as PNG
+        t_w = time.perf_counter()
+        sfd2 = load_sfd2(SFD2_W, device=dev, dtype=bf16)
+
+        def extract_np(images):
+            kp, sc, de, mk = [], [], [], []
+            for i in range(0, images.shape[0], 12):
+                x = preprocess_image(torch.as_tensor(images[i:i + 12]).to(dev)).to(bf16)
+                with torch.no_grad():
+                    f = extract(sfd2, x, max_keypoints=MAP_KPTS, conf_th=1e-4)
+                k = f["keypoints"]
+                kp.append(k.xy.cpu().numpy())
+                sc.append(k.scores.float().cpu().numpy())
+                de.append(f["descriptors"].float().cpu().numpy())
+                mk.append(k.mask.cpu().numpy())
+            return tuple(np.concatenate(a) for a in (kp, sc, de, mk))
+
+        rscene = build_rendered_scene(extract_np, np.random.RandomState(0), width=WIDTH, height=HEIGHT,
+                                      n_ref=12, kp_per_ref=MAP_KPTS, max_ref_points=2048)
+        del sfd2
+        top = {"network": "segnetvit", "use_mid_feature": True, "layers": 15,
+               "localization": {**loc_top, "with_compress": False}}
+        cfg = rendered_layout(tmp / "online", rscene, 112, top)
+        loaded = load_scene_map(str(tmp / "online" / "landmarks" / "Rendered" / "scene"), n_cluster=112,
+                                with_compress=False, covisibility_frame=4, max_kp_per_frame=MAP_KPTS,
+                                max_ref_points=2048)
+        n_seg = int(rscene.map.seg_vrf_slot.shape[0])
+        same_tables("online map", rscene.map, loaded, n_seg)
+        for f in ("vrf_covis", "vrf_ref_point_idx"):
+            require(np.array_equal(getattr(rscene.map, f), getattr(loaded, f)), f"online map: {f} read back differs")
+        n_frames = 32
+        imgs, qvecs, tvecs = rendered_path(rscene.world, n_frames, ONLINE_JUMPS, starts=ONLINE_STARTS,
+                                           looks=ONLINE_LOOKS)
+        img_dir = tmp / "online" / "images"
+        img_dir.mkdir()
+        fnames = [f"frame_{i:03d}.png" for i in range(n_frames)]
+        for name, img in zip(fnames, imgs):
+            write_png(img_dir / name, np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8))
+        write_queries(img_dir, fnames, qvecs, tvecs, ("PINHOLE", WIDTH, HEIGHT, (FOCAL, FOCAL, WIDTH / 2, HEIGHT / 2)))
+        log(f"online inputs: the rendered map ({loaded.num_points} points, {loaded.num_frames} frames) built on "
+            f"the card, written and read back equal, and {n_frames} frames rendered and written as PNG in "
+            f"{time.perf_counter() - t_w:.1f} s")
+        argv = ["--config", str(cfg), "--image_dir", str(img_dir), "--rec_weight_path", REC_W,
+                "--feat_weight_path", SFD2_W, "--matcher_weight_path", GML_W, "--max_keypoints", "512"]
+        reset_counts()
+        recs, lines = run_cli("online", cli_online.main,
+                              argv + ["--queries", str(img_dir / "queries_with_intrinsics.txt")])
+        torch.cuda.synchronize()
+        got = read_counts()
+        q_err, t_err = compute_pose_error(torch.tensor(np.stack([r["qvec"] for r in recs])).double(),
+                                          torch.tensor(np.stack([r["tvec"] for r in recs])).double(),
+                                          torch.tensor(qvecs), torch.tensor(tvecs).double())
+        modes = [r["mode"] for r in recs]
+        log("online CLI frames: " + ", ".join(
+            f"{r['name']} {r['mode']} {r['inliers']} {q:.3f} deg {e:.4f} m"
+            for r, q, e in zip(recs, q_err.tolist(), t_err.tolist())))
+        require(len(recs) == n_frames and all(r["success"] for r in recs), "online CLI: a frame failed")
+        require(bool((t_err < 0.05).all() and (q_err < 5.0).all()), "online CLI: a frame outside 5 cm / 5 deg")
+        require("tracked" in modes, "online CLI: no tracked frame")
+        # a frame tries tracking when the previous one ended localized; the
+        # fallback: tracking tried, failed, and the frame relocalized
+        tried = sum(1 for i in range(1, n_frames) if recs[i - 1]["success"])
+        fallback = [i for i in range(1, n_frames) if modes[i] == "relocalized" and recs[i - 1]["success"]]
+        require(ONLINE_JUMPS[0] in fallback,
+                f"online CLI: frame {ONLINE_JUMPS[0]} did not fall back from tracking to relocalization "
+                f"(fallback frames {fallback})")
+        matched = tried + modes.count("relocalized")
+        want = add_launches({"fused_stem": n_frames, "nms": n_frames}, SEGNETVIT_LAUNCHES, n_frames)
+        want = add_launches(add_launches(want, GML_LAUNCHES, matched), PNP_LAUNCHES, matched)
+        log(f"online CLI launches: {got} ({tried} tracking steps, {modes.count('relocalized')} relocalizations, "
+            f"frames {fallback} both)")
+        require(got == {k: want.get(k, 0) for k in names_all},
+                f"online CLI: launches {got}, expected {want} and no other")
+        ms = {k: [r["ms"][k] for r in recs] for k in ("feat", "rec", "loc", "total")}
+        t_cpu = time.perf_counter()
+        cpu4, _ = run_cli("online, 4 frames, --device cpu", cli_online.main,
+                          argv + ["--queries", str(img_dir / "queries_with_intrinsics_4.txt"), "--device", "cpu"])
+        q4, e4 = compute_pose_error(torch.tensor(np.stack([r["qvec"] for r in cpu4])).double(),
+                                    torch.tensor(np.stack([r["tvec"] for r in cpu4])).double(),
+                                    torch.tensor(qvecs[:4]), torch.tensor(tvecs[:4]).double())
+        log(f"online CLI on the CPU: 4 frames in {time.perf_counter() - t_cpu:.1f} s (models and map loaded "
+            f"included); success card {[r['success'] for r in recs[:4]]} CPU {[r['success'] for r in cpu4]}, "
+            f"modes card {modes[:4]} CPU {[r['mode'] for r in cpu4]}")
+        require([r["success"] for r in cpu4] == [r["success"] for r in recs[:4]],
+                "online CLI: success flags differ card vs CPU")
+        require(bool((e4 < 0.05).all() and (q4 < 5.0).all()), "online CLI (CPU): a frame outside 5 cm / 5 deg")
+        out["online"] = dict(
+            launches=got, frames=n_frames, tracked=modes.count("tracked"),
+            relocalized=modes.count("relocalized"), tracking_steps=tried, fallback_frames=fallback,
+            max_err=[float(q_err.max()), float(t_err.max())],
+            mean_ms={k: float(np.mean(v)) for k, v in ms.items()},
+            mean_ms_after_first={k: float(np.mean(v[1:])) for k, v in ms.items()},
+            summary=lines[-1])
+        log(f"online CLI on card: {n_frames} frames, {modes.count('tracked')} tracked, "
+            f"{modes.count('relocalized')} relocalized, max error {float(q_err.max()):.4f} deg "
+            f"{float(t_err.max()):.5f} m; {lines[-1]}; after the first frame: "
+            + ", ".join(f"{k}={v:.2f}" for k, v in out["online"]["mean_ms_after_first"].items()) + " ms")
+    return out
 
 
 def main() -> int:
@@ -2900,6 +3383,16 @@ def main() -> int:
         stages_c20_ms=stages, localization_ms=dict(matching=m_batch_s * 1e3, adaptive=ad_s * 1e3,
                                                    seg_k1=k1_s * 1e3, seg_k10=k10_s * 1e3))
     phase("matching", t)
+
+    # ---- 22. the two serving CLIs through main(argv), counted
+    t = time.perf_counter()
+    cli_runs = run_cli_phase(
+        torch, np, dev, bf16, scene, queries, grecall_gpu, weights, gml_weights, reset_counts, read_counts,
+    )
+    for r in rows.values():
+        r["launches_cli"] = {path: run["launches"][r["name"]] for path, run in cli_runs.items()}
+    log(f"cli: {json.dumps({k: {kk: vv for kk, vv in v.items() if kk != 'launches'} for k, v in cli_runs.items()})}")
+    phase("cli", t)
 
     table = []
     for name in ("self_attention", "residual_mlp", "ransac_score", "gn_polish",

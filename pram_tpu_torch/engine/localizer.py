@@ -402,6 +402,19 @@ def refine_projection_core(
     return res.R, res.t, res.num_inliers, res.success, kpt_point_idx, m_xyz
 
 
+def _refine_by_projection(
+    dmap: DeviceMap, camera: Camera, kpts, descs, mask, slot, R0, t0, cfg: LocConfig,
+    generator: Optional[torch.Generator] = None, triplets: Optional[torch.Tensor] = None,
+):
+    """refine_pose_by_projection (singlemap3d.py:367-498): the precomputed
+    covisible point set of each frame's VRF slot ``[B]`` is projected with
+    the first pose, matched to the query by the gated top-2 NN and ratio
+    test, and PnP runs again (:func:`refine_projection_core`)."""
+    return refine_projection_core(
+        camera, kpts, descs, mask, gather_refine_set(dmap, slot), R0, t0, cfg, generator, triplets
+    )
+
+
 def gather_covis_tables(dmap: DeviceMap, slot: torch.Tensor, cfg: LocConfig):
     """The first ``covisibility_frame`` covisible frames of VRF slots ``[B]``:
     (valid ``[B, C]``, their tables ``[B, C, K, ...]``)."""
@@ -556,9 +569,8 @@ class Localizer:
             )
         elif self.cfg.do_refinement:
             # refine_pose_by_projection on the chosen landmark's VRF
-            refinement = refine_projection_core(
-                camera, kpts, descs, rank.mask,
-                gather_refine_set(self.dmap, core.picked_slot), core.R0, core.t0,
+            refinement = _refine_by_projection(
+                self.dmap, camera, kpts, descs, rank.mask, core.picked_slot, core.R0, core.t0,
                 self.cfg, generator, refine_triplets,
             )
         return finalize_result(core, refinement)

@@ -1,8 +1,5 @@
 """Packed-array localization maps (host numpy; copy of pram_tpu/maps/packed.py).
 
-Single-scene packing only; multi-scene concatenation waits for a later
-slice of the port.
-
 The reference holds its map as dicts of Python objects and walks them per
 query (localization/singlemap3d.py:24-533, multimap3d.py:26-379). Here the
 whole map is packed into fixed-shape arrays once at load time, and the
@@ -25,7 +22,7 @@ query path runs against device-resident tables (maps/device.py):
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -306,4 +303,91 @@ def build_scene_map(
         scene_of_frame=[scene_name] * F,
         scene_names=[scene_name],
         n_class=S + 1,  # + background
+    )
+
+
+def concat_maps(maps: Sequence[PackedMap]) -> PackedMap:
+    """Concatenate per-scene packed maps into one multi-scene map.
+
+    Assumes each scene was built with its global ``start_sid`` offset (the
+    reference's RecDataset/MultiMap3D label-offset convention,
+    dataset/recdataset.py:56-90, multimap3d.py:86-90), so segment ids are
+    already global; only point/frame indices need offsetting.
+    """
+    if len(maps) == 1:
+        return maps[0]
+
+    def pad_to(arr, k, axis, fill):
+        pad = k - arr.shape[axis]
+        if pad <= 0:
+            return arr
+        widths = [(0, 0)] * arr.ndim
+        widths[axis] = (0, pad)
+        return np.pad(arr, widths, constant_values=fill)
+
+    K = max(m.frame_point_idx.shape[1] for m in maps)
+    Pr = max(m.vrf_ref_point_idx.shape[1] for m in maps)
+    C = max(m.vrf_covis.shape[1] for m in maps)
+    S = max(m.seg_vrf_slot.shape[0] for m in maps)
+
+    point_off = np.cumsum([0] + [m.num_points for m in maps])
+    frame_off = np.cumsum([0] + [m.num_frames for m in maps])
+    vrf_off = np.cumsum([0] + [len(m.vrf_frame_idx) for m in maps])
+
+    def off_idx(arr, off):
+        return np.where(arr >= 0, arr + off, -1)
+
+    seg_vrf_slot = np.full((S,), -1, np.int32)
+    for i, m in enumerate(maps):
+        sl = m.seg_vrf_slot
+        merged = off_idx(sl, vrf_off[i])
+        # scenes only own their [start_sid, start_sid+n_cluster) range
+        take = sl >= 0
+        seg_vrf_slot[: len(sl)][take] = merged[take]
+
+    return PackedMap(
+        point_xyz=np.concatenate([m.point_xyz for m in maps]),
+        point_desc=np.concatenate([m.point_desc for m in maps]),
+        point_seg=np.concatenate([m.point_seg for m in maps]),
+        point_error=np.concatenate([m.point_error for m in maps]),
+        point_ids=np.concatenate([m.point_ids for m in maps]),
+        frame_R=np.concatenate([m.frame_R for m in maps]),
+        frame_t=np.concatenate([m.frame_t for m in maps]),
+        frame_cam=np.concatenate([m.frame_cam for m in maps]),
+        frame_size=np.concatenate([m.frame_size for m in maps]),
+        frame_point_idx=np.concatenate(
+            [
+                off_idx(pad_to(m.frame_point_idx, K, 1, -1), point_off[i])
+                for i, m in enumerate(maps)
+            ]
+        ),
+        frame_kp_uv=np.concatenate(
+            [pad_to(m.frame_kp_uv, K, 1, 0) for m in maps]
+        ),
+        frame_kp_score=np.concatenate(
+            [pad_to(m.frame_kp_score, K, 1, 0) for m in maps]
+        ),
+        frame_kp_mask=np.concatenate(
+            [pad_to(m.frame_kp_mask, K, 1, False) for m in maps]
+        ),
+        seg_vrf_slot=seg_vrf_slot,
+        vrf_frame_idx=np.concatenate(
+            [off_idx(m.vrf_frame_idx, frame_off[i]) for i, m in enumerate(maps)]
+        ),
+        vrf_covis=np.concatenate(
+            [
+                off_idx(pad_to(m.vrf_covis, C, 1, -1), frame_off[i])
+                for i, m in enumerate(maps)
+            ]
+        ),
+        vrf_ref_point_idx=np.concatenate(
+            [
+                off_idx(pad_to(m.vrf_ref_point_idx, Pr, 1, -1), point_off[i])
+                for i, m in enumerate(maps)
+            ]
+        ),
+        frame_names=sum([m.frame_names for m in maps], []),
+        scene_of_frame=sum([m.scene_of_frame for m in maps], []),
+        scene_names=sum([m.scene_names for m in maps], []),
+        n_class=max(m.n_class for m in maps),
     )

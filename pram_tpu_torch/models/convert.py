@@ -1,4 +1,5 @@
-"""Flax parameter trees -> the port's state dicts.
+"""Flax parameter trees -> the port's state dicts, and reference torch
+checkpoints -> flax parameter trees (pram_tpu/models/convert.py).
 
 A flax ``Dense`` kernel ``[in, out]`` becomes a torch ``Linear.weight``
 ``[out, in]``; a ``Conv`` kernel ``[kh, kw, in / groups, out]`` a
@@ -7,12 +8,18 @@ A flax ``Dense`` kernel ``[in, out]`` becomes a torch ``Linear.weight``
 ``running_mean`` and ``running_var``; biases keep their name. The flax
 layout is the contract: the qkv columns stay in their ``(head, head_dim, 3)``
 order.
+
+The reference's own checkpoints (``state_dict`` layouts of the PRAM torch
+code) map onto the same flax trees through :func:`convert_sfd2`,
+:func:`convert_segnetvit`, :func:`convert_gml` and :func:`convert_adagml`,
+numpy copies of the JAX package's converters; their output goes through
+the ``*_state_dict`` functions below like a tree read from msgpack.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -81,18 +88,23 @@ def gml_state_dict(params: dict, n_layers: int) -> Dict[str, torch.Tensor]:
     """GML flax params -> GML state dict for its first ``n_layers`` layers.
 
     ``self_attn_<i>`` / ``cross_attn_<i>`` become ``self_attn.<i>`` /
-    ``cross_attn.<i>``; the checkpoint's one output projection
-    (``out_proj_<k>``: flax creates no parameters for the unused ones)
-    becomes ``out_proj``; the scalar ``bin_score`` is kept as is.
+    ``cross_attn.<i>``; the checkpoint's last output projection becomes
+    ``out_proj``: a flax checkpoint holds only that one (flax creates no
+    parameters for the unused ones), a converted reference checkpoint
+    (:func:`convert_gml`) holds one a layer, of which the reference applies
+    the last at inference (nets/gml.py:279-280). The scalar ``bin_score`` is
+    kept as is.
     """
     params = dict(params)
     if "bin_score" not in params:
         raise ValueError("GML params have no bin_score")
     bin_score = np.asarray(params.pop("bin_score"), np.float32).reshape(())
-    out_projs = sorted(k for k in params if k.startswith("out_proj_"))
-    if len(out_projs) != 1:
-        raise ValueError(f"expected one out_proj_<k> in the GML params, got {out_projs}")
-    params["out_proj"] = params.pop(out_projs[0])
+    out_projs = sorted((k for k in params if k.startswith("out_proj_")), key=lambda k: int(k[9:]))
+    if not out_projs:
+        raise ValueError("GML params have no out_proj_<k>")
+    params["out_proj"] = params.pop(out_projs[-1])
+    for k in out_projs[:-1]:
+        del params[k]
     sd = {
         re.sub(r"^(self_attn|cross_attn)_(\d+)\.", r"\1.\2.", k): v
         for k, v in flax_to_state_dict(params).items()
@@ -231,3 +243,160 @@ def load_sfd2_int8(
     (``pram_tpu/engine/rendered_guard.py``'s int8 extractor)."""
     model = load_sfd2(path, device=device, dtype=dtype)
     return cast_stem(quantize_extractor(model, calib_images, conv_kernel), dtype).eval()
+
+
+# ---- reference torch checkpoints -> flax trees (pram_tpu/models/convert.py:27-270)
+
+
+def load_torch_state_dict(path: str, key: str = None) -> Dict[str, np.ndarray]:
+    """Load a torch checkpoint to numpy on host (CPU torch only).
+
+    The reference stores extractor weights under ``state_dict``
+    (nets/sfd2.py:594) and matcher/recognition weights under ``model``
+    (localization/matchers/gml.py) or at top level.
+    """
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if key is not None and key in ckpt:
+        ckpt = ckpt[key]
+    elif isinstance(ckpt, dict):
+        for k in ("state_dict", "model"):
+            if k in ckpt and isinstance(ckpt[k], dict):
+                ckpt = ckpt[k]
+                break
+    out = {}
+    for name, tensor in ckpt.items():
+        name = name.removeprefix("module.")  # DDP wrapper
+        out[name] = tensor.detach().cpu().numpy()
+    return out
+
+
+def _conv(sd, name):
+    w = np.transpose(sd[f"{name}.weight"], (2, 3, 1, 0))
+    p = {"kernel": w}
+    if f"{name}.bias" in sd:
+        p["bias"] = sd[f"{name}.bias"]
+    return p
+
+
+def _linear(sd, name):
+    p = {"kernel": np.ascontiguousarray(sd[f"{name}.weight"].T)}
+    if f"{name}.bias" in sd:
+        p["bias"] = sd[f"{name}.bias"]
+    return p
+
+
+def _bn(sd, name) -> Tuple[dict, dict]:
+    params = {"scale": sd[f"{name}.weight"], "bias": sd[f"{name}.bias"]}
+    stats = {
+        "mean": sd[f"{name}.running_mean"],
+        "var": sd[f"{name}.running_var"],
+    }
+    return params, stats
+
+
+def _ln(sd, name):
+    return {"scale": sd[f"{name}.weight"], "bias": sd[f"{name}.bias"]}
+
+
+def convert_sfd2(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """Map the reference ResNet4x state_dict (nets/sfd2.py:127-170) to flax."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+
+    for blk in ("conv1a", "conv1b", "conv2a", "conv2b", "conv3a", "conv3b"):
+        p_bn, s_bn = _bn(sd, f"{blk}.1")
+        params[blk] = {"conv": _conv(sd, f"{blk}.0"), "bn": p_bn}
+        stats[blk] = {"bn": s_bn}
+
+    for i in range(3):
+        t = f"conv4.{i}"
+        rp, rs = {}, {}
+        for j in (1, 2, 3):
+            rp[f"conv{j}"] = _conv(sd, f"{t}.conv{j}")
+            p_bn, s_bn = _bn(sd, f"{t}.bn{j}")
+            rp[f"bn{j}"] = p_bn
+            rs[f"bn{j}"] = s_bn
+        params[f"res_{i}"] = rp
+        stats[f"res_{i}"] = rs
+
+    for head in ("convPa", "convDa"):
+        params[f"{head}_0"] = _conv(sd, f"{head}.0")
+        p_bn, s_bn = _bn(sd, f"{head}.1")
+        params[f"{head}_bn"] = p_bn
+        stats[f"{head}_bn"] = s_bn
+        params[f"{head}_3"] = _conv(sd, f"{head}.3")
+    params["convPb"] = _conv(sd, "convPb")
+    params["convDb"] = _conv(sd, "convDb")
+    return {"params": params, "batch_stats": stats}
+
+
+def _self_attn_block(sd, prefix):
+    return {
+        "qkv": _linear(sd, f"{prefix}.qkv"),
+        "proj": _linear(sd, f"{prefix}.proj"),
+        "mlp_0": _linear(sd, f"{prefix}.mlp.0"),
+        "mlp_ln": _ln(sd, f"{prefix}.mlp.1"),
+        "mlp_3": _linear(sd, f"{prefix}.mlp.3"),
+    }
+
+
+def _cross_attn_block(sd, prefix):
+    return {
+        "to_qk": _linear(sd, f"{prefix}.to_qk"),
+        "to_v": _linear(sd, f"{prefix}.to_v"),
+        "proj": _linear(sd, f"{prefix}.proj"),
+        "mlp_0": _linear(sd, f"{prefix}.mlp.0"),
+        "mlp_ln": _ln(sd, f"{prefix}.mlp.1"),
+        "mlp_3": _linear(sd, f"{prefix}.mlp.3"),
+    }
+
+
+def convert_segnetvit(sd: Dict[str, np.ndarray], n_layers: int = 15) -> Dict:
+    """Map the reference SegNetViT state_dict (nets/segnetvit.py:124-172)."""
+    params: Dict[str, Any] = {
+        "input_proj": _linear(sd, "input_proj"),
+        "kenc": {"Wr": {"kernel": np.ascontiguousarray(sd["kenc.Wr.weight"].T)}},
+        "seg_0": _linear(sd, "seg.0"),
+        "seg_ln": _ln(sd, "seg.1"),
+        "seg_3": _linear(sd, "seg.3"),
+    }
+    for i in range(n_layers):
+        params[f"gnn_{i}"] = _self_attn_block(sd, f"gnn.layers.{i}")
+    if "sc.0.weight" in sd:
+        params["sc_0"] = _linear(sd, "sc.0")
+        params["sc_ln"] = _ln(sd, "sc.1")
+        params["sc_3"] = _linear(sd, "sc.3")
+    return {"params": params}
+
+
+def convert_gml(sd: Dict[str, np.ndarray], n_layers: int = 9) -> Dict:
+    """Map the reference GML state_dict (nets/gml.py:211-240)."""
+    params: Dict[str, Any] = {
+        "input_proj": _linear(sd, "input_proj"),
+        "poseenc": {
+            "Wr": {"kernel": np.ascontiguousarray(sd["poseenc.Wr.weight"].T)}
+        },
+        "bin_score": sd["bin_score"],
+    }
+    for i in range(n_layers):
+        params[f"self_attn_{i}"] = _self_attn_block(sd, f"self_attn.{i}")
+        params[f"cross_attn_{i}"] = _cross_attn_block(sd, f"cross_attn.{i}")
+        params[f"out_proj_{i}"] = _linear(sd, f"out_proj.{i}")
+    return {"params": params}
+
+
+def convert_adagml(sd: Dict[str, np.ndarray], n_layers: int = 9) -> Dict:
+    """Map the reference AdaGML state_dict (nets/adagml.py:251-288)."""
+    out = convert_gml(sd, n_layers)
+    for i in range(n_layers):
+        p = f"pooling.{i}"
+        out["params"][f"pooling_{i}"] = {
+            "score_enc_0": _linear(sd, f"{p}.score_enc.0"),
+            "score_enc_ln": _ln(sd, f"{p}.score_enc.1"),
+            "score_enc_3": _linear(sd, f"{p}.score_enc.3"),
+            "proj": _linear(sd, f"{p}.proj"),
+            "predict_0": _linear(sd, f"{p}.predict.0"),
+            "predict_ln": _ln(sd, f"{p}.predict.1"),
+            "predict_3": _linear(sd, f"{p}.predict.3"),
+        }
+    return out

@@ -12,7 +12,11 @@ same with the first 2 layers of the trained Aachen AdaGML
 augmented training steps of the first layer of the rendered SegNetViT on
 that view through ``Trainer``; and the int8 path on that view: the int8
 extractor quantized and calibrated there, and the 2-layer GML with int8
-projections and MLPs.
+projections and MLPs; then both serving CLIs' ``main`` on the CPU with
+2-layer recognizers, on the synthetic scene's map and features and on a
+160 x 120 rendered map with two PNG frames, written by chip_smoke.py's
+writers (the config, COLMAP, feature, image and weight readers of their
+paths).
 """
 
 import os
@@ -156,6 +160,47 @@ SCRIPT = textwrap.dedent(
              "gt_seg": torch.arange(64)[None], "mask": kp.mask}
     means = trainer.process_epoch([batch, batch])
     assert trainer.state.iteration == 2 and np.isfinite(means["loss"])
+
+    # the two serving CLIs, through main(argv) on the CPU at 2 layers: the
+    # config, map, feature, image and weight readers of their paths
+    import tempfile
+    from pathlib import Path
+
+    from pram_tpu_torch.cli import inference as cli_inference
+    from pram_tpu_torch.cli import online_localization as cli_online
+    from pram_tpu_torch.maps.rendered import build_rendered_scene
+
+    loc = {"seg_k": 1, "threshold": 8.0, "min_inliers": 32, "matching_method": "gml"}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        top = {"network": "segnetvit", "feat_dim": 128, "use_mid_feature": False, "layers": 2,
+               "eval_max_keypoints": 512, "localization": loc}
+        cfg = chip_smoke.synthetic_layout(tmp / "offline", scene, qs, ["q0.png", "q1.png"], 112, top)
+        rep = cli_inference.main(["--config", str(cfg), "--rec_weight_path", weights, "--matcher_weight_path",
+                                  gml_weights, "--batch", "2", "--device", "cpu"])
+        assert rep.n_total == 2 and len(rep.t_errors) == 2
+
+        def extract_np(images):
+            with torch.no_grad():
+                f = extract(sfd2, preprocess_image(torch.from_numpy(images)), max_keypoints=256, conf_th=1e-4)
+            k = f["keypoints"]
+            return k.xy.numpy(), k.scores.numpy(), f["descriptors"].numpy(), k.mask.numpy()
+
+        rscene = build_rendered_scene(extract_np, np.random.RandomState(0), width=160, height=120, focal=125.0,
+                                      n_ref=12, kp_per_ref=256, max_ref_points=1024)
+        top = {"network": "segnetvit", "use_mid_feature": True, "layers": 2,
+               "localization": {**loc, "with_compress": False}}
+        cfg = chip_smoke.rendered_layout(tmp / "online", rscene, 112, top)
+        imgs, qv, tv = chip_smoke.rendered_path(rscene.world, 2, jumps=(), width=160, height=120, focal=125.0)
+        for i, im in enumerate(imgs):
+            chip_smoke.write_png(tmp / f"f{i}.png", np.clip(np.round(im * 255), 0, 255).astype(np.uint8))
+        chip_smoke.write_queries(tmp, ["f0.png", "f1.png"], qv, tv, ("PINHOLE", 160, 120, (125.0, 125.0, 80.0, 60.0)))
+        recs = cli_online.main(["--config", str(cfg), "--image_dir", str(tmp), "--queries",
+                                str(tmp / "queries_with_intrinsics.txt"), "--max_keypoints", "128",
+                                "--rec_weight_path", "weights/segnetvit_rendered.msgpack",
+                                "--feat_weight_path", "weights/sfd2_rendered.msgpack",
+                                "--matcher_weight_path", "weights/gml_rendered.msgpack", "--device", "cpu"])
+        assert len(recs) == 2 and all(np.isfinite(r["tvec"]).all() for r in recs)
     leaked = BLOCKED & {m.split(".")[0] for m in sys.modules}
     assert not leaked, leaked
     print("FENCE OK", len(names))
