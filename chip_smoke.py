@@ -193,9 +193,40 @@ Phases, each printed with its elapsed seconds:
                 with --device cpu on the first 4 queries / frames against
                 the card's flags.
 
+23. gml_train   cli.train_synthetic_gml.main on the card at full width: GML (9
+                layers, d 256) from the flax-like init, 600 Adam steps of 8 x
+                (512 + 1024) tokens in bf16 over f32 masters on the bench
+                scene's pool of 64 batches, then the validation on 32 queries.
+                Before the first step, on the pool's first batch: the step-0
+                gradient A/Bs (the backward kernels 13-15 against their plain
+                versions on the kernel forward, each tensor within 3%, and a
+                planted 5% fault in kernel 14's dqk failing that bound; the
+                kernel path and plain path in bf16 against the plain path in
+                f32) and SinkhornPlan (kernel 6 forward, the
+                plain iterations differentiated) against plain autograd on the
+                batch's similarity and loss. The loop counted apart from the
+                validation: kernels 1 and 5, 13 and 14 nine times a step, 2
+                and 15 eighteen, 6 once, no other; the validation one GML and
+                two PnPs. The loss finite and its mean over the last 50 steps
+                below the first 50's; recall@5cm/5deg >= 31/32; steps/s; a
+                step's stages by CUDA events and its kernels by torch.profiler
+                on a copy of the trained model; kernel 14 on the inputs the
+                path gave it, against its plain version and its bound.
+24. train_cli   cli.train.main on the card at configs/config_train_7scenes_sfd2
+                .yaml's operating point (SegNetViT 15 layers, batch 32, 512
+                tokens, bf16 over f32 masters), 2 epochs of 5 its, on 48 views
+                of the GML slice's scene written in the reference layout (a
+                COLMAP model, the training list, 256-d descriptors in the
+                feature caches, 112 declared clusters); then a resume from the
+                first epoch's checkpoint that ends at the same iteration. Each
+                run counted (kernels 1, 2, 13, 15 fifteen times a step, no
+                other); its checkpoints, the best copy and finite losses.
+
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Each
-kernel's row carries ``launches_cli``, its launches on phase 22's two paths. Any failed
+kernel's row carries ``launches_cli``, its launches on phase 22's two paths,
+and ``launches_gml_train`` and ``launches_train_cli``, phases 23's and 24's
+(kernel 14's ``launches`` are phase 23's). Any failed
 check raises, so the script exits non-zero and prints no result. It needs a
 CUDA device and the repository beside it.
 """
@@ -862,6 +893,57 @@ def synthetic_layout(root, scene, queries, names, n_cluster: int, top: dict) -> 
     return write_configs(root, "Synthetic", "scene", n_cluster, top)
 
 
+def training_layout(root, scene, n_frames: int, n_cluster: int, top: dict, desc_dim: int = 256,
+                    n_kpts: int = 384, n_outliers: int = 384, seed: int = 0) -> Path:
+    """A scene's training inputs in the reference layout, for cli.train:
+    ``n_frames`` views rendered from the synthetic scene (seeded), each of
+    ``n_kpts`` visible map points and ``n_outliers`` keypoints of no point,
+    as a full COLMAP model (``3D-models/``, each image's keypoints with
+    their point ids), their feature caches with ``desc_dim``-d descriptors
+    (a seeded unit descriptor a map point, noised a view; outliers random),
+    the cluster file of ``n_cluster`` clusters and the training list;
+    returns the top config."""
+    import numpy as np
+
+    from pram_tpu_torch.maps.colmap_io import ColmapImage, write_model
+
+    rng = np.random.RandomState(seed)
+    m = scene.map
+    w, h = scene.width, scene.height
+
+    def unit(a):
+        return (a / np.linalg.norm(a, axis=-1, keepdims=True)).astype(np.float32)
+
+    point_desc = unit(rng.randn(m.num_points, desc_dim))
+    images, feats, names = {}, {}, []
+    for i in range(n_frames):
+        q = scene.render_query(rng, noise_px=0.3, max_kpts=n_kpts)
+        v = q["mask"]
+        idx = q["point_idx"][v]
+        kp = np.concatenate([q["keypoints"][v], rng.rand(n_outliers, 2) * [w, h]]).astype(np.float32)
+        pids = np.concatenate([m.point_ids[idx], np.full(n_outliers, -1)]).astype(np.int64)
+        desc = np.concatenate([point_desc[idx] + 0.05 * rng.randn(len(idx), desc_dim),
+                               rng.randn(n_outliers, desc_dim)])
+        name = f"train/frame_{i:03d}.png"
+        names.append(name)
+        images[i + 1] = ColmapImage(i + 1, q["qvec"], q["tvec"].astype(np.float64), 1, name, kp.astype(np.float64),
+                                    pids)
+        feats[name] = {"keypoints": kp, "scores": rng.rand(len(kp)).astype(np.float32), "descriptors": unit(desc),
+                       "image_size": np.array([h, w])}
+    root = Path(root)
+    scene_dir = root / "landmarks" / "Synthetic" / "scene"
+    write_model(scene.cameras, images, scene.points3D, str(scene_dir / "3D-models"), ".bin")
+    np.save(scene_dir / f"point3D_cluster_n{n_cluster}_xz_birch.npy",
+            {"id": m.point_ids.astype(np.int64), "label": m.point_seg.astype(np.int64)})
+    (scene_dir / "feats").mkdir(parents=True, exist_ok=True)
+    for name, feat in feats.items():
+        np.save(scene_dir / "feats" / (name.replace("/", "+") + ".npy"), feat)
+    data_dir = root / "datasets" / "Synthetic" / "scene"
+    data_dir.mkdir(parents=True, exist_ok=True)
+    (data_dir / "imglist.txt").write_text("".join(f"{n}\n" for n in names))
+    return write_configs(root, "Synthetic", "scene", n_cluster, top)
+
+
 def rendered_layout(root, scene, n_cluster: int, top: dict) -> Path:
     """The rendered world's map on disk as a full COLMAP model: a 3D point a
     reference keypoint (track length 1), its descriptor and grid segment;
@@ -1150,6 +1232,360 @@ def run_cli_phase(torch, np, dev, bf16, scene, queries, grecall, rec_w, gml_w, r
     return out
 
 
+# phase 23: GML training through its entry point. A step launches kernels
+# 1 and 5 once a layer forward and 13 and 14 once a layer backward, 2 and 15
+# twice a layer, 6 once (the forward of the differentiable Sinkhorn)
+GML_TRAIN_STEP_LAUNCHES = {"self_attention": 9, "cross_attention": 9, "residual_mlp": 18, "sinkhorn": 1,
+                           "self_attention_bwd": 9, "cross_attention_bwd": 9, "residual_mlp_bwd": 18}
+GML_TRAIN_STEPS, GML_TRAIN_BATCH = 600, 8
+GML_RECALL_MIN = 31 / 32  # recall@5cm/5deg of the card-trained weights (the JAX script's chip record: 1.0)
+# SinkhornPlan on the card against plain autograd: the plan as the kernel's
+# (SINKHORN_ATOL, SINKHORN_DUSTBIN_RTOL); d sim within 1e-4 of its scale (the
+# backward recomputes the plain iterations, at the kernel plan's cotangent);
+# d dustbin is ~0 (the dustbin row's and column's scalings absorb a shift of
+# it), so within 1e-4 of d sim's scale
+SINKHORN_GRAD_TOL = 1e-4
+# step-0 gradient A/B of the 9-layer GML, bf16 over f32 masters. In bf16
+# neither the kernel path nor the plain path is within GRAD_AB_TOL of f32
+# on every tensor (the attention logits round to bf16 in every layer, and
+# the gradient of the dustbin score is f32 noise), and the two differ from
+# each other as much (per tensor up to ~10%). So the kernels are held to
+# GRAD_AB_TOL where the bf16 forward is shared: the kernel forward once,
+# its gradients by the backward kernels 13-15 against their plain versions,
+# every tensor whose f32 gradient is above GRAD_ZERO of the largest. A
+# planted fault, kernel 14's dqk scaled by 1 + GRAD_FAULT, must fail that
+# gate. The whole kernel path (forward and backward) is held to the plain
+# bf16 path's own distance from f32: its global relative L2, and that of
+# kernel vs plain, within GRAD_L2_RATIO of the plain path's, and each
+# tensor within max(GRAD_AB_TOL, GRAD_PLAIN_RATIO x the plain path's error)
+# (two card runs read L2 ratios 0.98-1.04, kernel vs plain 1.02-1.03, and
+# per tensor up to 1.74x the plain path's error: PERF.md)
+GRAD_L2_RATIO = 1.25
+GRAD_PLAIN_RATIO = 2.0
+GRAD_FAULT = 0.05
+GRAD_ZERO = 1e-6
+# phase 24: cli.train at configs/config_train_7scenes_sfd2.yaml's operating
+# point (SegNetViT 15 layers, batch 32, 512 tokens), 2 epochs of 5 its
+TRAIN_CONFIG = "configs/config_train_7scenes_sfd2.yaml"
+TRAIN_CLI_EPOCHS, TRAIN_CLI_ITS = 2, 5
+
+
+def grad_errors(ga: dict, gb: dict) -> tuple:
+    """Per tensor max |a - b| / max |b|, and the global relative L2."""
+    rel = {k: ((ga[k] - gb[k]).abs().max() / gb[k].abs().max().clamp(min=1e-30)).item() for k in gb}
+    l2 = (sum(((ga[k] - gb[k]) ** 2).sum() for k in gb) / sum((gb[k] ** 2).sum() for k in gb)).sqrt().item()
+    return rel, l2
+
+
+def run_gml_train_phase(torch, np, dev, bf16, reset_counts, read_counts, out_path) -> dict:
+    """Phase 23: ``cli.train_synthetic_gml.main`` on the card at full width
+    (9 layers, d 256, 8 x (512 + 1024) tokens, 600 steps). Before the first
+    step (its ``pool`` mark): the step-0 gradient A/B on the pool's first
+    batch and SinkhornPlan against plain autograd on that batch's similarity;
+    the loop's launches counted apart from the validation's; after the loop
+    (its ``train`` mark), a step's stages by CUDA events and its kernels by
+    torch.profiler on a copy of the trained model, and kernel 14 on the
+    inputs the path gave it. Returns the phase's figures."""
+    from pram_tpu_torch.cli import train_synthetic_gml as cli_gml
+    from pram_tpu_torch.models import gml as gml_mod
+    from pram_tpu_torch.ops import attention_bwd, mlp_bwd, sinkhorn
+    from pram_tpu_torch.train.losses import matching_nll_loss
+    from pram_tpu_torch.train.trainer import cast_forward
+
+    out = {}
+    names_all = set(read_counts())
+    seen = {}
+    attention_bwd_k14 = attention_bwd.cross_attention_bwd
+
+    def swap(module, name, fn):
+        """Set ``module.name`` to ``fn``; returns the undo."""
+        old = getattr(module, name)
+        setattr(module, name, fn)
+        return lambda: setattr(module, name, old)
+
+    def recorded(name, fn):
+        """``fn``, keeping its first call's arguments in ``seen[name]``."""
+
+        def wrapped(*args, **kw):
+            seen.setdefault(name, (args, kw))
+            return fn(*args, **kw)
+
+        return wrapped
+
+    def gradients(model, batch, kernels, dtype, swaps=()):
+        """The loss and the f32 master gradients of one step, with each
+        ``(module, name, fn)`` of ``swaps`` in place meanwhile."""
+        d0, d1, nk0, nk1, m0, m1, gt = batch
+        undo = [swap(*s) for s in swaps]
+        try:
+            model.use_kernels = kernels
+            model.zero_grad(set_to_none=True)
+            if dtype is not None:
+                d0, d1 = d0.to(dtype), d1.to(dtype)
+            plan = cast_forward(model, dtype, d0, d1, nk0, nk1, m0, m1)["plan"]
+            loss = matching_nll_loss(plan, gt, m1)
+            loss.backward()
+            grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+        finally:
+            for u in undo:
+                u()
+            model.use_kernels = True
+            model.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    def at_pool(model, pool):
+        batch = pool[0]
+        loss_k, g_k = gradients(model, batch, True, bf16, swaps=[
+            (gml_mod, "sinkhorn", recorded("sinkhorn", sinkhorn.sinkhorn)),
+            (attention_bwd, "cross_attention_bwd", recorded("cross_attention_bwd", attention_bwd_k14))])
+        loss_p, g_p = gradients(model, batch, False, bf16)
+        loss_f, g_f = gradients(model, batch, False, None)
+        top = max(g.abs().max().item() for g in g_f.values())
+        live = [k for k in g_f if g_f[k].abs().max().item() > GRAD_ZERO * top]
+
+        # the backward kernels against their plain versions on the kernel
+        # forward, and the planted fault in kernel 14's dqk
+        plain_bwd = [(attention_bwd, "self_attention_bwd", attention_bwd.self_attention_bwd_plain),
+                     (attention_bwd, "cross_attention_bwd", attention_bwd.cross_attention_bwd_plain),
+                     (mlp_bwd, "residual_mlp_bwd", mlp_bwd.residual_mlp_bwd_plain)]
+        _, g_b = gradients(model, batch, True, bf16, swaps=plain_bwd)
+
+        def faulty(*a, **k):
+            got = attention_bwd_k14(*a, **k)
+            return (got[0] * (1.0 + GRAD_FAULT), *got[1:])
+
+        _, g_x = gradients(model, batch, True, bf16, swaps=[(attention_bwd, "cross_attention_bwd", faulty)])
+        rel_b, l2_b = grad_errors(g_k, g_b)
+        rel_x, l2_x = grad_errors(g_x, g_b)
+        over_b = {k: rel_b[k] for k in live if rel_b[k] > GRAD_AB_TOL}
+        over_x = sorted(((rel_x[k], k) for k in live if rel_x[k] > GRAD_AB_TOL), reverse=True)
+        bwd = dict(l2=l2_b, max=max(rel_b[k] for k in live), median=sorted(rel_b[k] for k in live)[len(live) // 2],
+                   worst=[[k, round(rel_b[k], 5)] for k in sorted(live, key=lambda k: -rel_b[k])[:4]],
+                   fault=dict(scale=1.0 + GRAD_FAULT, l2=l2_x, max=max(rel_x[k] for k in live),
+                              tensors_over=len(over_x), worst=[[k, round(v, 5)] for v, k in over_x[:4]]))
+        log(f"gml_train step-0 backward A/B (the kernel forward; kernels 13-15 vs their plain versions, tol "
+            f"{GRAD_AB_TOL} a tensor): " + json.dumps(bwd))
+
+        ab = {}
+        for a, b, ga, gb in (("kernel", "plain", g_k, g_p), ("kernel", "f32", g_k, g_f), ("plain", "f32", g_p, g_f)):
+            rel, l2 = grad_errors(ga, gb)
+            worst = sorted(rel.items(), key=lambda kv: -kv[1])[:4]
+            ab[f"{a} vs {b}"] = dict(l2=l2, max=worst[0][1], median=sorted(rel.values())[len(rel) // 2],
+                                     worst=[[k, round(v, 5)] for k, v in worst], per_tensor=rel)
+        rel_k, rel_p = ab["kernel vs f32"]["per_tensor"], ab["plain vs f32"]["per_tensor"]
+        over = {k: (rel_k[k], rel_p[k]) for k in live if rel_k[k] > max(GRAD_AB_TOL, GRAD_PLAIN_RATIO * rel_p[k])}
+        log(f"gml_train step-0 gradient A/B (bf16 over f32 masters, {len(g_f)} tensors, {len(live)} with a "
+            f"gradient above {GRAD_ZERO} of the largest; losses kernel {loss_k:.6f} plain {loss_p:.6f} f32 "
+            f"{loss_f:.6f}): " + json.dumps({k: {kk: vv for kk, vv in v.items() if kk != "per_tensor"}
+                                             for k, v in ab.items()}))
+        log("gml_train per-tensor errors against f32 (kernel / plain bf16): " + json.dumps(
+            {k: [round(rel_k[k], 5), round(rel_p[k], 5)] for k in g_f}))
+        require(not over_b, f"gml_train: backward kernels' gradients beyond {GRAD_AB_TOL} of the plain "
+                            f"backward's: {over_b}")
+        require(bool(over_x), f"gml_train: the gate passed kernel 14 with its dqk scaled by {1.0 + GRAD_FAULT}")
+        plain_l2 = ab["plain vs f32"]["l2"]
+        require(ab["kernel vs f32"]["l2"] <= GRAD_L2_RATIO * plain_l2 and
+                ab["kernel vs plain"]["l2"] <= GRAD_L2_RATIO * plain_l2,
+                f"gml_train: the kernel path's gradients are further from f32 or from the plain bf16 path than "
+                f"{GRAD_L2_RATIO} x the plain bf16 path's distance from f32")
+        require(not over, f"gml_train: tensors beyond max({GRAD_AB_TOL}, {GRAD_PLAIN_RATIO} x the plain path's "
+                          f"error) against f32: {over}")
+        out["grad_ab"] = {k: {kk: vv for kk, vv in v.items() if kk != "per_tensor"} for k, v in ab.items()}
+        out["grad_ab"]["backward kernels vs plain"] = bwd
+
+        # SinkhornPlan (kernel 6 forward, plain iterations differentiated)
+        # against plain autograd on the batch's similarity and loss
+        (sim, dustbin, iters, m0, m1), _ = seen["sinkhorn"]
+        sim, dustbin, gt = sim.detach(), dustbin.detach().float(), batch[6]
+
+        def plan_grads(fn):
+            s = sim.clone().requires_grad_()
+            d = dustbin.clone().requires_grad_()
+            plan = fn(s, d, iters, m0, m1)
+            matching_nll_loss(plan, gt, m1).backward()
+            return plan.detach(), s.grad, d.grad
+
+        plan, ds, dd = plan_grads(sinkhorn.sinkhorn)
+        ref, rs, rd = plan_grads(sinkhorn.sinkhorn_matching)
+        n, m = sim.shape[1:]
+        real = (plan[:, :n, :m] - ref[:, :n, :m]).abs().max().item()
+        dust = max(((a - r).abs() / r.abs().clamp(min=1e-6)).max().item()
+                   for a, r in ((plan[:, n, :], ref[:, n, :]), (plan[:, :, m], ref[:, :, m])))
+        dsim = ((ds - rs).abs().max() / rs.abs().max()).item()
+        dbin = (dd - rd).abs().item() / rs.abs().max().item()
+        log(f"gml_train SinkhornPlan vs plain autograd ({tuple(sim.shape)}): plan real block {real:.3e} (tol "
+            f"{SINKHORN_ATOL}), dustbin rel {dust:.3e} (tol {SINKHORN_DUSTBIN_RTOL}); d sim {dsim:.3e} of its "
+            f"scale, d dustbin {dd.item():.3e} vs {rd.item():.3e}: {dbin:.3e} of d sim's scale (tol "
+            f"{SINKHORN_GRAD_TOL})")
+        require(real <= SINKHORN_ATOL and dust <= SINKHORN_DUSTBIN_RTOL, "gml_train: SinkhornPlan's plan disagrees")
+        require(dsim <= SINKHORN_GRAD_TOL and dbin <= SINKHORN_GRAD_TOL,
+                "gml_train: SinkhornPlan's gradients disagree with plain autograd")
+        g_plan = torch.randn(plan.shape, generator=torch.Generator().manual_seed(4)).to(dev)
+        s = sim.clone().requires_grad_()
+        d = dustbin.clone().requires_grad_()
+        p_k = sinkhorn.sinkhorn(s, d, iters, m0, m1)
+        out["sinkhorn"] = dict(
+            plan_err=real, dustbin_rel=dust, dsim_rel=dsim, dbin_rel=dbin,
+            forward_ms=cuda_ms(torch, lambda: sinkhorn.sinkhorn(sim, dustbin, iters, m0, m1)),
+            recompute_backward_ms=cuda_ms(torch, lambda: torch.autograd.grad(p_k, (s, d), g_plan,
+                                                                              retain_graph=True), iters=10))
+        out["k14_args"] = seen["cross_attention_bwd"]
+        reset_counts()
+
+    def at_train(model):
+        out["breakdown"] = gml_step_breakdown(torch, out.pop("pool"), model)
+        args, kw = out.pop("k14_args")
+        got = attention_bwd.cross_attention_bwd(*args, **kw)
+        err = max(check_scaled(f"cross_attention_bwd (gml_train) {n}", a, r, BWD_TOL)
+                  for n, a, r in zip(("dqk", "dv"), got, attention_bwd.cross_attention_bwd_plain(*args, **kw)))
+        qk, scale, heads, n0 = args[0], args[5], args[6], args[7]
+        b, tok, hd = qk.shape[0], qk.shape[1], qk.shape[2] // heads
+        bnd, by = bound_ms(b * tok * (3 * 256 * 2 + 2 * 256 * 2 + 2 * 4), 14.0 * b * heads * n0 * (tok - n0) * hd,
+                           BF16_TENSOR_FLOPS)
+        out["k14"] = dict(shape=[b, n0, tok - n0], max_abs_err=err, bound_ms=bnd, bound_by=by,
+                          ms=cuda_ms(torch, lambda: attention_bwd.cross_attention_bwd(*args, **kw)),
+                          plain_ms=cuda_ms(torch, lambda: attention_bwd.cross_attention_bwd_plain(*args, **kw),
+                                           iters=3))
+
+    def mark(stage, **state):
+        if stage == "pool":
+            at_pool(state["model"], state["pool"])
+            out["pool"] = state["pool"]
+        elif stage == "train":
+            out["launches"] = read_counts()
+            at_train(state["model"])
+            reset_counts()
+        elif stage == "validate":
+            out["validate_launches"] = read_counts()
+
+    t_main = time.perf_counter()
+    res = cli_gml.main(["--steps", str(GML_TRAIN_STEPS), "--batch", str(GML_TRAIN_BATCH), "--out", str(out_path)],
+                       mark=mark)
+    out["main_s"] = time.perf_counter() - t_main
+    want = {k: GML_TRAIN_STEPS * GML_TRAIN_STEP_LAUNCHES.get(k, 0) for k in names_all}
+    log(f"gml_train launches over {GML_TRAIN_STEPS} steps: {out['launches']}")
+    require(out["launches"] == want, f"gml_train: launches {out['launches']}, expected {want}")
+    val_want = add_launches(add_launches({}, GML_LAUNCHES), PNP_LAUNCHES)
+    require(out["validate_launches"] == {k: val_want.get(k, 0) for k in names_all},
+            f"gml_train validation: launches {out['validate_launches']}, expected {val_want}")
+    losses = np.asarray(res["losses"])
+    first, last = float(losses[:50].mean()), float(losses[-50:].mean())
+    out.update(losses_first50=first, losses_last50=last, steps_per_s=res["steps_per_s"],
+               ms_per_step=1e3 / res["steps_per_s"], validation=res["validation"])
+    log(f"gml_train: {res['steps_per_s']:.3f} steps/s, {1e3 / res['steps_per_s']:.2f} ms a step (host clock over "
+        f"the {GML_TRAIN_STEPS} steps, synchronized at the ends and at every 50th step's log), loss mean "
+        f"{first:.4f} over the first 50 steps, {last:.4f} over the last 50; validation {json.dumps(res['validation'])}")
+    require(bool(np.isfinite(losses).all()), "gml_train: non-finite loss")
+    require(last < first, "gml_train: the loss did not fall")
+    require(res["validation"]["recall_5cm5deg_gml"] >= GML_RECALL_MIN,
+            f"gml_train: recall@5cm/5deg {res['validation']['recall_5cm5deg_gml']} below {GML_RECALL_MIN}")
+    return out
+
+
+def gml_step_breakdown(torch, pool, model) -> dict:
+    """Where a GML training step's time goes, on a copy of ``model`` with
+    its own optimizer: the stages by CUDA events (median of 3 runs of 10
+    steps) and each kernel's device ms a step by torch.profiler (3 steps)."""
+    from pram_tpu_torch.train.matcher import make_matcher_train_step
+
+    twin = copy.deepcopy(model)
+    step = make_matcher_train_step(twin, 2e-4, torch.bfloat16)
+    for b in pool[:2]:
+        step(*b)
+    runs = []
+    for _ in range(3):
+        events = []
+
+        def mark(stage):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events[-1].append((stage, e))
+
+        t_s = time.perf_counter()
+        for i in range(10):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events.append([("start", e)])
+            step(*pool[i % len(pool)], mark=mark)
+        torch.cuda.synchronize()
+        stages = {}
+        for ev in events:
+            for (_, a), (stage, b) in zip(ev[:-1], ev[1:]):
+                stages[stage] = stages.get(stage, 0.0) + a.elapsed_time(b) / 10
+        runs.append(((time.perf_counter() - t_s) / 10 * 1e3, stages))
+    runs.sort(key=lambda r: r[0])
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i in range(3):
+            step(*pool[i])
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            name = kernel_name(e.key)
+            by_kernel[name] = by_kernel.get(name, 0.0) + e.device_time_total / 3 / 1e3
+    return dict(ms_per_step=runs[1][0], stages=runs[1][1], runs_ms=[r[0] for r in runs],
+                device_ms_per_step=sum(by_kernel.values()),
+                by_kernel=dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])))
+
+
+def run_train_cli_phase(torch, np, scene, reset_counts, read_counts, root) -> dict:
+    """Phase 24: ``cli.train.main`` on the card at the 7-Scenes training
+    config's operating point (SegNetViT 15 layers, batch 32, 512 tokens,
+    bf16 over f32 masters), cut to 2 epochs of 5 its, on 48 views of the GML
+    slice's scene written by :func:`training_layout` (112 declared clusters:
+    the config's nc113; 256-d descriptors in the caches); then a resume from
+    the first epoch's checkpoint. Launches counted (kernels 1, 2, 13 and 15
+    once a layer a step, no other); checkpoints and the best copy written;
+    the losses finite. Returns the phase's figures."""
+    import tempfile
+
+    from pram_tpu_torch.cli import train as cli_train
+    from pram_tpu_torch.core.config import load_yaml
+
+    names_all = set(read_counts())
+    per_step = {"self_attention": 15, "residual_mlp": 15, "self_attention_bwd": 15, "residual_mlp_bwd": 15}
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="pram_train_") as tmp:
+        tmp = Path(tmp)
+        top = load_yaml(str(root / TRAIN_CONFIG))
+        for k in ("dataset", "landmark_path", "dataset_path", "config_path"):
+            top.pop(k)
+        top.update(epochs=TRAIN_CLI_EPOCHS, its_per_epoch=TRAIN_CLI_ITS, save_path=str(tmp / "exp"))
+        t_w = time.perf_counter()
+        cfg = training_layout(tmp, scene, 48, 112, top)
+        log(f"train_cli inputs: 48 views (384 map points and 384 outliers each, 256-d descriptors), a COLMAP "
+            f"model and the training list written in {time.perf_counter() - t_w:.2f} s")
+        for name, argv, steps in (
+            ("train", ["--config", str(cfg), "--save_dir", str(tmp / "a")], TRAIN_CLI_EPOCHS * TRAIN_CLI_ITS),
+            ("train, resumed", None, TRAIN_CLI_ITS),
+        ):
+            if argv is None:  # resume from the first epoch's checkpoint, from a config that names it
+                resumed = write_configs(tmp, "Synthetic", "scene", 112,
+                                        {**top, "resume_path": str(tmp / "a" / "epoch_0001.pt")},
+                                        config_dir=tmp / "resume")
+                argv = ["--config", str(resumed), "--save_dir", str(tmp / "b")]
+            reset_counts()
+            t_r = time.perf_counter()
+            trainer, lines = run_cli(name, cli_train.main, argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t_r
+            got = read_counts()
+            want = {k: steps * per_step.get(k, 0) for k in names_all}
+            log(f"{name} CLI launches over {steps} steps: {got}")
+            require(got == want, f"{name} CLI: launches {got}, expected {want}")
+            losses = [float(line.split(" loss ")[1].split()[0]) for line in lines if line.startswith("Epoch [")]
+            require(len(losses) == steps // TRAIN_CLI_ITS and bool(np.isfinite(losses).all()),
+                    f"{name} CLI: epoch losses {losses}")
+            require(trainer.state.iteration == TRAIN_CLI_EPOCHS * TRAIN_CLI_ITS,
+                    f"{name} CLI: ends at iteration {trainer.state.iteration}")
+            out[name] = dict(launches=got, steps=steps, seconds=seconds, epoch_losses=losses,
+                             files=sorted(p.name for p in Path(argv[-1]).iterdir()))
+        require(out["train"]["files"] == ["best.pt", "epoch_0001.pt", "epoch_0002.pt"],
+                f"train CLI: checkpoints {out['train']['files']}")
+        require("epoch_0002.pt" in out["train, resumed"]["files"], "train CLI (resumed): no checkpoint of epoch 2")
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -1240,7 +1676,8 @@ def main() -> int:
     # kernels 10-12: AdaGML's (10, 11) and the blocked form (12), on no
     # earlier slice's path
     ada_kernels = ("self_attention_qkv", "cross_attention_packed", "self_attention_qkv_blocked")
-    # kernels 13-15: the backward kernels, on the training slice only (14 on no path)
+    # kernels 13-15: the backward kernels, on the training slice (13, 15) and
+    # on GML training (13-15, phase 23)
     train_kernels = ("self_attention_bwd", "cross_attention_bwd", "residual_mlp_bwd")
     # kernels 16-19: the int8 image slice's (16-18) and the conv pair (19, on
     # no path), and the s8 pass that both forms of 17 launch
@@ -3394,6 +3831,40 @@ def main() -> int:
     log(f"cli: {json.dumps({k: {kk: vv for kk, vv in v.items() if kk != 'launches'} for k, v in cli_runs.items()})}")
     phase("cli", t)
 
+    # ---- 23. GML matcher training through cli.train_synthetic_gml.main, counted
+    t = time.perf_counter()
+    import tempfile
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="pram_gml_") as tmp:
+        gml_train = run_gml_train_phase(torch, np, dev, bf16, reset_counts, read_counts,
+                                        Path(tmp) / "gml_synthetic_torch.pt")
+    bd = gml_train["breakdown"]
+    log(f"gml_train step breakdown on a copy of the trained model (ms a step; stages by CUDA events, median of 3 "
+        f"runs of 10 steps, runs {[round(v, 3) for v in bd['runs_ms']]} ms by host clock): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in bd["stages"].items())
+        + f"; device time a step {bd['device_ms_per_step']:.3f} ms by torch.profiler, by kernel: "
+        + json.dumps({k: round(v, 4) for k, v in list(bd["by_kernel"].items())[:24]})
+        + f"; the Sinkhorn's forward (kernel 6) {gml_train['sinkhorn']['forward_ms']:.4f} ms and its recomputed "
+        f"backward {gml_train['sinkhorn']['recompute_backward_ms']:.4f} ms; card: {smi}")
+    k14 = gml_train["k14"]
+    rows["cross_attention_bwd"].update(ms_gml_train=k14["ms"], plain_ms_gml_train=k14["plain_ms"],
+                                       bound_gml_train_ms=k14["bound_ms"], max_abs_err_gml_train=k14["max_abs_err"],
+                                       shape_gml_train=k14["shape"])
+    log(f"cross_attention_bwd on the GML training path ({k14['shape']}): {k14['ms']:.4f} ms a call, plain "
+        f"{k14['plain_ms']:.4f} ms, bound {k14['bound_ms']:.4f} ms ({k14['bound_by']})")
+    log(f"gml_train: {json.dumps({k: v for k, v in gml_train.items() if k not in ('breakdown', 'k14')})}")
+    phase("gml_train", t)
+
+    # ---- 24. recognition training through cli.train.main, counted
+    t = time.perf_counter()
+    train_cli = run_train_cli_phase(torch, np, scene, reset_counts, read_counts, root)
+    for name, run in train_cli.items():
+        log(f"{name} CLI: {run['steps']} steps in {run['seconds']:.2f} s ({run['steps'] / run['seconds']:.3f} "
+            f"steps/s, host clock, the loader, checkpoints and the first step's warm-up included), epoch losses "
+            f"{run['epoch_losses']}, files {run['files']}")
+    phase("train_cli", t)
+
     table = []
     for name in ("self_attention", "residual_mlp", "ransac_score", "gn_polish",
                  "cross_attention", "sinkhorn", "refine_nn", "fused_stem", "nms",
@@ -3403,9 +3874,14 @@ def main() -> int:
                  "fused_conv_pair"):
         r = rows[name]
         # kernels 1-7 counted on the GML slice, 8-9 on the image slice, 10-12
-        # on the AdaGML slice (12 is on no path), 13-15 on the training slice
-        # (14 is on no path), 16-19 on the int8 image slice (19 is on no path)
-        if name in gml_kernels:
+        # on the AdaGML slice (12 is on no path), 13 and 15 on the training
+        # slice, 14 on GML training, 16-19 on the int8 image slice (19 is on
+        # no path)
+        r["launches_gml_train"] = gml_train["launches"][name]
+        r["launches_train_cli"] = train_cli["train"]["launches"][name]
+        if name == "cross_attention_bwd":
+            r["launches"] = gml_train["launches"][name]
+        elif name in gml_kernels:
             r["launches"] = gml_launches[name]
         elif name in ("fused_stem", "nms"):
             r["launches"] = image_launches[name]

@@ -5,7 +5,7 @@ Rebuild of RecDataset (dataset/recdataset.py:12-95): scenes are concatenated
 into one dataset; each scene's segment labels [1, n_class) are offset into a
 shared global label space (class 0 = background is shared); the composed
 ``n_class = 1 + sum(scene n_cluster)`` — the same convention the packed
-multi-scene map uses (maps/packed.py concat_maps), so eval labels and
+multi-scene map uses (maps/packed.py concat_maps), so training labels and
 localization routing agree.
 """
 
@@ -59,9 +59,14 @@ class MultiSceneDataset:
         out["scene_name"] = self.sub_sets[si].dataset
         return out
 
+    def get_train_item(self, idx: int, rng: np.random.RandomState) -> Dict:
+        si, k = self.index[idx]
+        return self._remap(self.sub_sets[si].get_train_item(k, rng), si)
+
     def get_test_item(self, idx: int) -> Dict:
         si, k = self.index[idx]
         return self._remap(self.sub_sets[si].get_test_item(k), si)
 
     def __getitem__(self, idx):
-        return self.get_test_item(idx)
+        si, k = self.index[idx]
+        return self._remap(self.sub_sets[si][k], si)

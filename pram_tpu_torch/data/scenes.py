@@ -5,24 +5,24 @@ Rebuild of the reference's per-dataset BasicDataset subclasses and
 compose_datasets (dataset/{seven_scenes,twelve_scenes,cambridge_landmarks,
 aachen,customdataset}.py, dataset/get_dataset.py:31-89):
 
-- 7Scenes: TestSplit.txt names seq-NN directories of .png frames
+- 7Scenes: Train/TestSplit.txt name seq-NN directories of .png frames
 - 12Scenes: data/ directory with frame-NNNNNN.color.jpg, split.txt gives the
   test frame-id range (first sequence for testing)
-- CambridgeLandmarks: dataset_test.txt (skip 3 header lines)
-- Aachen: day+night query lists w/ intrinsics
+- CambridgeLandmarks: dataset_train.txt/dataset_test.txt (skip 3 header lines)
+- Aachen: aachen_db_imglist.txt (train), day+night query lists w/ intrinsics
 - Custom: any image list file
 
-These are the eval lists; the training lists wait for a training CLI of the
-port. All return SceneSpec + SceneDataset; compose_scenes applies the YAML
-scene configs (read by core/config.py's YAML reader) and the single-letter
-dataset shorthands (S/T/A/C/R).
+All return SceneSpec + SceneDataset; compose_scenes applies the YAML scene
+configs (read by core/config.py's YAML reader) and the single-letter dataset
+shorthands (S/T/A/C/R). Scenes are composed for evaluation unless
+``train=True`` (the JAX function trains by default).
 """
 
 from __future__ import annotations
 
 import os
 import os.path as osp
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from pram_tpu_torch.core.config import load_yaml
 from pram_tpu_torch.data.multiscene import MultiSceneDataset
@@ -37,14 +37,23 @@ DATASET_SHORTHAND = {
 }
 
 
-def _filter_names(names, sample_ratio):
-    """Every ``sample_ratio``-th name."""
-    return names[:: max(int(sample_ratio), 1)]
+def _filter_names(names, keep, sample_ratio):
+    out = []
+    nf = 0
+    for n in names:
+        if keep is not None and n not in keep:
+            continue
+        if nf % max(int(sample_ratio), 1) == 0:
+            out.append(n)
+        nf += 1
+    return out
 
 
-def list_seven_scenes(dataset_path: str) -> List[str]:
-    """seq-NN dirs from TestSplit.txt (dataset/seven_scenes.py:69-89)."""
-    split_fn = osp.join(dataset_path, "TestSplit.txt")
+def list_seven_scenes(dataset_path: str, train: bool) -> List[str]:
+    """seq-NN dirs from Train/TestSplit.txt (dataset/seven_scenes.py:69-89)."""
+    split_fn = osp.join(
+        dataset_path, "TrainSplit.txt" if train else "TestSplit.txt"
+    )
     names = []
     with open(split_fn) as f:
         for line in f:
@@ -59,8 +68,8 @@ def list_seven_scenes(dataset_path: str) -> List[str]:
     return names
 
 
-def list_twelve_scenes(dataset_path: str) -> List[str]:
-    """data/frame-*.color.jpg within split.txt's test range
+def list_twelve_scenes(dataset_path: str, train: bool) -> List[str]:
+    """data/frame-*.color.jpg split by split.txt's test range
     (dataset/twelve_scenes.py:68-95)."""
     with open(osp.join(dataset_path, "split.txt")) as f:
         parts = f.readline().strip().split(" ")
@@ -70,33 +79,42 @@ def list_twelve_scenes(dataset_path: str) -> List[str]:
         if "jpg" not in fn:
             continue
         frame_id = int(fn.split(".")[0].split("-")[-1])
-        if frame_id > test_end:
+        if train and frame_id <= test_end:
+            continue
+        if not train and frame_id > test_end:
             continue
         names.append(f"data/{fn}")
     return names
 
 
-def list_cambridge(dataset_path: str) -> List[str]:
-    """dataset_test.txt with 3 header lines
+def list_cambridge(dataset_path: str, train: bool) -> List[str]:
+    """dataset_train/test.txt with 3 header lines
     (dataset/cambridge_landmarks.py:66-75)."""
-    fn = osp.join(dataset_path, "dataset_test.txt")
+    fn = osp.join(
+        dataset_path, "dataset_train.txt" if train else "dataset_test.txt"
+    )
     with open(fn) as f:
         return [l.strip().split()[0] for l in f.readlines()[3:] if l.strip()]
 
 
-def list_aachen(dataset_path: str) -> List[str]:
-    """day+night query lists (dataset/aachen.py:67-90)."""
+def list_aachen(dataset_path: str, train: bool) -> List[str]:
+    """db list for train; day+night query lists for eval
+    (dataset/aachen.py:67-90)."""
     names = []
-    for q in (
-        "day_time_queries_with_intrinsics.txt",
-        "night_time_queries_with_intrinsics.txt",
-    ):
-        with open(osp.join(dataset_path, "queries", q)) as f:
-            names += [l.strip().split()[0] for l in f if l.strip()]
+    if train:
+        with open(osp.join(dataset_path, "aachen_db_imglist.txt")) as f:
+            names = [l.strip() for l in f if l.strip()]
+    else:
+        for q in (
+            "day_time_queries_with_intrinsics.txt",
+            "night_time_queries_with_intrinsics.txt",
+        ):
+            with open(osp.join(dataset_path, "queries", q)) as f:
+                names += [l.strip().split()[0] for l in f if l.strip()]
     return names
 
 
-def list_custom(dataset_path: str, list_file: str) -> List[str]:
+def list_custom(dataset_path: str, train: bool, list_file: str) -> List[str]:
     with open(osp.join(dataset_path, list_file)) as f:
         return [l.strip() for l in f if l.strip()]
 
@@ -116,10 +134,13 @@ def make_scene_dataset(
     dataset_path: str,
     scene_config: Dict,
     *,
+    train: bool = False,
     nfeatures: int = 1024,
+    min_inliers: int = 0,
+    max_inliers: int = 4096,
+    sample_ratio: Optional[float] = None,
 ) -> SceneDataset:
-    """Assemble one scene's eval SceneDataset from the reference's path
-    layout."""
+    """Assemble one scene's SceneDataset from the reference's path layout."""
     scene_landmark = osp.join(landmark_path, scene)
     scene_data = osp.join(dataset_path, scene)
     n_cluster = scene_config["n_cluster"]
@@ -129,16 +150,23 @@ def make_scene_dataset(
     lister = _LISTERS.get(dataset_name)
     if lister is None:
         names = list_custom(
-            scene_data, scene_config.get("image_list", "imglist.txt")
+            scene_data, train, scene_config.get("image_list", "imglist.txt")
         )
     else:
-        names = lister(scene_data)
-    names = _filter_names(names, scene_config.get("eval_sample_ratio", 1))
+        names = lister(scene_data, train)
+    if sample_ratio is None:
+        sample_ratio = (
+            scene_config.get("training_sample_ratio", 1)
+            if train
+            else scene_config.get("eval_sample_ratio", 1)
+        )
+    names = _filter_names(names, None, sample_ratio)
 
     spec = SceneSpec(
         name=f"{dataset_name}/{scene}",
         image_names=names,
         feature_dir=osp.join(scene_landmark, "feats"),
+        sfm_model_path=osp.join(scene_landmark, "3D-models"),
         cluster_file=osp.join(
             scene_landmark,
             f"point3D_cluster_n{n_cluster}_{mode}_{method}.npy",
@@ -153,10 +181,20 @@ def make_scene_dataset(
         if scene_config.get("gt_pose_path")
         else None,
         n_class=n_cluster + 1,
+        image_prefix=scene_config.get("image_path_prefix", ""),
     )
-    ds = SceneDataset(spec, nfeatures=nfeatures)
-    # drop images without query association
-    if ds.img_p3d:
+    ds = SceneDataset(
+        spec,
+        nfeatures=nfeatures,
+        train=train,
+        min_inliers=min_inliers,
+        max_inliers=max_inliers,
+        sample_ratio=1,  # already applied to names
+    )
+    # drop images without sfm registration / query association
+    if train and ds.name_to_id:
+        ds.img_fns = [n for n in ds.img_fns if n in ds.name_to_id]
+    if not train and ds.img_p3d:
         ds.img_fns = [n for n in ds.img_fns if n in ds.img_p3d]
     return ds
 
@@ -164,9 +202,10 @@ def make_scene_dataset(
 def compose_scenes(
     datasets: List[str],
     config: Dict,
+    train: bool = False,
+    sample_ratio: Optional[float] = None,
 ) -> MultiSceneDataset:
-    """compose_datasets equivalent (dataset/get_dataset.py:31-89), eval
-    side."""
+    """compose_datasets equivalent (dataset/get_dataset.py:31-89)."""
     subs = []
     for name in datasets:
         ds_name = DATASET_SHORTHAND.get(name, name)
@@ -184,7 +223,13 @@ def compose_scenes(
                     landmark_path,
                     dataset_path,
                     scene_cfg[scene],
-                    nfeatures=config["eval_max_keypoints"],
+                    train=train,
+                    nfeatures=config["max_keypoints"]
+                    if train
+                    else config["eval_max_keypoints"],
+                    min_inliers=config.get("min_inliers", 0),
+                    max_inliers=config.get("max_inliers", 4096),
+                    sample_ratio=sample_ratio,
                 )
             )
     return MultiSceneDataset(subs)

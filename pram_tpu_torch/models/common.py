@@ -4,12 +4,13 @@ Interleaved-pair rotary embedding driven by a learnable Fourier projection
 of keypoint coordinates, masked softmax, and the self- and cross-attention
 blocks with their concat-MLP residual. Parameter names follow the flax
 modules, so ``models/convert.py`` maps a flax tree onto these modules by
-name.
+name, and :func:`flax_init_` draws fresh parameters as flax initialises
+them.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -24,9 +25,43 @@ __all__ = [
     "LearnableFourierPE",
     "SelfAttentionBlock",
     "apply_rotary",
+    "flax_init_",
     "masked_softmax",
     "rotate_half",
 ]
+
+# stddev of the standard normal truncated to [-2, 2]: flax's
+# variance_scaling divides by it so the truncated draw keeps the variance
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``lecun_normal`` on a ``Linear.weight [out, in]``: a normal of
+    variance 1 / fan_in (fan_in = in), truncated at two of its stddevs."""
+    std = (1.0 / weight.shape[1]) ** 0.5 / _TRUNC_STD
+    return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+@torch.no_grad()
+def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Every parameter of ``module`` drawn as flax initialises its
+    counterpart, from ``generator``: ``Linear`` weights ``lecun_normal``,
+    biases zero, ``LayerNorm`` scale 1 and bias 0, and the Fourier
+    encoding's ``Wr`` from ``normal(gamma ** -2)`` at flax's ``gamma`` 1
+    (``pram_tpu/models/common.py:60``). Parameters of other modules are
+    left as they are."""
+    for mod in module.modules():
+        if isinstance(mod, nn.Linear):
+            lecun_normal_(mod.weight, generator)
+            if mod.bias is not None:
+                nn.init.zeros_(mod.bias)
+        elif isinstance(mod, nn.LayerNorm):
+            nn.init.ones_(mod.weight)
+            nn.init.zeros_(mod.bias)
+    for mod in module.modules():
+        if isinstance(mod, LearnableFourierPE):
+            nn.init.normal_(mod.Wr.weight, 0.0, 1.0, generator=generator)
+    return module
 
 
 class LearnableFourierPE(nn.Module):
@@ -109,15 +144,19 @@ class SelfAttentionBlock(nn.Module):
 
 class CrossAttentionBlock(nn.Module):
     """Symmetric cross-attention with a shared QK projection, then the
-    residual concat-MLP, in the cat form GML uses: x is the token
-    concatenation ``[x0 | x1]`` with ``splits = (n0, n1)``.
+    residual concat-MLP.
 
-    Both halves go through the differentiable kernel wrappers of
-    ``ops/train_vjp.py``: ``ops/cross_attention.py`` (to_qk / to_v
-    projections, one similarity softmaxed along each axis) and ``ops/mlp.py``
-    over all tokens forward, kernels 14 and 15 backward. ``int8_proj`` and
-    ``int8_mlp`` as in :class:`SelfAttentionBlock` (the projections where
-    both sides have at most 1024 tokens).
+    Two call forms, as the flax block's (``pram_tpu/models/common.py:
+    434-451``): the cat form GML uses, ``block(x, (n0, n1), ...)`` on the
+    token concatenation ``x = [x0 | x1]``, returning the concatenation; and
+    the two-sided ``block(x0, x1, ...)``, returning ``(y0, y1)``. Both go
+    through the differentiable kernel wrappers of ``ops/train_vjp.py`` over
+    the concatenation: ``ops/cross_attention.py`` (to_qk / to_v projections,
+    one similarity softmaxed along each axis) and ``ops/mlp.py`` over all
+    tokens forward, kernels 14 and 15 backward; ``kernels=False`` takes
+    their plain versions both ways. ``int8_proj`` and ``int8_mlp`` as in
+    :class:`SelfAttentionBlock` (the projections where both sides have at
+    most 1024 tokens).
     """
 
     def __init__(self, feat_dim: int, hidden_dim: int, num_heads: int):
@@ -131,16 +170,24 @@ class CrossAttentionBlock(nn.Module):
     def forward(
         self,
         x: torch.Tensor,
-        splits: Tuple[int, int],
+        other: Union[Tuple[int, int], torch.Tensor],
         mask0: Optional[torch.Tensor] = None,
         mask1: Optional[torch.Tensor] = None,
         int8_proj: bool = False,
         int8_mlp: bool = False,
-    ) -> torch.Tensor:
+        kernels: bool = True,
+    ):
+        """``other``: the splits ``(n0, n1)`` of the concatenation ``x``, or
+        side 1's tokens ``x1`` (then ``x`` is side 0's)."""
+        if torch.is_tensor(other):
+            n0 = x.shape[1]
+            out = self(torch.cat([x, other], dim=1), (n0, other.shape[1]), mask0, mask1,
+                       int8_proj, int8_mlp, kernels)
+            return out[:, :n0], out[:, n0:]
         b, n, _ = x.shape
-        n0, n1 = splits
+        n0, n1 = other
         if n0 + n1 != n:
-            raise ValueError(f"splits {tuple(splits)} do not sum to {n} tokens")
+            raise ValueError(f"splits {tuple(other)} do not sum to {n} tokens")
         biases = (mask_to_bias(mask0, b, n0, x.device), mask_to_bias(mask1, b, n1, x.device))
         args = (*biases, self.head_dim**-0.5, self.num_heads, n0)
         if int8_proj and max(n0, n1) <= 1024:
@@ -151,9 +198,10 @@ class CrossAttentionBlock(nn.Module):
             )
         else:
             msg = cross_attention_proj(
-                x, self.to_qk.weight, self.to_qk.bias, self.to_v.weight, self.to_v.bias, *args
+                x, self.to_qk.weight, self.to_qk.bias, self.to_v.weight, self.to_v.bias, *args,
+                kernels,
             )
-        return _apply_residual_mlp(self, x, msg, int8_mlp=int8_mlp)
+        return _apply_residual_mlp(self, x, msg, kernels, int8_mlp)
 
 
 def _add_residual_mlp(block: nn.Module, feat_dim: int, hidden_dim: int) -> None:

@@ -10,6 +10,9 @@ once over all tokens, and attention stays blocked per side through
 ``splits``. Both sides are padded to fixed token counts with validity masks;
 masked attention and masked Sinkhorn make the result that of the unpadded
 problem.
+
+The plan goes through ``ops/sinkhorn.py:sinkhorn``: kernel 6 forward and,
+with gradients enabled, the plain iterations differentiated backward.
 """
 
 from __future__ import annotations
@@ -24,9 +27,10 @@ from pram_tpu_torch.models.common import (
     CrossAttentionBlock,
     LearnableFourierPE,
     SelfAttentionBlock,
+    flax_init_,
 )
 from pram_tpu_torch.ops.matching import MatchResult, mutual_matches
-from pram_tpu_torch.ops.sinkhorn import dual_softmax_matching, sinkhorn
+from pram_tpu_torch.ops.sinkhorn import dual_softmax_matching, sinkhorn, sinkhorn_matching
 
 
 @dataclass
@@ -46,14 +50,18 @@ class GMLConfig:
 
 
 class GML(nn.Module):
-    """Attentional graph matcher (inference).
+    """Attentional graph matcher.
 
     Of the reference's per-layer output projections only the last one is
-    applied at inference, so only it is declared (``out_proj``); the flax
-    checkpoint, likewise, holds only ``out_proj_{n_layers - 1}``.
-    ``int8_proj`` and ``int8_mlp`` (``PRAM_INT8_PROJ`` / ``PRAM_INT8_MLP`` of
-    the JAX package; inference only) run the blocks' projections and MLPs in
-    int8.
+    applied, so only it is declared (``out_proj``); the flax checkpoint,
+    likewise, holds only ``out_proj_{n_layers - 1}`` (the JAX package's
+    others get no parameters and no gradient). Parameters are drawn as flax
+    draws them (``models/common.py:flax_init_``, ``bin_score`` 1.0) from a
+    generator seeded with 0. ``use_kernels = False`` sends
+    every block and the Sinkhorn, forward and backward, through the plain
+    versions (the A/B check on the card). ``int8_proj`` and ``int8_mlp``
+    (``PRAM_INT8_PROJ`` / ``PRAM_INT8_MLP`` of the JAX package; inference
+    only) run the blocks' projections and MLPs in int8.
     """
 
     def __init__(self, config: GMLConfig = GMLConfig()):
@@ -72,6 +80,8 @@ class GML(nn.Module):
         )
         self.out_proj = nn.Linear(c.hidden_dim, c.hidden_dim)
         self.bin_score = nn.Parameter(torch.tensor(1.0))
+        flax_init_(self, torch.Generator().manual_seed(0))
+        self.use_kernels = True
         self.int8_proj = False
         self.int8_mlp = False
 
@@ -96,10 +106,12 @@ class GML(nn.Module):
             m0 = mask0 if mask0 is not None else desc0.new_ones((b, n0), dtype=torch.bool)
             m1 = mask1 if mask1 is not None else desc1.new_ones((b, n1), dtype=torch.bool)
             mask_cat = torch.cat([m0, m1], dim=1)
+        kernels = self.use_kernels
         for self_blk, cross_blk in zip(self.self_attn, self.cross_attn):
-            x = self_blk(x, enc, mask_cat, splits=splits, int8_proj=self.int8_proj,
+            x = self_blk(x, enc, mask_cat, splits=splits, kernels=kernels, int8_proj=self.int8_proj,
                          int8_mlp=self.int8_mlp)
-            x = cross_blk(x, splits, mask0, mask1, int8_proj=self.int8_proj, int8_mlp=self.int8_mlp)
+            x = cross_blk(x, splits, mask0, mask1, int8_proj=self.int8_proj, int8_mlp=self.int8_mlp,
+                          kernels=kernels)
 
         d = x.shape[-1]
         md = self.out_proj(x) / d**0.25
@@ -107,7 +119,8 @@ class GML(nn.Module):
         # the similarity accumulates in f32 from the working dtype's values
         sim = md0.float() @ md1.float().transpose(-1, -2)
         if cfg.with_sinkhorn:
-            plan = sinkhorn(sim, self.bin_score, cfg.sinkhorn_iterations, mask0, mask1)
+            fn = sinkhorn if kernels else sinkhorn_matching
+            plan = fn(sim, self.bin_score, cfg.sinkhorn_iterations, mask0, mask1)
         else:
             plan = dual_softmax_matching(sim, self.bin_score.float(), mask0, mask1)
         return {"plan": plan, "mdesc0": md0, "mdesc1": md1}

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pram_tpu_torch.models.common import LearnableFourierPE, SelfAttentionBlock
+from pram_tpu_torch.models.common import LearnableFourierPE, SelfAttentionBlock, flax_init_
 
 
 @dataclass
@@ -33,8 +33,10 @@ class SegNetViTConfig:
 class SegNetViT(nn.Module):
     """Per-keypoint landmark classifier (recognition head).
 
-    ``use_kernels = False`` sends every block, forward and backward, through
-    the kernels' plain versions (the A/B check on the card). ``int8_proj``
+    Parameters are drawn as flax draws them (``models/common.py:flax_init_``)
+    from a generator seeded with 0. ``use_kernels = False``
+    sends every block, forward and backward, through the kernels' plain
+    versions (the A/B check on the card). ``int8_proj``
     and ``int8_mlp`` (``PRAM_INT8_PROJ`` / ``PRAM_INT8_MLP`` of the JAX
     package; inference only) run the blocks' projections and MLPs in int8.
     """
@@ -52,6 +54,7 @@ class SegNetViT(nn.Module):
         self.seg_0 = nn.Linear(c.hidden_dim, c.output_dim)
         self.seg_ln = nn.LayerNorm(c.output_dim, eps=1e-6)
         self.seg_3 = nn.Linear(c.output_dim, c.n_class)
+        flax_init_(self, torch.Generator().manual_seed(0))
         self.use_kernels = True
         self.int8_proj = False
         self.int8_mlp = False

@@ -8,9 +8,13 @@ carry zero marginal mass, so the plan restricted to the valid entries is
 that of the unpadded problem.
 
 :func:`sinkhorn` replaces
-``pram_tpu/ops/sinkhorn_pallas.py:sinkhorn_matching_pallas``: a CPU tensor
-takes :func:`sinkhorn_matching`, a CUDA tensor launches ``csrc/sinkhorn.cu``
-or raises. :func:`dual_softmax_matching` has no kernel in either package.
+``pram_tpu/ops/sinkhorn_pallas.py:sinkhorn_matching_pallas``, with a
+gradient (:class:`SinkhornPlan`): a CPU tensor takes
+:func:`sinkhorn_matching` forward, a CUDA tensor launches
+``csrc/sinkhorn.cu`` or raises, and the backward recomputes the plain
+iterations and differentiates them, as the JAX package differentiates its
+XLA loop (it has no Sinkhorn backward kernel either). :func:`dual_softmax_matching`
+has no kernel in either package.
 """
 
 from __future__ import annotations
@@ -129,24 +133,13 @@ def instance(n: int, m: int, device) -> Tuple[int, int]:
     return CLUSTERS[key]
 
 
-def sinkhorn(
-    sim: torch.Tensor,
-    dustbin,
-    num_iters: int = 20,
-    mask0: Optional[torch.Tensor] = None,
-    mask1: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """:func:`sinkhorn_matching` on the CPU; ``csrc/sinkhorn.cu`` on CUDA.
-
-    ``dustbin`` is a scalar tensor or float; the kernel reads it from the
-    device. On CUDA the instance is chosen by shape before the launch
-    (:func:`instance`): the cluster instance, which keeps the plan in a
-    16-block cluster's shared memory, for every shape whose rows fit it;
-    the streaming instance, which holds at most 1536 columns (M + 1) and
-    any number of rows, for the others. A failed launch raises.
-    """
-    if sim.device.type == "cpu":
-        return sinkhorn_matching(sim, dustbin, num_iters, mask0, mask1)
+def _launch(sim: torch.Tensor, dustbin: torch.Tensor, num_iters: int, mask0, mask1) -> torch.Tensor:
+    """One launch of ``csrc/sinkhorn.cu`` on ``sim``'s card. The instance is
+    chosen by shape before the launch (:func:`instance`): the cluster
+    instance, which keeps the plan in a 16-block cluster's shared memory,
+    for every shape whose rows fit it; the streaming instance, which holds
+    at most 1536 columns (M + 1) and any number of rows, for the others. A
+    failed launch raises."""
     b, n, m = sim.shape
     dev = sim.device
     f32 = torch.float32
@@ -158,7 +151,7 @@ def sinkhorn(
     check_tensor(r, "row marginals (mask0)", (b, n + 1), f32, dev)
     check_tensor(c, "column marginals (mask1)", (b, m + 1), f32, dev)
     out = torch.empty((b, n + 1, m + 1), dtype=f32, device=dev)
-    bin_ = torch.as_tensor(dustbin).to(device=dev, dtype=f32).reshape(1).contiguous()
+    bin_ = dustbin.to(device=dev, dtype=f32).reshape(1).contiguous()
     check_status(
         library().pram_sinkhorn(
             ptr(sim), ptr(r), ptr(c), ptr(bin_), ptr(out), b, n, m, num_iters, cluster,
@@ -168,3 +161,54 @@ def sinkhorn(
     )
     LAUNCHES["sinkhorn"] += 1
     return out
+
+
+class SinkhornPlan(torch.autograd.Function):
+    """The plan of :func:`sinkhorn` with gradients for ``sim`` and the
+    dustbin score.
+
+    Forward: the kernel (:func:`_launch`) on a CUDA tensor,
+    :func:`sinkhorn_matching` on a CPU one. Backward:
+    :func:`sinkhorn_matching`'s iterations recomputed from the saved
+    ``sim``, dustbin and masks and differentiated by autograd; no
+    ``[B, N+1, M+1]`` tensor is kept between the passes. The kernel's plan
+    and the plain one differ in f32 summation order (the dustbin row and
+    column by ~0.2% of their mass, ``SINKHORN_DUSTBIN_RTOL`` in
+    ``chip_smoke.py``), so on the card the gradient is that of the plain plan
+    at the kernel plan's cotangent. The masks get no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, sim, dustbin, num_iters, mask0, mask1):
+        ctx.save_for_backward(sim, dustbin, mask0, mask1)
+        ctx.num_iters = num_iters
+        if sim.device.type == "cpu":
+            return sinkhorn_matching(sim, dustbin, num_iters, mask0, mask1)
+        return _launch(sim, dustbin, num_iters, mask0, mask1)
+
+    @staticmethod
+    def backward(ctx, g):
+        sim, dustbin, mask0, mask1 = ctx.saved_tensors
+        with torch.enable_grad():
+            s = sim.detach().requires_grad_()
+            d = dustbin.detach().requires_grad_()
+            plan = sinkhorn_matching(s, d.to(s.dtype), ctx.num_iters, mask0, mask1)
+            dsim, dbin = torch.autograd.grad(plan, (s, d), g)
+        return dsim, dbin, None, None, None
+
+
+def sinkhorn(
+    sim: torch.Tensor,
+    dustbin,
+    num_iters: int = 20,
+    mask0: Optional[torch.Tensor] = None,
+    mask1: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Sinkhorn transport plan with dustbin ``[B, N+1, M+1]``:
+    :func:`sinkhorn_matching` on the CPU, ``csrc/sinkhorn.cu`` on CUDA, with
+    a gradient for ``sim`` and a learned dustbin either way
+    (:class:`SinkhornPlan`); under ``torch.no_grad()`` the forward alone.
+    ``dustbin`` is a 0-d tensor or a float; the kernel reads it from the
+    device."""
+    bin_ = dustbin if torch.is_tensor(dustbin) else torch.tensor(float(dustbin), device=sim.device)
+    return SinkhornPlan.apply(sim, bin_, num_iters, mask0, mask1)

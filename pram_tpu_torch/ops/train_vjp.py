@@ -3,8 +3,8 @@
 
 Three ``torch.autograd.Function`` s. Each forward is the fused kernel:
 ``ops/attention.py`` (kernel 1), ``ops/cross_attention.py`` (kernel 5),
-``ops/mlp.py`` (kernel 2); the self-attention and the MLP take
-``kernels=False`` for their plain versions (SegNetViT's A/B switch). Each
+``ops/mlp.py`` (kernel 2); each takes ``kernels=False`` for its plain
+versions, forward and backward (the models' A/B switch). Each
 saves its inputs, no ``[B, H, N, N]`` tensor, and its backward recomputes
 the projection the kernel made inside (a plain matrix product), calls the
 backward kernel (``ops/attention_bwd.py`` kernels 13 and 14,
@@ -67,26 +67,26 @@ class CrossAttentionProj(torch.autograd.Function):
     concatenation, both projections and both key biases."""
 
     @staticmethod
-    def forward(ctx, x_cat, w_qk, b_qk, w_v, b_v, bias0, bias1, scale, heads, n0):
+    def forward(ctx, x_cat, w_qk, b_qk, w_v, b_v, bias0, bias1, scale, heads, n0, kernels):
         ctx.save_for_backward(x_cat, w_qk, b_qk, w_v, b_v, bias0, bias1)
-        ctx.config = (scale, heads, n0)
-        return cross_attention.cross_attention(x_cat, w_qk, b_qk, w_v, b_v, bias0, bias1, scale, heads, n0)
+        ctx.config = (scale, heads, n0, kernels)
+        fn = cross_attention.cross_attention if kernels else cross_attention.cross_attention_plain
+        return fn(x_cat, w_qk, b_qk, w_v, b_v, bias0, bias1, scale, heads, n0)
 
     @staticmethod
     def backward(ctx, g):
         x, w_qk, b_qk, w_v, b_v, bias0, bias1 = ctx.saved_tensors
-        scale, heads, n0 = ctx.config
+        scale, heads, n0, kernels = ctx.config
         dt = x.dtype
         qk = F.linear(x, w_qk.to(dt), b_qk.to(dt)).contiguous()
         v = F.linear(x, w_v.to(dt), b_v.to(dt)).contiguous()
-        dqk, dv, db0, db1 = attention_bwd.cross_attention_bwd(
-            qk, v, bias0, bias1, g.to(dt).contiguous(), scale, heads, n0
-        )
+        fn = attention_bwd.cross_attention_bwd if kernels else attention_bwd.cross_attention_bwd_plain
+        dqk, dv, db0, db1 = fn(qk, v, bias0, bias1, g.to(dt).contiguous(), scale, heads, n0)
         dx_qk, dw_qk, db_qk = _project_back(dqk, x, w_qk, b_qk)
         dx_v, dw_v, db_v = _project_back(dv, x, w_v, b_v)
         dx = (dx_qk.float() + dx_v.float()).to(dt)
         return (dx, dw_qk, db_qk, dw_v, db_v, db0.to(bias0.dtype), db1.to(bias1.dtype),
-                None, None, None)
+                None, None, None, None)
 
 
 class ResidualMLP(torch.autograd.Function):
@@ -122,9 +122,9 @@ def self_attention_proj(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads, split
     return SelfAttentionProj.apply(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads, splits, kernels)
 
 
-def cross_attention_proj(x_cat, w_qk, b_qk, w_v, b_v, bias0, bias1, scale, heads, n0):
+def cross_attention_proj(x_cat, w_qk, b_qk, w_v, b_v, bias0, bias1, scale, heads, n0, kernels=True):
     """Differentiable :func:`ops.cross_attention.cross_attention`."""
-    return CrossAttentionProj.apply(x_cat, w_qk, b_qk, w_v, b_v, bias0, bias1, scale, heads, n0)
+    return CrossAttentionProj.apply(x_cat, w_qk, b_qk, w_v, b_v, bias0, bias1, scale, heads, n0, kernels)
 
 
 def residual_mlp(x, msg, wp, bp, w0, b0, ln_w, ln_b, w3, b3, eps=1e-6, kernels=True):

@@ -120,18 +120,23 @@ def seg_metrics(logits, batch, cfg: TrainConfig):
     return loss, {"loss": loss.detach(), "acc_corr": corr, "acc_incorr": incorr}
 
 
-def make_train_step(model: nn.Module, cfg: TrainConfig):
-    """``step(state, batch) -> metrics`` over precomputed descriptors, in
-    the model's own type.
+def make_train_step(model: nn.Module, cfg: TrainConfig, compute_dtype: Optional[torch.dtype] = None):
+    """``step(state, batch) -> metrics`` over precomputed descriptors.
 
     Batch dict: ``seg_descriptors [B, N, D]``, ``norm_keypoints [B, N, 2]``,
-    ``gt_seg [B, N]``, ``mask [B, N]``. The metrics ``loss``, ``acc_corr``
-    and ``acc_incorr`` are 0-d tensors (no host sync), ``lr`` the float
-    the step used.
+    ``gt_seg [B, N]``, ``mask [B, N]``. ``compute_dtype``: the forward and
+    backward run in this type through casts of the f32 parameters, the
+    descriptors and keypoints cast likewise (None: the model's own type);
+    the loss and metrics are f32. The metrics ``loss``, ``acc_corr`` and
+    ``acc_incorr`` are 0-d tensors (no host sync), ``lr`` the float the
+    step used.
     """
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        out = model(batch["seg_descriptors"], batch["norm_keypoints"], batch.get("mask"))
+        d, nk = batch["seg_descriptors"], batch["norm_keypoints"]
+        if compute_dtype is not None:
+            d, nk = d.to(compute_dtype), nk.to(compute_dtype)
+        out = cast_forward(model, compute_dtype, d, nk, batch.get("mask"))
         loss, metrics = seg_metrics(out["prediction"].float(), batch, cfg)
         metrics["lr"] = apply_gradients(state, cfg, loss)
         return metrics

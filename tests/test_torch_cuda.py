@@ -1229,3 +1229,90 @@ def test_int8_extractor_kernels_vs_plain(dev):
 
     ab = extraction_ab_check(n_images=2, seed=13, device=dev, dtype=torch.bfloat16, int8=True)
     assert ab["kpt_set_agreement"] >= 0.95 and ab["desc_cos_min"] >= 0.99, ab
+
+
+def _plan_inputs(dev, b=2, n=512, m=1024, seed=21):
+    g = torch.Generator().manual_seed(seed)
+    sim = _rand(g, b, n, m, scale=3.0).to(dev)
+    m0 = (torch.rand(b, n, generator=g) > 0.1).to(dev)
+    m1 = (torch.rand(b, m, generator=g) > 0.4).to(dev)
+    gt = torch.randint(0, m + 1, (b, n), generator=g).to(dev)
+    gt[~m0] = -1
+    return sim, m0, m1, gt
+
+
+def test_sinkhorn_kernel_gradient(dev):
+    """``sinkhorn`` with a gradient (SinkhornPlan): kernel 6 forward (one
+    launch), the plain iterations differentiated backward. The plan as the
+    kernel's; d sim and d dustbin of the matching loss within 1% of their
+    scale of plain autograd's (the loss's cotangent, -1 / plan, carries the
+    kernel plan's ~0.2% dustbin difference); under ``torch.no_grad()`` the
+    same plan from the same single launch."""
+    from pram_tpu_torch.train.losses import matching_nll_loss
+
+    sim, m0, m1, gt = _plan_inputs(dev)
+    n, m = sim.shape[1:]
+
+    def run(fn):
+        s = sim.clone().requires_grad_()
+        d = torch.tensor(1.1, device=dev, requires_grad=True)
+        plan = fn(s, d, 20, m0, m1)
+        matching_nll_loss(plan, gt, m1).backward()
+        return plan.detach(), s.grad, d.grad
+
+    before = sinkhorn.LAUNCHES["sinkhorn"]
+    plan, ds, dd = run(sinkhorn.sinkhorn)
+    torch.cuda.synchronize()
+    assert sinkhorn.LAUNCHES["sinkhorn"] == before + 1
+    ref, rs, rd = run(sinkhorn.sinkhorn_matching)
+    assert (plan[:, :n, :m] - ref[:, :n, :m]).abs().max().item() <= 1e-4
+    assert _rel_err(ds, rs) <= 0.01 and _rel_err(dd, rd) <= 0.01
+    with torch.no_grad():
+        assert torch.equal(sinkhorn.sinkhorn(sim, 1.1, 20, m0, m1), plan)
+    assert sinkhorn.LAUNCHES["sinkhorn"] == before + 2
+
+
+def test_gml_train_step_launches(dev):
+    """One GML training step (2 layers, d 256, 2 x (128 + 256) tokens, bf16
+    over f32 masters): kernels 1, 5 and 13, 14 once a layer, 2 and 15
+    twice a layer, 6 once; the loss finite and every master gradient
+    within 3% of its scale of the plain path's in bf16."""
+    from pram_tpu_torch.models.gml import GML, GMLConfig
+    from pram_tpu_torch.train.losses import matching_nll_loss
+    from pram_tpu_torch.train.matcher import make_matcher_train_step
+    from pram_tpu_torch.train.trainer import cast_forward
+
+    layers, b, n, m = 2, 2, 128, 256
+    model = GML(GMLConfig(n_layers=layers)).to(dev)
+    g = torch.Generator().manual_seed(3)
+    d0 = torch.nn.functional.normalize(_rand(g, b, n, 128), dim=-1).to(dev)
+    d1 = torch.nn.functional.normalize(_rand(g, b, m, 128), dim=-1).to(dev)
+    nk0, nk1 = (torch.rand(b, n, 2, generator=g) - 0.5).to(dev), (torch.rand(b, m, 2, generator=g) - 0.5).to(dev)
+    m0 = (torch.rand(b, n, generator=g) > 0.1).to(dev)
+    m1 = (torch.rand(b, m, generator=g) > 0.2).to(dev)
+    gt = torch.randint(0, m + 1, (b, n), generator=g).to(dev)
+    gt[~m0] = -1
+    args = (d0, d1, nk0, nk1, m0, m1)
+
+    def grads(kernels):
+        model.use_kernels = kernels
+        model.zero_grad(set_to_none=True)
+        out = cast_forward(model, torch.bfloat16, d0.bfloat16(), d1.bfloat16(), *args[2:])
+        matching_nll_loss(out["plan"], gt, m1).backward()
+        return {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    gp = grads(False)
+    gk = grads(True)
+    model.use_kernels = True
+    for k in gp:
+        assert _rel_err(gk[k], gp[k]) <= 0.03, k
+    counters = (attention.LAUNCHES, cross_attention.LAUNCHES, mlp.LAUNCHES, sinkhorn.LAUNCHES,
+                attention_bwd.LAUNCHES, mlp_bwd.LAUNCHES)
+    before = {k: v for c in counters for k, v in c.items()}
+    loss = make_matcher_train_step(model, 2e-4, torch.bfloat16)(*args, gt)["loss"]
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for c in counters for k, v in c.items()}
+    want = {"self_attention": layers, "cross_attention": layers, "residual_mlp": 2 * layers, "sinkhorn": 1,
+            "self_attention_bwd": layers, "cross_attention_bwd": layers, "residual_mlp_bwd": 2 * layers}
+    assert {k: got.get(k, 0) for k in want} == want, got
+    assert torch.isfinite(loss)

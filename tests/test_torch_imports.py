@@ -16,7 +16,9 @@ projections and MLPs; then both serving CLIs' ``main`` on the CPU with
 2-layer recognizers, on the synthetic scene's map and features and on a
 160 x 120 rendered map with two PNG frames, written by chip_smoke.py's
 writers (the config, COLMAP, feature, image and weight readers of their
-paths).
+paths); then both training CLIs' ``main`` on the CPU: the GML fit at one
+layer, and cli.train at two layers on a tiny layout written by
+chip_smoke.training_layout.
 """
 
 import os
@@ -201,6 +203,32 @@ SCRIPT = textwrap.dedent(
                                 "--feat_weight_path", "weights/sfd2_rendered.msgpack",
                                 "--matcher_weight_path", "weights/gml_rendered.msgpack", "--device", "cpu"])
         assert len(recs) == 2 and all(np.isfinite(r["tvec"]).all() for r in recs)
+
+        # the two training CLIs, through main(argv) on the CPU: the GML fit
+        # at one layer (its config cut here; one step, its checkpoint and
+        # validation), and cli.train at two layers on a tiny training layout
+        import functools
+
+        from pram_tpu_torch.cli import train as cli_train
+        from pram_tpu_torch.cli import train_synthetic_gml as cli_gml
+        from pram_tpu_torch.core.config import load_yaml
+        from pram_tpu_torch.models import gml as gml_mod
+
+        gml_mod.GMLConfig = functools.partial(GMLConfig, n_layers=1)
+        res = cli_gml.main(["--device", "cpu", "--steps", "1", "--batch", "1", "--out", str(tmp / "gml.pt")])
+        gml_mod.GMLConfig = GMLConfig
+        assert len(res["losses"]) == 1 and np.isfinite(res["losses"]).all() and (tmp / "gml.pt").exists()
+        assert 0.0 <= res["validation"]["recall_5cm5deg_gml"] <= 1.0
+        top = load_yaml("configs/config_train_7scenes_sfd2.yaml")
+        for k in ("dataset", "landmark_path", "dataset_path", "config_path"):
+            top.pop(k)
+        top.update(layers=2, batch_size=4, max_keypoints=64, min_inliers=8, max_inliers=32, epochs=1,
+                   its_per_epoch=2, workers=2, output_dim=64)
+        small = make_synthetic_scene(np.random.RandomState(2), n_cluster=3, points_per_cluster=60, n_ref_frames=4,
+                                     desc_dim=32)
+        cfg = chip_smoke.training_layout(tmp / "train", small, 6, 3, top, n_kpts=48, n_outliers=32)
+        run = cli_train.main(["--config", str(cfg), "--device", "cpu", "--save_dir", str(tmp / "ck")])
+        assert run.state.iteration == 2 and (tmp / "ck" / "epoch_0001.pt").exists()
     leaked = BLOCKED & {m.split(".")[0] for m in sys.modules}
     assert not leaked, leaked
     print("FENCE OK", len(names))
