@@ -59,14 +59,14 @@ _SIGNATURES = {
     # frame strides, row scratch, stat0, stat1, B, N, M, heads, scale,
     # is_f32, stream
     "pram_cross_attention_packed": [_P] * 4 + [_L] * 4 + [_P] * 4 + [_L] * 2 + [_P] * 3 + [_I] * 4 + [_F, _I, _P],
-    # sim, r, c, bin, out, B, n, m, iters, cluster size (0: the streaming
-    # instance), stream
-    "pram_sinkhorn": [_P] * 5 + [_I] * 5 + [_P],
+    # sim, r, c, bin, out, B, n, m, iters, cluster size (-1: the wide
+    # instance), the wide instance's scratch, stream
+    "pram_sinkhorn": [_P] * 5 + [_I] * 5 + [_P, _P],
     # n, m, cluster size and clusters placed at once (int pointers)
     "pram_sinkhorn_plan": [_I, _I, _P, _P],
     # descs, pdesc, kpts, uv, in_img, qmask, gate_r, ratio, nn_idx, d1, keep,
-    # B, N, P, stream
-    "pram_refine_nn": [_P] * 6 + [_F, _F] + [_P] * 3 + [_I, _I, _I, _P],
+    # B, N, P, the real points of P, stream
+    "pram_refine_nn": [_P] * 6 + [_F, _F] + [_P] * 3 + [_I, _I, _I, _I, _P],
     # cam, R, t, valid, xyz, uv, mask, threshold, out, P, K, N, slices of
     # the point axis, stream
     "pram_ransac_score": [_P] * 7 + [_F, _P, _I, _I, _I, _I, _P],

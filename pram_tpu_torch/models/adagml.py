@@ -318,8 +318,7 @@ def _finish(model: AdaGML, st: _State) -> dict:
     bin_score = model.bin_score.float()
     if cfg.with_sinkhorn:
         # plain f32 Sinkhorn on every device: the JAX package runs AdaGML's
-        # through XLA (its Pallas Sinkhorn is GML's), and the plan has 2049
-        # columns at the Aachen shape, above ops/sinkhorn.py:KERNEL_MAX_COLS
+        # through XLA (its Pallas Sinkhorn is GML's)
         plan = sinkhorn_matching(sim, bin_score, cfg.sinkhorn_iterations, st.mask0, st.mask1)
     else:
         plan = dual_softmax_matching(sim, bin_score, st.mask0, st.mask1)

@@ -24,6 +24,11 @@ with two outputs), and :func:`project_int8_plain` its plain version.
 Weights are in torch ``Linear`` layout: ``w_qkv [3 * d, d_in]`` whose output
 index is ``(head * head_dim + i) * 3 + c`` for c in (q, k, v), the flax
 kernel transposed and nothing else.
+
+Token counts off the kernels' tiles are padded inside the CUDA wrappers
+(``ops/padding.py``): each side up to 128 tokens for the message pass,
+padded keys masked, padded queries sliced off (:func:`on_query_tile`); the
+projection passes' rows up to 64.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from pram_tpu_torch._build import check_status, check_tensor, library, ptr, ptr_or_null, stream_of
+from pram_tpu_torch.ops.padding import on_row_tile, pad_sides, unpad
 from pram_tpu_torch.ops.quant import int_matmul, quant_rows
 
 # "projection" counts the standalone wrapper :func:`project` only: kernels
@@ -51,9 +57,10 @@ KERNEL_HEAD_DIM = 64
 KERNEL_QUERY_TILE = 128
 KERNEL_MAX_SPLITS = 8
 # output columns of a CTA of the projection passes: n_out and rotary_cols
-# are multiples of them
+# are multiples of them; their token tile
 KERNEL_PROJ_SLICE = 128
 KERNEL_PROJ_INT8_SLICE = 256
+KERNEL_PROJ_TOKEN_TILE = 64
 
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:
@@ -171,7 +178,8 @@ def attend_plain(q, k, v, key_bias, scale, query_bias=None):
 
 
 def _cuda_sides(x, cos, sin, heads, splits) -> List[int]:
-    """The side lengths, after checking that the CUDA kernels take x's shape."""
+    """The side lengths, after checking that the CUDA kernels take x's shape
+    (each side is a multiple of the query tile: :func:`on_query_tile` pads)."""
     b, n, d_in = x.shape
     if cos is None or sin is None:
         raise ValueError("the CUDA self-attention kernel needs the rotary cos/sin")
@@ -181,12 +189,21 @@ def _cuda_sides(x, cos, sin, heads, splits) -> List[int]:
             f"{KERNEL_HEAD_DIM}; got d_in={d_in}, heads={heads}"
         )
     sides = [hi - lo for lo, hi in split_edges(splits, n)]
-    if any(s % KERNEL_QUERY_TILE for s in sides) or len(sides) > KERNEL_MAX_SPLITS:
-        raise ValueError(
-            f"CUDA self-attention needs N % {KERNEL_QUERY_TILE} == 0 on each of at "
-            f"most {KERNEL_MAX_SPLITS} sides; got sides {tuple(sides)}"
-        )
+    if len(sides) > KERNEL_MAX_SPLITS:
+        raise ValueError(f"CUDA self-attention takes at most {KERNEL_MAX_SPLITS} sides; got {len(sides)}")
     return sides
+
+
+def on_query_tile(launch, x, weights, cos, sin, key_bias, scale, heads, splits=None):
+    """``launch(x, *weights, cos, sin, key_bias, scale, heads, splits)`` on
+    x's sides each padded to the 128-token query tile, the padded keys at
+    ``padding.PAD_BIAS``, and its real tokens' messages ``[B, N, d]``: the
+    route of :func:`self_attention` and :func:`self_attention_int8` on CUDA
+    (the CPU tests give the plain versions as ``launch``)."""
+    sides = [hi - lo for lo, hi in split_edges(splits, x.shape[1])]
+    (xp, cp, sp), kb, padded, index = pad_sides((x, cos, sin), key_bias, sides, KERNEL_QUERY_TILE)
+    out = launch(xp, *weights, cp, sp, kb, scale, heads, None if splits is None else padded)
+    return unpad(out, index)
 
 
 def check_aligned(**tensors) -> None:
@@ -206,12 +223,10 @@ def _projection_outputs(x, n_out, b, cos, sin, rotary_cols, split, slice_cols, n
     check_tensor(x, "x", (*x.shape[:-1], KERNEL_D_IN), torch.bfloat16, dev)
     check_tensor(b, "b", (n_out,), torch.float32, dev)
     tokens = x.numel() // KERNEL_D_IN
-    if (tokens % 64 or n_out % slice_cols or rotary_cols % slice_cols or rotary_cols > n_out
-            or split % 64 or not 0 < split <= n_out):
+    if n_out % slice_cols or rotary_cols % slice_cols or rotary_cols > n_out or split % 64 or not 0 < split <= n_out:
         raise ValueError(
-            f"{name} needs tokens % 64 == 0, n_out and rotary_cols multiples of {slice_cols} "
-            f"and split of 64; got {tokens} tokens, n_out {n_out}, rotary_cols {rotary_cols}, "
-            f"split {split}"
+            f"{name} needs n_out and rotary_cols multiples of {slice_cols} and split of 64; got "
+            f"n_out {n_out}, rotary_cols {rotary_cols}, split {split}"
         )
     check_aligned(x=x, b=b)
     if rotary_cols:
@@ -233,11 +248,28 @@ def project(x, w, b, cos=None, sin=None, rotary_cols=0, split=None):
     x ``[..., 256]`` bf16; w ``[n_out, 256]`` bf16; b ``[n_out]``; cos/sin
     ``[..., 64]`` f32 with ``rotary_cols``. With ``split`` the result is two
     tensors, the columns before and from ``split``, as the kernel writes
-    them. On CUDA n_out and rotary_cols are multiples of 128, split of 64,
-    and the tokens of 64.
+    them. On CUDA n_out and rotary_cols are multiples of 128 and split of
+    64; the tokens are padded to 64 (:func:`on_token_tile`).
     """
     if x.device.type == "cpu":
         return _split_plain(project_plain(x, w, b, cos, sin, rotary_cols), split)
+    return on_token_tile(_project_cuda, x, (w, b), cos, sin, rotary_cols, split)
+
+
+def on_token_tile(launch, x, weights, cos, sin, rotary_cols, split):
+    """``launch(x, *weights, cos, sin, rotary_cols, split)`` on x's tokens
+    flattened and padded with zero rows to the projection passes' 64, cut
+    back to x's leading shape: the route of :func:`project` and
+    :func:`project_int8` on CUDA (the CPU tests give the plain versions)."""
+    rot = (cos, sin) if rotary_cols else (None, None)
+    if rotary_cols and any(t is None or t.shape[:-1] != x.shape[:-1] for t in rot):
+        raise ValueError(f"cos/sin need x's token shape {tuple(x.shape[:-1])}; got "
+                         f"{[None if t is None else tuple(t.shape) for t in rot]}")
+    return on_row_tile(lambda x2, c2, s2: launch(x2, *weights, c2, s2, rotary_cols, split),
+                       KERNEL_PROJ_TOKEN_TILE, x, *rot)
+
+
+def _project_cuda(x, w, b, cos, sin, rotary_cols, split):
     n_out = w.shape[0]
     b, split, out0, out1, tokens = _projection_outputs(
         x, n_out, b, cos, sin, rotary_cols, split, KERNEL_PROJ_SLICE, "the CUDA projection")
@@ -276,11 +308,15 @@ def project_int8(x, wq, ws, b, cos=None, sin=None, rotary_cols=0, split=None):
     x ``[..., 256]`` bf16; wq ``[n_out, 256]`` int8 and ws ``[n_out]``;
     b ``[n_out]``; cos/sin ``[..., 64]`` f32 with ``rotary_cols``. With
     ``split`` the result is two tensors, the columns before and from
-    ``split``. On CUDA n_out and rotary_cols are multiples of 256, split of
-    64, and the tokens of 64.
+    ``split``. On CUDA n_out and rotary_cols are multiples of 256 and split
+    of 64; the tokens are padded to 64 (:func:`on_token_tile`).
     """
     if x.device.type == "cpu":
         return _split_plain(project_int8_plain(x, wq, ws, b, cos, sin, rotary_cols), split)
+    return on_token_tile(_project_int8_cuda, x, (wq, ws, b), cos, sin, rotary_cols, split)
+
+
+def _project_int8_cuda(x, wq, ws, b, cos, sin, rotary_cols, split):
     n_out = wq.shape[0]
     b, split, out0, out1, tokens = _projection_outputs(
         x, n_out, b, cos, sin, rotary_cols, split, KERNEL_PROJ_INT8_SLICE, "the CUDA s8 projection")
@@ -305,10 +341,15 @@ def self_attention(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads, splits=Non
 
     The rows of w_qkv and b_qkv are gathered into kernel 12's block order
     here; the kernel writes the rotated qkv into a ``[B, N, 768]`` scratch
-    and runs the message pass on it.
+    and runs the message pass on it. Sides off the query tile are padded
+    (:func:`on_query_tile`).
     """
     if x.device.type == "cpu":
         return self_attention_plain(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads, splits)
+    return on_query_tile(_self_attention_cuda, x, (w_qkv, b_qkv), cos, sin, key_bias, scale, heads, splits)
+
+
+def _self_attention_cuda(x, w_qkv, b_qkv, cos, sin, key_bias, scale, heads, splits):
     b, n, d_in = x.shape
     dev = x.device
     sides = _cuda_sides(x, cos, sin, heads, splits)
@@ -368,10 +409,15 @@ def self_attention_int8(x, wq, ws, b_qkv, cos, sin, key_bias, scale, heads, spli
     message pass on it (no rotate launch).
 
     The rows of wq, their scales and the bias are gathered into kernel 12's
-    column order here, each scale with its row. Inference only.
+    column order here, each scale with its row. Sides off the query tile are
+    padded (:func:`on_query_tile`). Inference only.
     """
     if x.device.type == "cpu":
         return self_attention_int8_plain(x, wq, ws, b_qkv, cos, sin, key_bias, scale, heads, splits)
+    return on_query_tile(_self_attention_int8_cuda, x, (wq, ws, b_qkv), cos, sin, key_bias, scale, heads, splits)
+
+
+def _self_attention_int8_cuda(x, wq, ws, b_qkv, cos, sin, key_bias, scale, heads, splits):
     b, n, d_in = x.shape
     dev = x.device
     sides = _cuda_sides(x, cos, sin, heads, splits)

@@ -13,7 +13,8 @@ column blocks, the output of a projection whose weight columns went
 through :func:`permute_qkv_kernel`. The statistic of a key is the attention
 mass it receives, summed over heads and over the valid queries (bias > -0.5)
 of its side, from the normalized f32 weights; the caller divides by
-``heads * n_valid`` for the mean.
+``heads * n_valid`` for the mean. Sides off the 128-token query tile are
+padded inside the CUDA wrapper (:func:`qkv_on_query_tile`).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 
 from pram_tpu_torch._build import check_status, check_tensor, library, ptr, ptr_or_null, stream_of
 from pram_tpu_torch.ops.attention import apply_rotary, attend_plain, split_edges
+from pram_tpu_torch.ops.padding import pad_sides, unpad
 
 LAUNCHES = {"self_attention_qkv": 0, "self_attention_qkv_blocked": 0}
 
@@ -88,9 +90,28 @@ def self_attention_qkv(
     splits: Optional[Sequence[int]] = None, return_stats: bool = False,
 ):
     """:func:`self_attention_qkv_plain` on the CPU; ``csrc/attention_qkv.cu``
-    on CUDA, in bf16 or f32."""
+    on CUDA, in bf16 or f32, sides off the query tile padded
+    (:func:`qkv_on_query_tile`)."""
     if qkv.device.type == "cpu":
         return self_attention_qkv_plain(qkv, cos, sin, key_bias, scale, heads, splits, return_stats)
+    return qkv_on_query_tile(_self_attention_qkv_cuda, qkv, cos, sin, key_bias, scale, heads, splits,
+                             return_stats)
+
+
+def qkv_on_query_tile(launch, qkv, cos, sin, key_bias, scale, heads, splits=None, return_stats=False):
+    """``launch(qkv, cos, sin, key_bias, scale, heads, splits,
+    return_stats)`` on the sides each padded to the 128-token query tile,
+    the padded tokens' bias at ``padding.PAD_BIAS`` (masked as keys, invalid
+    as queries, so they add to no statistic), cut back to the real tokens:
+    the route of :func:`self_attention_qkv` on CUDA (the CPU tests give the
+    plain version as ``launch``)."""
+    sides = [hi - lo for lo, hi in split_edges(splits, qkv.shape[1])]
+    (qp, cp, sp), kb, padded, index = pad_sides((qkv, cos, sin), key_bias, sides, KERNEL_QUERY_TILE)
+    out = launch(qp, cp, sp, kb, scale, heads, None if splits is None else padded, return_stats)
+    return tuple(unpad(t, index) for t in out) if return_stats else unpad(out, index)
+
+
+def _self_attention_qkv_cuda(qkv, cos, sin, key_bias, scale, heads, splits, return_stats):
     b, n, d3 = qkv.shape
     dev = qkv.device
     dt = qkv.dtype
@@ -105,11 +126,8 @@ def self_attention_qkv(
             f"{KERNEL_HEAD_DIM}; got qkv width {d3}, heads={heads}"
         )
     sides = [hi - lo for lo, hi in split_edges(splits, n)]
-    if any(s % KERNEL_QUERY_TILE for s in sides) or len(sides) > KERNEL_MAX_SPLITS:
-        raise ValueError(
-            f"CUDA self-attention needs N % {KERNEL_QUERY_TILE} == 0 on each of at "
-            f"most {KERNEL_MAX_SPLITS} sides; got sides {tuple(sides)}"
-        )
+    if len(sides) > KERNEL_MAX_SPLITS:
+        raise ValueError(f"CUDA self-attention takes at most {KERNEL_MAX_SPLITS} sides; got {len(sides)}")
     check_tensor(qkv, "qkv", (b, n, d3), dt, dev)
     check_tensor(cos, "cos", (b, n, KERNEL_HEAD_DIM), f32, dev)
     check_tensor(sin, "sin", (b, n, KERNEL_HEAD_DIM), f32, dev)

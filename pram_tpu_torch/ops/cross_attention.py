@@ -20,6 +20,10 @@ symmetric attention on projections made outside (AdaGML's blocks), with
 optionally each side's received-attention statistics. A CPU tensor takes
 :func:`cross_attention_packed_plain`; a CUDA tensor launches
 ``csrc/cross_attention_packed.cu`` or raises.
+
+Sides off the 128-token query tile are padded inside the CUDA wrappers
+(``ops/padding.py``: padded keys masked, padded queries sliced off;
+:func:`on_side_tile`, :func:`packed_on_tile`).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 from pram_tpu_torch._build import check_status, check_tensor, library, ptr, ptr_or_null, stream_of
 from pram_tpu_torch.ops import attention
 from pram_tpu_torch.ops.attention import attend_plain, check_aligned, project_int8_plain, project_plain
+from pram_tpu_torch.ops.padding import pad_end, pad_sides, round_up, unpad, PAD_BIAS
 
 LAUNCHES = {"cross_attention": 0, "cross_attention_packed": 0, "cross_attention_int8": 0}
 
@@ -77,16 +82,21 @@ def cross_attention_int8_plain(x_cat, wq_qk, ws_qk, b_qk, wq_v, ws_v, b_v, bias0
 def cross_attention_int8(x_cat, wq_qk, ws_qk, b_qk, wq_v, ws_v, b_v, bias0, bias1, scale, heads, n0):
     """:func:`cross_attention_int8_plain` on the CPU; on CUDA kernel 17's C
     entry in ``csrc/proj_int8.cu``: the s8 projection pass into qk and v
-    scratch tensors, then kernel 5's message pass (kernel 11's). Inference
-    only."""
+    scratch tensors, then kernel 5's message pass (kernel 11's). Sides off
+    the query tile are padded (:func:`on_side_tile`). Inference only."""
     if x_cat.device.type == "cpu":
         return cross_attention_int8_plain(
             x_cat, wq_qk, ws_qk, b_qk, wq_v, ws_v, b_v, bias0, bias1, scale, heads, n0
         )
+    return on_side_tile(_cross_attention_int8_cuda, x_cat, (wq_qk, ws_qk, b_qk, wq_v, ws_v, b_v),
+                        bias0, bias1, scale, heads, n0)
+
+
+def _cross_attention_int8_cuda(x_cat, wq_qk, ws_qk, b_qk, wq_v, ws_v, b_v, bias0, bias1, scale, heads, n0):
     b, n, d = x_cat.shape
     n1 = n - n0
     dev = x_cat.device
-    _check_cuda_shape(d, heads, n0, n1)
+    _check_cuda_shape(d, heads)
     f32 = torch.float32
     wq = torch.cat([wq_qk, wq_v]).contiguous()
     ws = torch.cat([ws_qk.float(), ws_v.float()]).contiguous()
@@ -111,31 +121,50 @@ def cross_attention_int8(x_cat, wq_qk, ws_qk, b_qk, wq_v, ws_v, b_v, bias0, bias
     return out
 
 
-def _check_cuda_shape(d, heads, n0, n1):
+def _check_cuda_shape(d, heads):
     if d != KERNEL_D or heads * KERNEL_HEAD_DIM != d:
         raise ValueError(
             f"CUDA cross-attention is built for d={KERNEL_D} and head_dim="
             f"{KERNEL_HEAD_DIM}; got d={d}, heads={heads}"
         )
-    if n0 <= 0 or n1 <= 0 or n0 % KERNEL_QUERY_TILE or n1 % KERNEL_QUERY_TILE:
-        raise ValueError(
-            f"CUDA cross-attention needs both sides a positive multiple of "
-            f"{KERNEL_QUERY_TILE} tokens; got {n0} and {n1}"
-        )
+
+
+def _check_sides(n0, n1):
+    if n0 <= 0 or n1 <= 0:
+        raise ValueError(f"cross-attention needs two non-empty sides; got {n0} and {n1}")
+
+
+def on_side_tile(launch, x_cat, weights, bias0, bias1, scale, heads, n0):
+    """``launch(x_cat, *weights, bias0, bias1, scale, heads, n0)`` on the two
+    sides each padded to the 128-token query tile, the padded keys at
+    ``padding.PAD_BIAS``, and the real tokens' messages ``[B, N, d]``: the
+    route of :func:`cross_attention` and :func:`cross_attention_int8` on
+    CUDA (the CPU tests give the plain versions as ``launch``)."""
+    n1 = x_cat.shape[1] - n0
+    _check_sides(n0, n1)
+    (xp,), kb, (p0, _), index = pad_sides((x_cat,), torch.cat([bias0, bias1], 1), (n0, n1), KERNEL_QUERY_TILE)
+    if index is not None:
+        bias0, bias1 = kb[:, :p0].contiguous(), kb[:, p0:].contiguous()
+    return unpad(launch(xp, *weights, bias0, bias1, scale, heads, p0), index)
 
 
 def cross_attention(x_cat, w_qk, b_qk, w_v, b_v, bias0, bias1, scale, heads, n0):
     """:func:`cross_attention_plain` on the CPU; ``csrc/cross_attention.cu`` on
     CUDA, with to_qk's and to_v's rows concatenated here into the
-    projection's one ``[2 * d, d]`` weight."""
+    projection's one ``[2 * d, d]`` weight. Sides off the query tile are
+    padded (:func:`on_side_tile`)."""
     if x_cat.device.type == "cpu":
         return cross_attention_plain(
             x_cat, w_qk, b_qk, w_v, b_v, bias0, bias1, scale, heads, n0
         )
+    return on_side_tile(_cross_attention_cuda, x_cat, (w_qk, b_qk, w_v, b_v), bias0, bias1, scale, heads, n0)
+
+
+def _cross_attention_cuda(x_cat, w_qk, b_qk, w_v, b_v, bias0, bias1, scale, heads, n0):
     b, n, d = x_cat.shape
     n1 = n - n0
     dev = x_cat.device
-    _check_cuda_shape(d, heads, n0, n1)
+    _check_cuda_shape(d, heads)
     f32 = torch.float32
     b_qk = b_qk.to(f32).contiguous()
     b_v = b_v.to(f32).contiguous()
@@ -200,9 +229,35 @@ def cross_attention_packed(qk0, qk1, v0, v1, bias0, bias1, scale, heads, return_
 
     The four inputs may be views into one ``[B, N + M, d]`` projection:
     the kernel takes any frame stride with rows of ``d`` contiguous elements.
+    Sides off the query tile are padded (:func:`packed_on_tile`).
     """
     if qk0.device.type == "cpu":
         return cross_attention_packed_plain(qk0, qk1, v0, v1, bias0, bias1, scale, heads, return_stats)
+    return packed_on_tile(_cross_attention_packed_cuda, qk0, qk1, v0, v1, bias0, bias1, scale, heads,
+                          return_stats)
+
+
+def packed_on_tile(launch, qk0, qk1, v0, v1, bias0, bias1, scale, heads, return_stats=False):
+    """``launch(qk0, qk1, v0, v1, bias0, bias1, scale, heads, return_stats)``
+    on each side padded at its end to the 128-token query tile (zero tokens,
+    keys at ``padding.PAD_BIAS``, so a padded query is invalid and adds to
+    no statistic), cut back to the real tokens: the route of
+    :func:`cross_attention_packed` on CUDA (the CPU tests give the plain
+    version as ``launch``). A side on the tile is passed as it is, views
+    included."""
+    n, m = qk0.shape[1], qk1.shape[1]
+    _check_sides(n, m)
+    pn, pm = round_up(n, KERNEL_QUERY_TILE), round_up(m, KERNEL_QUERY_TILE)
+    qk0, v0, qk1, v1 = pad_end(qk0, pn), pad_end(v0, pn), pad_end(qk1, pm), pad_end(v1, pm)
+    out = launch(qk0, qk1, v0, v1, pad_end(bias0, pn, PAD_BIAS), pad_end(bias1, pm, PAD_BIAS), scale, heads,
+                 return_stats)
+    if (pn, pm) == (n, m):
+        return out
+    cut = (n, m, n, m)
+    return tuple(t[:, :k] for t, k in zip(out, cut))
+
+
+def _cross_attention_packed_cuda(qk0, qk1, v0, v1, bias0, bias1, scale, heads, return_stats):
     b, n, d = qk0.shape
     m = qk1.shape[1]
     dev = qk0.device
@@ -214,11 +269,6 @@ def cross_attention_packed(qk0, qk1, v0, v1, bias0, bias1, scale, heads, return_
         raise ValueError(
             f"CUDA cross-attention is built for d={KERNEL_D} and head_dim="
             f"{KERNEL_HEAD_DIM}; got d={d}, heads={heads}"
-        )
-    if n <= 0 or m <= 0 or n % KERNEL_QUERY_TILE or m % KERNEL_QUERY_TILE:
-        raise ValueError(
-            f"CUDA cross-attention needs both sides a positive multiple of "
-            f"{KERNEL_QUERY_TILE} tokens; got {n} and {m}"
         )
     for name, t, rows in (("qk0", qk0, n), ("qk1", qk1, m), ("v0", v0, n), ("v1", v1, m)):
         if t.device != dev or t.dtype != dt or tuple(t.shape) != (b, rows, d):

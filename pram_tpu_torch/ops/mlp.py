@@ -15,6 +15,9 @@ column (``ops/quant.py:quant_linear``, once per model), activations per row;
 a CPU tensor takes :func:`residual_mlp_int8_plain`, a CUDA tensor launches
 ``csrc/mlp_int8.cu`` (the s8 instance of the same tile) or raises. :func:`fused_mlp_int8_supported` is the JAX
 package's gate, copied as it is.
+
+Token counts off the kernels' 32-token tile are padded inside the CUDA
+wrappers with zero rows, which are sliced off (``ops/padding.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from pram_tpu_torch._build import check_status, check_tensor, library, ptr, stream_of
+from pram_tpu_torch.ops.padding import on_row_tile
 from pram_tpu_torch.ops.quant import int_matmul, quant_rows
 
 LAUNCHES = {"residual_mlp": 0, "residual_mlp_int8": 0}
@@ -48,9 +52,22 @@ def residual_mlp_plain(x, msg, wp, bp, w0, b0, ln_w, ln_b, w3, b3, eps=1e-6):
 
 
 def residual_mlp(x, msg, wp, bp, w0, b0, ln_w, ln_b, w3, b3, eps=1e-6):
-    """:func:`residual_mlp_plain` on the CPU; ``csrc/mlp.cu`` on CUDA."""
+    """:func:`residual_mlp_plain` on the CPU; ``csrc/mlp.cu`` on CUDA, the
+    tokens padded to the 32-token tile (:func:`mlp_on_token_tile`)."""
     if x.device.type == "cpu":
         return residual_mlp_plain(x, msg, wp, bp, w0, b0, ln_w, ln_b, w3, b3, eps)
+    return mlp_on_token_tile(_residual_mlp_cuda, x, msg, (wp, bp, w0, b0, ln_w, ln_b, w3, b3), eps)
+
+
+def mlp_on_token_tile(launch, x, msg, weights, eps=1e-6):
+    """``launch(x, msg, *weights, eps=eps)`` on the tokens of x and msg
+    flattened and padded with zero rows to a multiple of 32, cut back to x's
+    shape: the route of :func:`residual_mlp` and :func:`residual_mlp_int8`
+    on CUDA (the CPU tests give the plain versions as ``launch``)."""
+    return on_row_tile(lambda x2, m2: launch(x2, m2, *weights, eps=eps), KERNEL_TOKEN_TILE, x, msg)
+
+
+def _residual_mlp_cuda(x, msg, wp, bp, w0, b0, ln_w, ln_b, w3, b3, eps=1e-6):
     dev = x.device
     d = x.shape[-1]
     tokens = x.numel() // d
@@ -59,8 +76,6 @@ def residual_mlp(x, msg, wp, bp, w0, b0, ln_w, ln_b, w3, b3, eps=1e-6):
             f"CUDA residual MLP is built for d={KERNEL_D}, hidden={KERNEL_HIDDEN}; "
             f"got d={d}, hidden={w0.shape[0]}"
         )
-    if tokens % KERNEL_TOKEN_TILE:
-        raise ValueError(f"CUDA residual MLP needs tokens % {KERNEL_TOKEN_TILE} == 0")
     dt = x.dtype if x.dtype == torch.float32 else torch.bfloat16
     f32 = [t.to(torch.float32).contiguous() for t in (bp, b0, ln_w, ln_b, b3)]
     bp, b0, ln_w, ln_b, b3 = f32
@@ -137,9 +152,15 @@ def residual_mlp_int8_plain(x, msg, wpq, wps, bp, w0q, w0s, b0, ln_w, ln_b, w3q,
 
 
 def residual_mlp_int8(x, msg, wpq, wps, bp, w0q, w0s, b0, ln_w, ln_b, w3q, w3s, b3, eps=1e-6):
-    """:func:`residual_mlp_int8_plain` on the CPU; ``csrc/mlp_int8.cu`` on CUDA (bf16)."""
+    """:func:`residual_mlp_int8_plain` on the CPU; ``csrc/mlp_int8.cu`` on CUDA
+    (bf16), the tokens padded to the 32-token tile (:func:`mlp_on_token_tile`)."""
     if x.device.type == "cpu":
         return residual_mlp_int8_plain(x, msg, wpq, wps, bp, w0q, w0s, b0, ln_w, ln_b, w3q, w3s, b3, eps)
+    return mlp_on_token_tile(_residual_mlp_int8_cuda, x, msg,
+                             (wpq, wps, bp, w0q, w0s, b0, ln_w, ln_b, w3q, w3s, b3), eps)
+
+
+def _residual_mlp_int8_cuda(x, msg, wpq, wps, bp, w0q, w0s, b0, ln_w, ln_b, w3q, w3s, b3, eps=1e-6):
     dev = x.device
     d = x.shape[-1]
     tokens = x.numel() // d
@@ -148,8 +169,6 @@ def residual_mlp_int8(x, msg, wpq, wps, bp, w0q, w0s, b0, ln_w, ln_b, w3q, w3s, 
             f"CUDA int8 residual MLP is built for d={KERNEL_D}, hidden={KERNEL_HIDDEN}; "
             f"got d={d}, hidden={w0q.shape[0]}"
         )
-    if tokens % KERNEL_TOKEN_TILE:
-        raise ValueError(f"CUDA int8 residual MLP needs tokens % {KERNEL_TOKEN_TILE} == 0")
     vecs = [t.to(torch.float32).contiguous() for t in (wps, bp, w0s, b0, ln_w, ln_b, w3s, b3)]
     wps, bp, w0s, b0, ln_w, ln_b, w3s, b3 = vecs
     bf16, i8, f32 = torch.bfloat16, torch.int8, torch.float32

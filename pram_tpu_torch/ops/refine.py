@@ -4,7 +4,11 @@ refine_projection_core).
 
 :func:`refine_nn` replaces ``pram_tpu/ops/refine_pallas.py:refine_nn_pallas``,
 batched over problems: a CPU tensor takes :func:`refine_nn_plain`, a CUDA
-tensor launches ``csrc/refine.cu`` or raises.
+tensor launches ``csrc/refine.cu`` or raises. Query and point counts off
+the kernel's 64 are padded inside the CUDA wrapper
+(:func:`refine_on_tile`): padded queries are sliced off, and the kernel
+skips the points from the real count on, so a padded point never enters
+the top-2.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import ctypes
 import torch
 
 from pram_tpu_torch._build import check_status, check_tensor, library, ptr, stream_of
+from pram_tpu_torch.ops.padding import pad_end, round_up
 
 LAUNCHES = {"refine_nn": 0}
 
@@ -23,20 +28,24 @@ KERNEL_QUERY_TILE = 64
 KERNEL_POINT_TILE = 64
 
 
-def refine_nn_plain(descs, pdesc, kpts, uv, in_img, qmask, gate_radius, ratio):
+def refine_nn_plain(descs, pdesc, kpts, uv, in_img, qmask, gate_radius, ratio, n_points=None):
     """``(nn_idx int64 [B, N], d1 f32 [B, N], keep bool [B, N])``.
 
     descs ``[B, N, D]``, pdesc ``[B, P, D]`` (similarity accumulated in f32);
     kpts ``[B, N, 2]``, uv ``[B, P, 2]``; in_img ``[B, P]``, qmask ``[B, N]``
     bool. ``dist = sqrt(max(2 - 2 sim + 1e-6, 0))``, + 100 where the point
     projects ``gate_radius`` or further from the keypoint or outside the
-    image; ``keep = d1 / max(d2, 1e-9) <= ratio & d1 < 100 & qmask``.
+    image; ``keep = d1 / max(d2, 1e-9) <= ratio & d1 < 100 & qmask``. With
+    ``n_points`` the points from that index on are padding and never chosen
+    (the kernel's real point count).
     """
     sim = descs.float() @ pdesc.float().transpose(-1, -2)  # [B, N, P]
     dist = torch.sqrt(torch.clamp(2.0 - 2.0 * sim + 1e-6, min=0.0))
     proj_err = torch.linalg.norm(kpts[:, :, None, :] - uv[:, None], dim=-1)
     gate = (proj_err < gate_radius) & in_img[:, None]
     dist = torch.where(gate, dist, dist + 100.0)
+    if n_points is not None:
+        dist[..., n_points:] = float("inf")
     # top-2 by min/argmin and a masked second min, as the TPU kernel
     d1, nn_idx = dist.min(dim=-1)
     cols = torch.arange(dist.shape[-1], device=dist.device)
@@ -46,18 +55,33 @@ def refine_nn_plain(descs, pdesc, kpts, uv, in_img, qmask, gate_radius, ratio):
 
 
 def refine_nn(descs, pdesc, kpts, uv, in_img, qmask, gate_radius, ratio):
-    """:func:`refine_nn_plain` on the CPU; ``csrc/refine.cu`` on CUDA."""
+    """:func:`refine_nn_plain` on the CPU; ``csrc/refine.cu`` on CUDA, the
+    queries and points padded to the kernel's tiles (:func:`refine_on_tile`)."""
     if descs.device.type == "cpu":
         return refine_nn_plain(descs, pdesc, kpts, uv, in_img, qmask, gate_radius, ratio)
+    return refine_on_tile(_refine_nn_cuda, descs, pdesc, kpts, uv, in_img, qmask, gate_radius, ratio)
+
+
+def refine_on_tile(launch, descs, pdesc, kpts, uv, in_img, qmask, gate_radius, ratio):
+    """``launch(descs, pdesc, kpts, uv, in_img, qmask, gate_radius, ratio,
+    n_points)`` on the queries padded to 64 (zero descriptors and keypoints,
+    qmask false) and the points padded to 64 (zero descriptors and uv,
+    in_img false), ``n_points`` the real point count, cut back to the real
+    queries: the route of :func:`refine_nn` on CUDA (the CPU tests give
+    :func:`refine_nn_plain` as ``launch``)."""
+    n, p = descs.shape[1], pdesc.shape[1]
+    pn, pp = round_up(n, KERNEL_QUERY_TILE), round_up(p, KERNEL_POINT_TILE)
+    out = launch(pad_end(descs, pn), pad_end(pdesc, pp), pad_end(kpts, pn), pad_end(uv, pp),
+                 pad_end(in_img, pp, False), pad_end(qmask, pn, False), gate_radius, ratio, p)
+    return out if pn == n else tuple(t[:, :n] for t in out)
+
+
+def _refine_nn_cuda(descs, pdesc, kpts, uv, in_img, qmask, gate_radius, ratio, n_points):
     b, n, d = descs.shape
     p = pdesc.shape[1]
     dev = descs.device
-    if d != KERNEL_DESC_DIM or n % KERNEL_QUERY_TILE or p % KERNEL_POINT_TILE:
-        raise ValueError(
-            f"CUDA refinement NN is built for {KERNEL_DESC_DIM}-d descriptors, "
-            f"queries a multiple of {KERNEL_QUERY_TILE} and points a multiple of "
-            f"{KERNEL_POINT_TILE}; got d={d}, N={n}, P={p}"
-        )
+    if d != KERNEL_DESC_DIM:
+        raise ValueError(f"CUDA refinement NN is built for {KERNEL_DESC_DIM}-d descriptors; got d={d}")
     bf, f32, u8 = torch.bfloat16, torch.float32, torch.uint8
     check_tensor(descs, "descs", (b, n, d), bf, dev)
     check_tensor(pdesc, "pdesc", (b, p, d), bf, dev)
@@ -76,7 +100,7 @@ def refine_nn(descs, pdesc, kpts, uv, in_img, qmask, gate_radius, ratio):
         library().pram_refine_nn(
             ptr(descs), ptr(pdesc), ptr(kpts), ptr(uv), ptr(in_img.view(u8)),
             ptr(qmask.view(u8)), ctypes.c_float(gate_radius), ctypes.c_float(ratio),
-            ptr(nn_idx), ptr(d1), ptr(keep), b, n, p, stream_of(dev),
+            ptr(nn_idx), ptr(d1), ptr(keep), b, n, p, n_points, stream_of(dev),
         ),
         "pram_refine_nn",
     )

@@ -24,15 +24,18 @@ from typing import Optional, Tuple
 
 import torch
 
-from pram_tpu_torch._build import check_status, check_tensor, library, ptr, stream_of
+from pram_tpu_torch._build import check_status, check_tensor, library, ptr, ptr_or_null, stream_of
 
-LAUNCHES = {"sinkhorn": 0}
+# "sinkhorn": calls of the cluster instance; "sinkhorn_wide":
+# of the wide one (the plan in device memory), which GML takes past 1535
+# frame tokens
+LAUNCHES = {"sinkhorn": 0, "sinkhorn_wide": 0}
 # (device index, n, m) -> (cluster size, clusters the card places at once)
-# of the instance that takes [n, m] problems; (0, 0): the streaming one
+# of the instance that takes [n, m] problems; (WIDE, 0): the wide one
 CLUSTERS = {}
+WIDE = -1
 
 _EPS = 1e-8
-KERNEL_MAX_COLS = 32 * 48  # M + 1 the streaming CUDA instance holds per row
 
 
 def _augment_with_dustbin(sim: torch.Tensor, dustbin) -> torch.Tensor:
@@ -116,10 +119,11 @@ def instance(n: int, m: int, device) -> Tuple[int, int]:
     memory (m + 1 <= 1152 and ceil((n + 1) / 16) rows of m + 1 floats, with
     v and the exchange's scratch, within 227 KB a block: n <= 863 at m =
     1024; GML's 512 x 1024 takes 141 KB) and the card places one, else the
-    smallest cluster whose rows fit and that it places; ``(0, 0)`` for the
-    streaming instance, which takes every other shape up to m + 1 = 1536.
-    Asked of the card (cudaOccupancyMaxActiveClusters) once a shape and
-    kept in :data:`CLUSTERS`."""
+    smallest cluster whose rows fit and that it places; ``(WIDE, 0)`` for
+    the wide instance, which takes every other shape (the plan in device
+    memory). Asked of the
+    card (cudaOccupancyMaxActiveClusters) once a shape and kept in
+    :data:`CLUSTERS`."""
     dev = torch.device(device)
     key = (dev.index if dev.index is not None else torch.cuda.current_device(), n, m)
     if key not in CLUSTERS:
@@ -133,19 +137,33 @@ def instance(n: int, m: int, device) -> Tuple[int, int]:
     return CLUSTERS[key]
 
 
+def _check_fits(n_bytes: int, dev: torch.device, what: str) -> None:
+    """Raise unless ``n_bytes`` more fit the card: its free memory and what
+    PyTorch's caching allocator holds unused."""
+    free, _ = torch.cuda.mem_get_info(dev)
+    spare = free + torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    if n_bytes > spare:
+        raise ValueError(f"{what} needs {n_bytes / 2**30:.2f} GiB; the card has {spare / 2**30:.2f} GiB to spare")
+
+
 def _launch(sim: torch.Tensor, dustbin: torch.Tensor, num_iters: int, mask0, mask1) -> torch.Tensor:
-    """One launch of ``csrc/sinkhorn.cu`` on ``sim``'s card. The instance is
-    chosen by shape before the launch (:func:`instance`): the cluster
+    """One call of ``csrc/sinkhorn.cu`` on ``sim``'s card. The instance is
+    chosen by shape before the call (:func:`instance`): the cluster
     instance, which keeps the plan in a 16-block cluster's shared memory,
-    for every shape whose rows fit it; the streaming instance, which holds
-    at most 1536 columns (M + 1) and any number of rows, for the others. A
-    failed launch raises."""
+    for every shape whose rows fit it; the wide instance, which keeps the
+    plan in the output and iterates the scaling vectors (2 ``num_iters`` +
+    1 launches), for the rest. A failed launch
+    raises, and so does a wide problem that does not fit the card's
+    memory."""
     b, n, m = sim.shape
     dev = sim.device
     f32 = torch.float32
-    if m + 1 > KERNEL_MAX_COLS:
-        raise ValueError(f"CUDA Sinkhorn holds at most {KERNEL_MAX_COLS} columns, got {m + 1}")
     cluster, _ = instance(n, m, dev)
+    work = None
+    if cluster == WIDE:
+        scratch = b * (n + m + 2)
+        _check_fits(4 * (b * (n + 1) * (m + 1) + scratch), dev, f"the Sinkhorn plan of {b} x {n} x {m}")
+        work = torch.empty(scratch, dtype=f32, device=dev)
     check_tensor(sim, "sim", (b, n, m), f32, dev)
     r, c = marginals(b, n, m, mask0, mask1, f32, dev)
     check_tensor(r, "row marginals (mask0)", (b, n + 1), f32, dev)
@@ -155,11 +173,11 @@ def _launch(sim: torch.Tensor, dustbin: torch.Tensor, num_iters: int, mask0, mas
     check_status(
         library().pram_sinkhorn(
             ptr(sim), ptr(r), ptr(c), ptr(bin_), ptr(out), b, n, m, num_iters, cluster,
-            stream_of(dev),
+            ptr_or_null(work), stream_of(dev),
         ),
         "pram_sinkhorn",
     )
-    LAUNCHES["sinkhorn"] += 1
+    LAUNCHES["sinkhorn_wide" if cluster == WIDE else "sinkhorn"] += 1
     return out
 
 

@@ -36,6 +36,9 @@ from pram_tpu.engine.matching import make_adagml_match_fn as jax_make_adagml_mat
 from pram_tpu.geometry.camera import Camera as JaxCamera
 from pram_tpu.maps.device import to_device as jax_to_device
 from pram_tpu.models import adagml as jada
+from pram_tpu.models.gml import GML as JaxGML
+from pram_tpu.models.gml import GMLConfig as JaxGMLConfig
+from pram_tpu.ops.matching import mutual_matches as jax_mutual_matches
 from pram_tpu_torch.engine.localizer import LocConfig, Localizer, normalize_kpts_like_reference
 from pram_tpu_torch.engine.matching import make_adagml_match_fn
 from pram_tpu_torch.geometry.camera import Camera
@@ -43,7 +46,9 @@ from pram_tpu_torch.geometry.rotations import compute_pose_error, qvec2rotmat
 from pram_tpu_torch.maps.device import to_device
 from pram_tpu_torch.maps.synthetic import make_synthetic_scene
 from pram_tpu_torch.models.adagml import AdaGMLConfig, adagml_batched_adaptive_apply
-from pram_tpu_torch.models.convert import load_adagml
+from pram_tpu_torch.models.convert import gml_state_dict, load_adagml
+from pram_tpu_torch.models.gml import GML, GMLConfig
+from pram_tpu_torch.ops.matching import mutual_matches
 
 WEIGHTS = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -95,6 +100,38 @@ def test_adagml_at_the_aachen_shape_matches_pram_tpu(aachen):
     np.testing.assert_allclose(out["plan"].numpy(), np.asarray(jout["plan"]), rtol=5e-4, atol=5e-5)
     assert int(out["stop_layer"][0]) < 8  # the trained heads stop early
     assert out["mask0"].sum() < m0.sum()  # and prune
+
+
+def test_gml_at_the_aachen_frame_width_matches_pram_tpu(aachen):
+    """GML (2 layers, JAX-initialised params carried across) on 128 query
+    keypoints of query 0 against frame 0 of the Aachen map, 2048 tokens
+    wide: the frame width that takes kernel 6's wide instance on the card
+    (m + 1 > 1536), where the JAX GML takes XLA's Sinkhorn
+    (pram_tpu/models/gml.py:43,116). In f32: the plan within 2e-5 and 1e-6
+    of each entry (the dustbin corner holds ~10^3, whose f32 sums round
+    ~3e-5 apart), the mutual matches exact (as tests/test_torch_gml.py
+    holds 2 random layers)."""
+    scene, q, _, _ = aachen
+    fi = 0
+    size = (torch.tensor(float(W)), torch.tensor(float(H)))
+    d0 = q["descriptors"][:1, :128]
+    d1 = scene.map.point_desc[np.clip(scene.map.frame_point_idx[fi], 0, None)][None].astype(np.float32)
+    nk0 = normalize_kpts_like_reference(T(q["keypoints"][:1, :128]), *size).numpy()
+    nk1 = normalize_kpts_like_reference(T(scene.map.frame_kp_uv[fi][None]).float(), *size).numpy()
+    m0, m1 = q["mask"][:1, :128], scene.map.frame_kp_mask[fi][None].astype(bool)
+    inputs = (d0, d1, nk0, nk1, m0, m1)
+    assert d1.shape[1] == 2048 and d1.shape[1] + 1 > 1536
+    jm = JaxGML(JaxGMLConfig(n_layers=2))
+    variables = jax.jit(jm.init)(jax.random.PRNGKey(5), *(jnp.asarray(a[:, :8]) for a in inputs))
+    ref = np.asarray(jax.jit(jm.apply)(variables, *(jnp.asarray(a) for a in inputs))["plan"])
+    tm = GML(GMLConfig(n_layers=2))
+    tm.load_state_dict(gml_state_dict(variables["params"], 2), strict=True)
+    with torch.no_grad():
+        plan = tm(*map(T, inputs))["plan"]
+    assert plan.shape == (1, 129, 2049)
+    np.testing.assert_allclose(plan.numpy(), ref, rtol=1e-6, atol=2e-5)
+    np.testing.assert_array_equal(mutual_matches(plan, 0.01).matches0.numpy(),
+                                  np.asarray(jax_mutual_matches(jnp.asarray(ref), 0.01).matches0))
 
 
 def _precision(q, kpt_point_idx, kpt_xyz):

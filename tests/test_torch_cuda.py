@@ -213,19 +213,20 @@ def test_sinkhorn_kernel(dev, b, n, m):
 def test_sinkhorn_kernel_instances(dev, b, n, m, clustered):
     """GML's shape takes the cluster instance (16 blocks a problem), and so
     does 70 x 301 (m % 4 != 0: the similarity read without 16-byte
-    copies); 600 x 1500 (m + 1 > 1152) takes the streaming one. Either
+    copies); 600 x 1500 (m + 1 > 1152) takes the wide one. Either
     gives the same bits on two launches."""
     size, active = sinkhorn.instance(n, m, dev)
-    assert (size, active > 0) == ((16, True) if clustered else (0, False))
+    assert (size, active > 0) == ((16, True) if clustered else (sinkhorn.WIDE, False))
     g = torch.Generator().manual_seed(m)
     sim = _rand(g, b, n, m, scale=3.0).to(dev)
     m0 = (torch.rand(b, n, generator=g) > 0.1).to(dev)
     m1 = (torch.rand(b, m, generator=g) > 0.4).to(dev)
     args = (sim, torch.tensor(0.9, device=dev), 20, m0, m1)
-    before = sinkhorn.LAUNCHES["sinkhorn"]
+    key = "sinkhorn" if clustered else "sinkhorn_wide"
+    before = sinkhorn.LAUNCHES[key]
     got = sinkhorn.sinkhorn(*args)
     torch.cuda.synchronize()
-    assert sinkhorn.LAUNCHES["sinkhorn"] == before + 1
+    assert sinkhorn.LAUNCHES[key] == before + 1
     ref = sinkhorn.sinkhorn_matching(*args)
     assert (got[:, :n, :m] - ref[:, :n, :m]).abs().max().item() <= 1e-4
     for a, r in ((got[:, n, :], ref[:, n, :]), (got[:, :, m], ref[:, :, m])):
@@ -491,11 +492,6 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     kb = torch.zeros(1, 128, device=dev)
     with pytest.raises(ValueError, match="dtype"):
         attention.self_attention(x, w, torch.zeros(768, device=dev), cs, cs, kb, 0.125, 4)
-    with pytest.raises(ValueError, match="N %"):
-        attention.self_attention(
-            x[:, :100].to(torch.bfloat16).contiguous(), w, torch.zeros(768, device=dev),
-            cs[:, :100].contiguous(), cs[:, :100].contiguous(), kb[:, :100].contiguous(), 0.125, 4,
-        )
     # a key bias off the 16-byte grid (TMA): a contiguous view one float in
     xb = x.to(torch.bfloat16)
     kb_off = torch.zeros(1, 129, device=dev)[:, 1:]
@@ -507,14 +503,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     xc = torch.zeros(1, 256, 256, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="aligned"):
         cross_attention.cross_attention(xc, wc, bc, wc, bc, b0, kb_off, 0.125, 4, 128)
-    with pytest.raises(ValueError, match="multiple"):  # sides of 100 and 156 tokens
-        cross_attention.cross_attention(xc, wc, bc, wc, bc, b0[:, :100].contiguous(),
-                                        torch.zeros(1, 156, device=dev), 0.125, 4, 100)
-    # the projection: tokens not a multiple of 64, n_out not of 128, cos of
-    # the wrong shape, x off the 16-byte grid
-    with pytest.raises(ValueError, match="tokens % 64"):
-        attention.project(xb[:, :100].contiguous(), w, torch.zeros(768, device=dev))
-    with pytest.raises(ValueError, match="tokens % 64"):
+    with pytest.raises(ValueError, match="non-empty"):
+        cross_attention.cross_attention(xc, wc, bc, wc, bc, b0[:, :0], kb, 0.125, 4, 0)
+    # the projection: n_out not a multiple of 128, cos of the wrong shape, x
+    # off the 16-byte grid (token counts off 64 are padded)
+    with pytest.raises(ValueError, match="multiples of 128"):
         attention.project(xb, w[:704].contiguous(), torch.zeros(704, device=dev))
     with pytest.raises(ValueError, match="shape"):
         attention.project(xb, w, torch.zeros(768, device=dev), cs[:, :64], cs[:, :64], rotary_cols=512)
@@ -790,14 +783,13 @@ def test_packed_attention_wrappers_refuse_what_the_kernels_do_not_take(dev):
     cs = torch.zeros(1, 200, 64, device=dev)
     kb = torch.zeros(1, 200, device=dev)
     qkv = torch.zeros(1, 200, 768, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="N %"):
-        attention_qkv.self_attention_qkv(qkv, cs, cs, kb, 0.125, 4)
     with pytest.raises(ValueError, match="bf16 or f32"):
         attention_qkv.self_attention_qkv(qkv[:, :128].half(), cs[:, :128], cs[:, :128], kb[:, :128], 0.125, 4)
+    with pytest.raises(ValueError, match="at most 8 sides"):
+        attention_qkv.self_attention_qkv(qkv, cs, cs, kb, 0.125, 4, splits=(25,) * 8 + (0,))
     qk = torch.zeros(1, 256, 256, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiple"):
-        cross_attention.cross_attention_packed(qk[:, :100], qk[:, 100:], qk[:, :100], qk[:, 100:],
-                                               kb[:, :100], kb[:, :156], 0.125, 4)
+    with pytest.raises(ValueError, match="non-empty"):
+        cross_attention.cross_attention_packed(qk[:, :0], qk, qk[:, :0], qk, kb[:, :0], kb[:, :156], 0.125, 4)
     kb256 = torch.zeros(1, 256, device=dev)
     with pytest.raises(ValueError, match="rows"):  # a transposed view
         cross_attention.cross_attention_packed(qk.transpose(1, 2), qk[:, :128], qk, qk[:, :128],
@@ -1082,14 +1074,12 @@ def test_projection_int8_kernel(dev, b, n, epilogue):
 
 
 def test_projection_int8_wrapper_refuses_what_the_pass_does_not_take(dev):
-    """Tokens not a multiple of 64, column counts off the 256-column slice,
-    float weights, cos of the wrong shape: raised before any launch."""
+    """Column counts off the 256-column slice, float weights, cos of the
+    wrong shape: raised before any launch (token counts off 64 are padded)."""
     g = torch.Generator().manual_seed(3)
     x, cos, sin = _attn_inputs(g, 1, 128, dev)
     wq, ws = _i8_linear(g, 768, 256, dev)
     bias = torch.zeros(768, device=dev)
-    with pytest.raises(ValueError, match="tokens % 64"):
-        attention.project_int8(x[:, :100].contiguous(), wq, ws, bias)
     with pytest.raises(ValueError, match="multiples of 256"):
         attention.project_int8(x, wq[:640].contiguous(), ws[:640].contiguous(), bias[:640])
     with pytest.raises(ValueError, match="multiples of 256"):
@@ -1316,3 +1306,145 @@ def test_gml_train_step_launches(dev):
             "self_attention_bwd": layers, "cross_attention_bwd": layers, "residual_mlp_bwd": 2 * layers}
     assert {k: got.get(k, 0) for k in want} == want, got
     assert torch.isfinite(loss)
+
+
+@pytest.mark.parametrize("b,n,m,iters", [(2, 200, 1600, 20), (1, 4096, 2048, 20), (2, 64, 1700, 0),
+                                         (1, 45000, 1000, 20)])
+def test_sinkhorn_kernel_wide(dev, b, n, m, iters):
+    """Kernel 6's wide instance (the plan in device memory, a launch a
+    pass): past 1536 columns, at the Aachen GML shape, without iterations,
+    and at 45000 x 1000 (rows past any cluster's shared memory). Within the
+    tolerances of the other instances, the padded rows and columns with
+    zero mass, one counted call, the same bits on two calls."""
+    assert sinkhorn.instance(n, m, dev) == (sinkhorn.WIDE, 0)
+    g = torch.Generator().manual_seed(n + m)
+    sim = _rand(g, b, n, m, scale=3.0).to(dev)
+    m0 = (torch.rand(b, n, generator=g) > 0.1).to(dev)
+    m1 = (torch.rand(b, m, generator=g) > 0.4).to(dev)
+    args = (sim, torch.tensor(1.1, device=dev), iters, m0, m1)
+    before = dict(sinkhorn.LAUNCHES)
+    got = sinkhorn.sinkhorn(*args)
+    torch.cuda.synchronize()
+    assert sinkhorn.LAUNCHES == {**before, "sinkhorn_wide": before["sinkhorn_wide"] + 1}
+    ref = sinkhorn.sinkhorn_matching(*args)
+    assert (got[:, :n, :m] - ref[:, :n, :m]).abs().max().item() <= 1e-4
+    for a, r in ((got[:, n, :], ref[:, n, :]), (got[:, :, m], ref[:, :, m])):
+        assert ((a - r).abs() / r.abs().clamp(min=1e-6)).max().item() <= 3e-3
+    if iters:
+        assert (got[:, :n][~m0] == 0).all()
+        assert (got[:, :, :m].transpose(1, 2)[~m1] == 0).all()
+    assert torch.equal(sinkhorn.sinkhorn(*args).view(torch.int32), got.view(torch.int32))
+
+
+def test_sinkhorn_wide_refuses_what_does_not_fit(dev):
+    sim = torch.zeros(1, 1, 1, device=dev).expand(4000, 8192, 8192)  # a 1 TB plan
+    with pytest.raises(ValueError, match="GiB"):
+        sinkhorn._launch(sim, torch.tensor(1.0, device=dev), 20, None, None)
+
+
+def _padded_attention_case(g, b, sides, dev):
+    n = sum(sides)
+    x, cos, sin = _attn_inputs(g, b, n, dev)
+    mask = torch.rand(b, n, generator=g) > 0.2
+    mask[-1, : sides[0]] = False  # a fully masked side
+    return x, cos, sin, attention.mask_to_bias(mask, b, n, "cpu").to(dev)
+
+
+@pytest.mark.parametrize("b,sides", [(2, (100,)), (2, (1000, 600)), (3, (37, 128, 300))])
+def test_padded_self_attention(dev, b, sides):
+    """Kernels 1 and 17 (self), 10 and 12 on sides off the 128-token tile,
+    padded inside the wrappers: within their tolerances of the unpadded
+    plain versions, one counted launch a call, a fully masked side giving
+    the mean of its own v as the plain version does."""
+    g = torch.Generator().manual_seed(sum(sides) + b)
+    x, cos, sin, kb = _padded_attention_case(g, b, sides, dev)
+    splits = None if len(sides) == 1 else sides
+    w = _rand(g, 768, 256, scale=256**-0.5).to(dev, torch.bfloat16)
+    bias = _rand(g, 768, scale=0.1).to(dev)
+    args = (cos, sin, kb, 64**-0.5, 4)
+    before = dict(attention.LAUNCHES)
+    got = attention.self_attention(x, w, bias, *args, splits=splits)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES["self_attention"] == before["self_attention"] + 1
+    assert got.shape == x.shape
+    assert _rel_err(got, attention.self_attention_plain(x, w, bias, *args, splits=splits)) <= 0.02
+    wq, ws = _i8_linear(g, 768, 256, dev)
+    got = attention.self_attention_int8(x, wq, ws, bias, *args, splits=splits)
+    assert _rel_err(got, attention.self_attention_int8_plain(x, wq, ws, bias, *args, splits=splits)) <= 0.02
+    qkv = _rand(g, b, sum(sides), 768).to(dev, torch.bfloat16)
+    msg, stat = attention_qkv.self_attention_qkv(qkv, *args, splits=splits, return_stats=True)
+    ref_msg, ref_stat = attention_qkv.self_attention_qkv_plain(qkv, *args, splits=splits, return_stats=True)
+    assert _rel_err(msg, ref_msg) <= 0.02 and _rel_err(stat, ref_stat) <= 1e-3
+    # the same for the f32 instance: statistics within 1e-4
+    msg32, stat32 = attention_qkv.self_attention_qkv(qkv.float(), *args, splits=splits, return_stats=True)
+    ref32 = attention_qkv.self_attention_qkv_plain(qkv.float(), *args, splits=splits, return_stats=True)
+    assert _rel_err(msg32, ref32[0]) <= 1e-4 and _rel_err(stat32, ref32[1]) <= 1e-4
+
+
+@pytest.mark.parametrize("b,n0,n1", [(2, 100, 156), (2, 1000, 2048), (2, 4096, 1000)])
+def test_padded_cross_attention(dev, b, n0, n1):
+    """Kernels 5, 17 (cross) and 11 on sides off the tile, padded inside the
+    wrappers, against the unpadded plain versions."""
+    g = torch.Generator().manual_seed(n0 * 3 + n1)
+    x, _, _ = _attn_inputs(g, b, n0 + n1, dev)
+    b0 = attention.mask_to_bias(torch.rand(b, n0, generator=g) > 0.1, b, n0, "cpu").to(dev)
+    b1 = attention.mask_to_bias(_masks(g, b, n1, 0.7), b, n1, "cpu").to(dev)
+    w = [_rand(g, 256, 256, scale=1 / 16).to(dev, torch.bfloat16) for _ in range(2)]
+    bb = [_rand(g, 256, scale=0.1).to(dev) for _ in range(2)]
+    args = (w[0], bb[0], w[1], bb[1], b0, b1, 64**-0.5, 4, n0)
+    got = cross_attention.cross_attention(x, *args)
+    assert _rel_err(got, cross_attention.cross_attention_plain(x, *args)) <= 0.02
+    (q1, s1), (q2, s2) = _i8_linear(g, 256, 256, dev), _i8_linear(g, 256, 256, dev)
+    i8 = (q1, s1, bb[0], q2, s2, bb[1], b0, b1, 64**-0.5, 4, n0)
+    got = cross_attention.cross_attention_int8(x, *i8)
+    assert _rel_err(got, cross_attention.cross_attention_int8_plain(x, *i8)) <= 0.02
+    qk = _rand(g, b, n0 + n1, 256).to(dev, torch.bfloat16)
+    v = _rand(g, b, n0 + n1, 256).to(dev, torch.bfloat16)
+    pk = (qk[:, :n0], qk[:, n0:], v[:, :n0], v[:, n0:], b0, b1, 64**-0.5, 4)
+    got = cross_attention.cross_attention_packed(*pk, return_stats=True)
+    ref = cross_attention.cross_attention_packed_plain(*pk, return_stats=True)
+    for i, (a, r) in enumerate(zip(got, ref)):
+        assert a.shape == r.shape and _rel_err(a, r) <= (0.02, 1e-3)[i // 2], i
+
+
+@pytest.mark.parametrize("tokens", [1000, 4096 * 8 + 40])
+def test_padded_mlp_and_projections(dev, tokens):
+    """Kernels 2 and 16 on token counts off their 32-token tile, and the bf16
+    and s8 projection passes off their 64, padded inside the wrappers."""
+    g = torch.Generator().manual_seed(tokens)
+    args = _mlp_bf16_args(g, tokens, dev)
+    before = mlp.LAUNCHES["residual_mlp"]
+    got = mlp.residual_mlp(*args)
+    torch.cuda.synchronize()
+    assert mlp.LAUNCHES["residual_mlp"] == before + 1
+    assert _rel_err(got, mlp.residual_mlp_plain(*args)) <= 0.02
+    (wpq, wps), (w0q, w0s), (w3q, w3s) = (_i8_linear(g, o, i, dev) for o, i in ((256, 256), (512, 512), (256, 512)))
+    i8 = (args[0], args[1], wpq, wps, args[3], w0q, w0s, args[5], args[6], args[7], w3q, w3s, args[9])
+    assert _rel_err(mlp.residual_mlp_int8(*i8), mlp.residual_mlp_int8_plain(*i8)) <= 0.02
+    x, cos, sin = _attn_inputs(g, 1, tokens, dev)
+    w = _rand(g, 768, 256, scale=256**-0.5).to(dev, torch.bfloat16)
+    bias = _rand(g, 768, scale=0.1).to(dev)
+    pre = attention.project_plain(x, w, bias)
+    _check_projection(attention.project(x, w, bias, cos, sin, rotary_cols=512),
+                      attention.project_plain(x, w, bias, cos, sin, rotary_cols=512), pre, 512)
+    wq, ws = _i8_linear(g, 768, 256, dev)
+    qk, vv = attention.project_int8(x, wq, ws, bias, split=256)
+    _check_projection(torch.cat([qk, vv], -1), attention.project_int8_plain(x, wq, ws, bias))
+
+
+@pytest.mark.parametrize("b,n,p", [(2, 100, 300), (2, 1000, 2048), (1, 4096, 4000)])
+def test_padded_refine_nn(dev, b, n, p):
+    """Kernel 7 on query and point counts off its 64, padded inside the
+    wrapper; the padded points are zero descriptors at uv 0, which win every
+    row whose real points are all far or gated out unless the kernel skips
+    them: no index reaches them, and the agreement holds."""
+    g = torch.Generator().manual_seed(n + p + 5)
+    args = _refine_tie_case(g, b, n, p, dev)
+    args[1][:, :] = -args[1].abs()  # every similarity of a positive query below 0
+    args[0] = args[0].abs()
+    idx, d1, keep = refine.refine_nn(*args)
+    ridx, rd1, rkeep = refine.refine_nn_plain(*args)
+    assert idx.shape == (b, n) and int(idx.max()) < p
+    assert (idx == ridx).float().mean().item() >= 0.99
+    assert (keep == rkeep).float().mean().item() >= 0.99
+    assert (d1 - rd1).abs().max().item() <= 1e-4

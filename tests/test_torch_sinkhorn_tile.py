@@ -1,5 +1,5 @@
 """The cluster-resident Sinkhorn (csrc/sinkhorn.cu, kernel 6's cluster
-instance), mirrored in torch f32 on the CPU.
+instance) and its wide instance, mirrored in torch f32 on the CPU.
 
 One cluster of CS = 16 blocks takes a problem. Block k owns rows [k rb,
 (k + 1) rb) of the softmaxed, dustbin-augmented plan P [n + 1, m + 1], rb =
@@ -15,6 +15,13 @@ iteration:
 The plan is (P * u) * v. The sums inside a row dot are the kernel's own
 (a thread's column pairs, a warp's shuffles, the 16 warps in order); here
 torch's, so the mirror holds the decomposition, not the bits.
+
+The wide instance (every shape no cluster holds: m + 1 > 1152, or rows
+past a cluster's shared memory; GML at the Aachen shape) keeps P in
+device memory and iterates only u and v: u of the first iteration from the
+softmax pass (v = 1); each column pass sums P_ij u_i for a column over the
+rows w, w + 16, ... in order in warp w, then the 16 partials in warp order;
+each row pass takes u_i = r_i / (P_i . v + 1e-8).
 
 Tolerances (chip_smoke.py's SINKHORN_ATOL / SINKHORN_DUSTBIN_RTOL): the
 real block within 1e-4 absolute of ``ops/sinkhorn.py:sinkhorn_matching``,
@@ -129,3 +136,58 @@ def test_cluster_size_does_not_change_the_plan(cs):
     got = cluster_sinkhorn(t(sim), torch.tensor(1.0), 20, t(m0), t(m1), cs=cs).numpy()
     ref = sinkhorn_matching(t(sim), torch.tensor(1.0), 20, t(m0), t(m1)).numpy()
     _check(got, ref, 50, 90)
+
+
+WARPS = 16
+
+
+def wide_sinkhorn(sim, dustbin, num_iters=20, mask0=None, mask1=None):
+    """The wide instance's decomposition of one batch of problems."""
+    b, n, m = sim.shape
+    p = torch.softmax(_augment_with_dustbin(sim, dustbin), dim=-1)
+    r, c = marginals(b, n, m, mask0, mask1, sim.dtype, sim.device)
+    u = r / (p.sum(-1) + EPS) if num_iters else torch.ones_like(r)
+    v = torch.ones_like(c)
+    for it in range(num_iters):
+        if it > 0:
+            u = r / (torch.einsum("bnm,bm->bn", p, v) + EPS)
+        total = torch.zeros_like(v)
+        for w in range(WARPS):  # warp order
+            part = torch.zeros_like(v)
+            for i in range(w, n + 1, WARPS):  # this warp's rows in order
+                part = part + p[:, i] * u[:, i, None]
+            total = total + part
+        v = c / (total + EPS)
+    return (p * u[:, :, None]) * v[:, None, :]
+
+
+# m + 1 past the cluster instance's 1152 columns; n + 1 = 31 and 8 rows
+# leave warps without rows
+WIDE_SHAPES = [(30, 1600), (7, 1537)]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n,m", WIDE_SHAPES)
+def test_wide_decomposition_matches_plain_and_jax(masked, n, m):
+    """The wide instance's decomposition against the port's plain version
+    and the JAX package's XLA Sinkhorn (the GML default,
+    pram_tpu/models/gml.py:43,116), on the same numpy inputs."""
+    sim, m0, m1 = _inputs(2, n, m, masked, 5 * n + m)
+    t = torch.from_numpy
+    tm = (None, None) if not masked else (t(m0), t(m1))
+    jm = (None, None) if not masked else (jnp.asarray(m0), jnp.asarray(m1))
+    got = wide_sinkhorn(t(sim), torch.tensor(1.1), 20, *tm).numpy()
+    _check(got, sinkhorn_matching(t(sim), torch.tensor(1.1), 20, *tm).numpy(), n, m)
+    _check(got, np.asarray(jax_sinkhorn(jnp.asarray(sim), jnp.asarray(1.1), 20, *jm)), n, m)
+    if masked:
+        assert (got[:, :n][~m0] == 0).all()
+        assert (got[:, :, :m].transpose(0, 2, 1)[~m1] == 0).all()
+
+
+def test_wide_decomposition_without_iterations():
+    """num_iters = 0: the softmaxed plan itself (u = v = 1)."""
+    sim, _, _ = _inputs(1, 9, 1600, False, 1)
+    t = torch.from_numpy
+    got = wide_sinkhorn(t(sim), torch.tensor(1.0), 0).numpy()
+    ref = sinkhorn_matching(t(sim), torch.tensor(1.0), 0).numpy()
+    np.testing.assert_array_equal(got, ref)
