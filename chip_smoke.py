@@ -283,6 +283,34 @@ Phases, each printed with its elapsed seconds:
                 at 4000 x 2000 tokens in f32 with its masks and stop layers
                 equal to its plain path's.
 
+28. superpoint the second model family's path at full width, its models from
+                their seeded inits: the rendered world's map built on the card
+                by SuperPoint (12 reference views, 2048 keypoints of 256-d
+                descriptors each, 4096 refinement points a landmark), 32
+                noisy 480 x 640 queries at the superpoint-n4096 config (4096
+                keypoints, conf_th 0.005, NMS radius 3, border 4) in 4
+                batches of 8 -> SegNet (9 layers, d 256, the scene's class
+                count) on their 256-d cDa tokens -> GM (9 layer pairs, d 256,
+                20 Sinkhorn iterations) and, again, the mutual-NN matcher,
+                routed by ground-truth logits -> Localizer with projection
+                refinement; each matcher's run counted (kernel 9 at R = 3,
+                kernel 7's 256-d instance and kernels 3, 4 a batch; kernel 6
+                for GM), its recall and queries/s recorded; kernel 9 at R =
+                3 bit-equal to simple_nms on the 32 score maps in bf16 and
+                f32, kernel 7 at 256-d and kernel 6 on GM's plan against
+                their plain versions on the path's inputs, each timed beside
+                its bound; extraction A/B; the first 4 queries of each
+                matcher on the card machine's CPU with the card's triplets.
+29. segnet_gm_cli
+                cli.inference with network segnet (9 layers, nc113) and
+                matching_method gm (the JAX CLI's GMConfig()) on phase 22's
+                offline layout, counted, and its first 4 queries on the card
+                and with --device cpu; cli.extract_features'
+                superpoint-n4096 extractor on 4 PNG frames (counted; f32 on
+                the card against the CPU on 2), build_compressor(64) on
+                SFD2 descriptors and RetNet on SFD2 mid_features, card bf16
+                against CPU f32.
+
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Each
 kernel's row carries ``launches_cli``, its launches on phase 22's two paths,
@@ -290,7 +318,10 @@ kernel's row carries ``launches_cli``, its launches on phase 22's two paths,
 (kernel 14's ``launches`` are phase 23's), ``launches_aachen_front`` (int8,
 float), ``launches_aachen_gml``, ``launches_aachen_cli``, ``launches_shapes``
 and ``launches_online_1000``, and where the kernel ran there, its figures at
-path A's and path B's shapes (``aachen_front``, ``aachen_gml``). The row
+path A's and path B's shapes (``aachen_front``, ``aachen_gml``);
+``launches_superpoint`` (phase 28, by matcher) and ``launches_segnet_gm_cli``
+(phase 29), and for kernels 9, 7 and 6 their figures on the SuperPoint
+path (``superpoint``: R = 3, 256-d, GM's plan). The row
 ``sinkhorn_wide`` is kernel 6's wide instance, its launches path B's. Any failed
 check raises, so the script exits non-zero and prints no result. It needs a
 CUDA device and the repository beside it.
@@ -560,12 +591,12 @@ def polish_bound(P: int, N: int, cfg) -> dict:
     return dict(bound_ms=bnd, bound_by=by)
 
 
-def refine_bound(B: int, N: int, P: int) -> dict:
+def refine_bound(B: int, N: int, P: int, D: int = 128) -> dict:
     """bound_ms / bound_by of kernel 7 on B problems of N queries and P
-    points: the bf16 similarities on the tensor cores against the bytes of
-    the inputs and outputs."""
-    r_bytes = B * (N * (128 * 2 + 8 + 1) + P * (128 * 2 + 8 + 1) + N * (4 + 4 + 1))
-    bnd, by = bound_ms(r_bytes, 2.0 * B * N * P * 128, BF16_TENSOR_FLOPS)
+    points of D-d descriptors: the bf16 similarities on the tensor cores
+    against the bytes of the inputs and outputs."""
+    r_bytes = B * (N * (D * 2 + 8 + 1) + P * (D * 2 + 8 + 1) + N * (4 + 4 + 1))
+    bnd, by = bound_ms(r_bytes, 2.0 * B * N * P * D, BF16_TENSOR_FLOPS)
     return dict(bound_ms=bnd, bound_by=by)
 
 
@@ -1722,14 +1753,15 @@ def aachen_views(np, n: int, seed: int):
     return imgs, poses
 
 
-def gt_logits(np, world, kpts, mask, poses, n_class: int):
-    """Logits ``[B, N, n_class]`` that route rendered views by the ground
-    truth, as phase 11 routes its queries: +10 at the class of the world's
-    segment each keypoint lies on (0 where it lies on none), -10 elsewhere."""
+def gt_logits(np, world, kpts, mask, poses, n_class: int, cam=AACHEN_CAM):
+    """Logits ``[B, N, n_class]`` that route rendered views (taken with
+    ``cam``) by the ground truth, as phase 11 routes its queries: +10 at the
+    class of the world's segment each keypoint lies on (0 where it lies on
+    none), -10 elsewhere."""
     b, n = mask.shape
     logits = np.full((b, n, n_class), -10.0, np.float32)
     for i, (R, t) in enumerate(poses):
-        _, plane, lu, lv, ok = world.lift(kpts[i].astype(np.float64), R, t, AACHEN_CAM)
+        _, plane, lu, lv, ok = world.lift(kpts[i].astype(np.float64), R, t, cam)
         cls = np.where(ok & mask[i], world.seg_class(plane, lu, lv) + 1, 0)
         logits[i, np.arange(n), cls] = 10.0
     return logits
@@ -2591,6 +2623,477 @@ def run_shapes_phase(torch, np, dev, bf16, ada_w, ada_inputs, reset_counts, read
             "AdaGML at off-tile counts prunes or stops otherwise than its plain path")
     return dict(launches=launches, max_rel_err={k: v for k, v in checks.items()}, adagml_mask_diff=diff,
                 adagml_shape=[n0, n1])
+
+
+# ---- phases 28-29: the second model family (SuperPoint, SegNet, GM) through
+# the registry and the CLIs. SuperPoint at the superpoint-n4096 config
+# (pram_tpu/cli/extract_features.py:39-44: 4096 keypoints, conf_th 0.005,
+# NMS radius 3, border 4), 480 x 640 grayscale; every model from its seeded
+# init (no trained weights of them are in the repository)
+SP_W, SP_H = 640, 480
+SP_CAM = (500.0, 500.0, SP_W / 2, SP_H / 2)
+SP_QUERIES, SP_BATCH = 32, 8
+SP_MAP_KPTS = 2048  # a reference view's keypoints in the map (the Aachen frames' 2048)
+SP_REFINE_POINTS = 4096  # a landmark's refinement set (the Aachen scene's)
+SP_CPU_QUERIES = 4
+# kernel 7's 256-d instance against its plain version on the path's inputs:
+# nn_idx and keep equal on every query whose top-2 gap (d2 - d1) and
+# distance from the ratio test's edge (|d1 - ratio d2|) both exceed
+# REFINE_D1_ATOL, the d1 tolerance (f32 sums in another order move d1 by up
+# to ~1e-3 where d1 is small); kernel 6's plan within check_plan's
+# (and for the wide instance check_wide_plan's) bounds and its row argmax
+# equal on REFINE_AGREE of the valid rows.
+# RetNet and the compressor on the card in bf16 against the CPU in f32:
+# cosine of each output vector at least BF16_COS_MIN
+BF16_COS_MIN = 0.99
+
+
+def sp_front(torch, np, dev, model, seg, world, imgs, poses, n_class: int, kw: dict, use_nms_kernel: bool = True):
+    """SuperPoint extraction and SegNet on the card for rendered images
+    ``[B, H, W, 3]`` taken at ``poses``: (features, SegNet's prediction,
+    the Localizer's arguments routed by gt_logits)."""
+    from pram_tpu_torch.geometry.camera import Camera
+    from pram_tpu_torch.models.superpoint import extract, preprocess_image
+
+    bf16 = torch.bfloat16
+    x = preprocess_image(torch.as_tensor(imgs).to(dev)).to(bf16)
+    f = extract(model, x, use_nms_kernel=use_nms_kernel, **kw)
+    k = f["keypoints"]
+    nk = k.xy / torch.tensor([float(SP_W), float(SP_H)], device=dev) - 0.5
+    pred = seg(f["seg_descriptors"], nk, mask=k.mask)["prediction"]
+    logits = torch.from_numpy(gt_logits(np, world, k.xy.cpu().numpy(), k.mask.cpu().numpy(), poses, n_class,
+                                        SP_CAM)).to(dev)
+    b = k.mask.shape[0]
+    cam = Camera(torch.tensor([[*SP_CAM, 0.0, 0.0, 0.0, 0.0]] * b, device=dev),
+                 torch.tensor([[float(SP_W), float(SP_H)]] * b, device=dev))
+    return f, pred, (cam, k.xy, k.scores.float(), f["descriptors"], k.mask, logits)
+
+
+def to_cpu_args(args):
+    """Localizer arguments on the CPU."""
+    cam, *rest = args
+    return (type(cam)(cam.params.cpu(), cam.size.cpu()), *(t.cpu() for t in rest))
+
+
+@contextlib.contextmanager
+def recording_triplets():
+    """The RANSAC triplets the port draws, in call order."""
+    from pram_tpu_torch.geometry import pnp as gpnp
+
+    real, drawn = gpnp._sample_triplets, []
+
+    def wrapped(*a):
+        drawn.append(real(*a))
+        return drawn[-1]
+
+    gpnp._sample_triplets = wrapped
+    try:
+        yield drawn
+    finally:
+        gpnp._sample_triplets = real
+
+
+def card_vs_cpu(torch, what: str, res_g, res_c) -> dict:
+    """Require the same success flags and, where both succeed, poses within
+    SLICE_T_TOL / SLICE_R_TOL_DEG of each other."""
+    from pram_tpu_torch.geometry.rotations import compute_pose_error
+
+    both = res_g.success.cpu() & res_c.success
+    dq, dt = compute_pose_error(res_g.qvec.cpu().double(), res_g.tvec.cpu().double(), res_c.qvec.double(),
+                                res_c.tvec.double())
+    out = dict(card=res_g.success.tolist(), cpu=res_c.success.tolist(),
+               max_deg=float(dq[both].max()) if both.any() else None,
+               max_m=float(dt[both].max()) if both.any() else None)
+    log(f"{what} card vs CPU: {json.dumps(out)}")
+    require(torch.equal(res_g.success.cpu(), res_c.success), f"{what}: success differs card vs CPU")
+    require(bool((dq[both] < SLICE_R_TOL_DEG).all() and (dt[both] < SLICE_T_TOL).all()),
+            f"{what}: pose differs card vs CPU")
+    return out
+
+
+def run_superpoint_phase(torch, np, dev, bf16, build, reset_counts, read_counts) -> dict:
+    """Phase 28: SuperPoint -> SegNet -> GM (and mutual NN) -> Localizer with
+    projection refinement on the card at full width, counted; kernels 9 (R
+    = 3), 7 (256-d) and 6 at the path's shapes against their plain
+    versions; the first queries on the card machine's CPU."""
+    from pram_tpu_torch.cli.extract_features import CONFS
+    from pram_tpu_torch.engine import localizer as loc_mod
+    from pram_tpu_torch.engine.localizer import LocConfig, Localizer
+    from pram_tpu_torch.engine.matching import make_gm_match_fn, make_nn_match_fn
+    from pram_tpu_torch.engine.rendered_guard import apply_noise, extraction_agreement
+    from pram_tpu_torch.geometry.rotations import compute_pose_error
+    from pram_tpu_torch.maps.device import to_device
+    from pram_tpu_torch.maps.rendered import _rotmat2qvec_np, build_rendered_scene, query_pose
+    from pram_tpu_torch.models import gm as gm_mod
+    from pram_tpu_torch.models import superpoint as sp_mod
+    from pram_tpu_torch.models.gm import GM, GMConfig
+    from pram_tpu_torch.models.registry import build_extractor
+    from pram_tpu_torch.models.segnet import SegNet, SegNetConfig
+    from pram_tpu_torch.ops import nms, refine, sinkhorn
+
+    conf = CONFS["superpoint-n4096"]["model"]
+    kw = dict(max_keypoints=conf["max_keypoints"], conf_th=conf["conf_th"], border=4,
+              min_keypoints=conf["min_keypoints"], nms_radius=conf["nms_radius"])
+    names_all = set(read_counts())
+    out = {"kernels": {}, "paths": {}}
+    torch.manual_seed(0)
+    sp = build_extractor("superpoint").to(dev, bf16).to(memory_format=torch.channels_last).eval()
+
+    # the map: 12 rendered reference views through SuperPoint on the card
+    t_b = time.perf_counter()
+
+    def extract_np(images):
+        parts = []
+        for i in range(0, len(images), SP_BATCH):
+            x = sp_mod.preprocess_image(torch.as_tensor(images[i:i + SP_BATCH]).to(dev)).to(bf16)
+            with torch.no_grad():
+                f = sp_mod.extract(sp, x, **{**kw, "max_keypoints": SP_MAP_KPTS})
+            k = f["keypoints"]
+            parts.append((k.xy.cpu().numpy(), k.scores.float().cpu().numpy(), f["descriptors"].float().cpu().numpy(),
+                          k.mask.cpu().numpy()))
+        return tuple(np.concatenate(a) for a in zip(*parts))
+
+    rscene = build_rendered_scene(extract_np, np.random.RandomState(0), width=SP_W, height=SP_H, focal=SP_CAM[0],
+                                  n_ref=12, kp_per_ref=SP_MAP_KPTS, max_ref_points=SP_REFINE_POINTS)
+    world = rscene.world
+    n_class = int(rscene.map.seg_vrf_slot.shape[0]) + 1
+    dmap = to_device(rscene.map, dev, desc_dtype=bf16)
+    m_tok = int(dmap.frame_point_idx.shape[1])
+    rng = np.random.RandomState(11)
+    poses = [query_pose(rng) for _ in range(SP_QUERIES)]
+    imgs = np.stack([world.render(R, t, SP_CAM, SP_W, SP_H) for R, t in poses]).astype(np.float32)
+    imgs = apply_noise(imgs, np.random.RandomState(12))
+    gt_q = torch.from_numpy(np.stack([_rotmat2qvec_np(R) for R, _ in poses])).double()
+    gt_t = torch.from_numpy(np.stack([t for _, t in poses])).double()
+    log(f"superpoint map: {rscene.map.num_points} points of 256-d SuperPoint descriptors, "
+        f"{rscene.map.num_frames} frames of {m_tok} keypoints, {n_class} classes, built on the card in "
+        f"{time.perf_counter() - t_b:.1f} s; {SP_QUERIES} noisy queries rendered at {SP_W} x {SP_H}")
+
+    seg = SegNet(SegNetConfig(n_class=n_class)).to(dev, bf16).eval()
+    gm = GM(GMConfig(descriptor_dim=256)).to(dev, bf16).eval()
+    loc_cfg = LocConfig(seg_k=1, min_inliers=32, threshold=8.0, num_hypotheses=128, gn_iters=5, lo_rounds=1,
+                        do_refinement=True)
+    matchers = {"gm": make_gm_match_fn(gm, gm.config.match_threshold), "nn": make_nn_match_fn()}
+    wide = sinkhorn.instance(conf["max_keypoints"], m_tok, dev)[0] == sinkhorn.WIDE
+    plan_key = "sinkhorn_wide" if wide else "sinkhorn"
+    batches = [slice(s, s + SP_BATCH) for s in range(0, SP_QUERIES, SP_BATCH)]
+
+    def front(qi, use_nms_kernel=True):
+        return sp_front(torch, np, dev, sp, seg, world, imgs[qi], poses[qi], n_class, kw, use_nms_kernel)
+
+    for name, fn in matchers.items():
+        loc = Localizer(dmap, fn, loc_cfg)
+        reset_counts()
+        with torch.no_grad():
+            res, preds = [], []
+            for i, qi in enumerate(batches):
+                f, pred, args = front(qi)
+                preds.append(pred)
+                res.append(loc.localize_batch(torch.Generator().manual_seed(7 + i), *args))
+        torch.cuda.synchronize()
+        got = read_counts()
+        n_b = len(batches)
+        want = {"nms": n_b, "refine_nn": n_b, "ransac_score": 2 * n_b, "gn_polish": 2 * n_b}
+        if name == "gm":
+            want[plan_key] = n_b
+        log(f"superpoint path ({name}) launches ({SP_QUERIES} queries in batches of {SP_BATCH}): {got}")
+        require(got == {k: want.get(k, 0) for k in names_all},
+                f"superpoint path ({name}): launches {got}, expected {want} and no other")
+        require(all(bool(torch.isfinite(p).all()) and p.shape[-1] == n_class for p in preds),
+                "superpoint path: SegNet's prediction is not finite or not of the scene's classes")
+        qv = torch.cat([r.qvec.cpu() for r in res]).double()
+        tv = torch.cat([r.tvec.cpu() for r in res]).double()
+        ok = torch.cat([r.success.cpu() for r in res])
+        dq, dt = compute_pose_error(qv, tv, gt_q, gt_t)
+        recall = float(((dq < 5.0) & (dt < 0.05) & ok).float().mean())
+        gen = torch.Generator()
+
+        def one_batch():
+            with torch.no_grad():
+                _, _, a = front(batches[0])
+                loc.localize_batch(gen.manual_seed(7), *a)
+            torch.cuda.synchronize()
+
+        batch_s = median_s(one_batch, 3)
+        out["paths"][name] = dict(launches=got, recall=recall, n_success=int(ok.sum()), batch_ms=batch_s * 1e3,
+                                  queries_per_s=SP_BATCH / batch_s)
+        log(f"superpoint path ({name}): recall@5cm/5deg {recall:.4f} ({int(ok.sum())}/{SP_QUERIES} localized; "
+            f"seeded SuperPoint, SegNet and GM, routed by the ground truth: a record, not a gate); a batch of "
+            f"{SP_BATCH} (extraction, SegNet, matching, localization) in {batch_s * 1e3:.2f} ms (median of 3, host "
+            f"clock, synchronized) = {SP_BATCH / batch_s:.2f} queries/s")
+
+    # kernel 9 at R = 3 on SuperPoint's score maps of the 32 queries
+    with torch.no_grad():
+        x_all = sp_mod.preprocess_image(torch.as_tensor(imgs).to(dev)).to(bf16)
+        smap = torch.cat([sp(x_all[qi])["score_map"] for qi in batches])
+    r = kw["nms_radius"]
+    for tname, sm in (("bf16", smap), ("f32", smap.float())):
+        got_n, ref_n = nms.nms(sm, r), nms.simple_nms(sm, r)
+        diff = int((got_n != ref_n).sum().item())
+        log(f"nms R = {r} ({tname}, {tuple(sm.shape)}): {diff} elements differ of {ref_n.numel()}; "
+            f"{int((ref_n > 0).sum().item())} maxima survive")
+        require(diff == 0, f"nms R = {r} ({tname}) kernel is not bit-equal to its plain version")
+        require(torch.equal(nms.nms(sm, r), got_n), f"nms R = {r} ({tname}): two launches differ")
+    n_px = smap.numel()
+    nms_ops = n_px * (3 * 2 * 3 + 2 * 6 * r / 32 + 3 + 2 * 2 + 1)
+    out["kernels"]["nms"] = at_shape(torch, lambda: nms.nms(smap, r), lambda: nms.simple_nms(smap, r), 0.0,
+                                     [*smap.shape, r], bound_ms(2 * n_px * smap.element_size(), nms_ops, F32_FLOPS),
+                                     plain_iters=5)
+    smap32 = smap.float()
+    out["kernels"]["nms"].update(
+        f32_ms=cuda_ms(torch, lambda: nms.nms(smap32, r), iters=10),
+        f32_plain_ms=cuda_ms(torch, lambda: nms.simple_nms(smap32, r), iters=3, warmup=1),
+        device_ms=launch_ms(torch, lambda: nms.nms(smap, r), want=lambda k: k == "nms_kernel").get("nms_kernel"))
+    del smap32, x_all
+
+    # extraction, kernel path against plain path (bf16)
+    with torch.no_grad():
+        fa = front(batches[0])[0]
+        fb = front(batches[0], use_nms_kernel=False)[0]
+    ab = extraction_agreement(fa, fb)
+    log(f"superpoint extraction A/B (bf16, {SP_BATCH} queries, kernel 9 vs simple_nms): {json.dumps(ab)}")
+    require(ab["kpt_set_agreement"] >= AB_BF16[0] and ab["desc_cos_min"] >= AB_BF16[1],
+            f"superpoint extraction A/B below {AB_BF16}")
+    out["extraction_ab"] = ab
+    del fa, fb
+
+    # kernels 7 (256-d) and 6 on the inputs the GM path gave them (batch 0)
+    loc = Localizer(dmap, matchers["gm"], loc_cfg)
+    with torch.no_grad(), recording_first([(loc_mod, "refine_nn"), (gm_mod, "sinkhorn")]) as seen:
+        loc.localize_batch(torch.Generator().manual_seed(7), *front(batches[0])[2])
+    with torch.no_grad():
+        ra, _ = seen["refine_nn"]
+        descs, pdesc, kpts, uv, in_img, qmask, gate_r, ratio = ra
+        b, n, d = descs.shape
+        p = pdesc.shape[1]
+        require(d == 256, f"refine_nn on the superpoint path took {d}-d descriptors")
+        idx, d1, keep = refine.refine_nn(*ra)
+        ridx, rd1, rkeep = refine.refine_nn_plain(*ra)
+        sim = descs.float() @ pdesc.float().transpose(-1, -2)
+        dist = torch.sqrt(torch.clamp(2.0 - 2.0 * sim + 1e-6, min=0.0))
+        gate = (torch.linalg.norm(kpts[:, :, None, :] - uv[:, None], dim=-1) < gate_r) & in_img[:, None]
+        top2 = torch.where(gate, dist, dist + 100.0).topk(2, dim=-1, largest=False).values
+        del sim, dist, gate
+        decided = ((top2[..., 1] - top2[..., 0]) > REFINE_D1_ATOL) & \
+            ((top2[..., 0] - ratio * top2[..., 1]).abs() > REFINE_D1_ATOL)
+        bad = int(((idx != ridx) | (keep != rkeep))[decided].sum())
+        err = float((d1 - rd1).abs().max())
+        log(f"refine_nn 256-d ({b} x {n} x {p}): {int(decided.sum())} of {b * n} queries decided beyond "
+            f"{REFINE_D1_ATOL}, {bad} of them differ; all queries: nn_idx agree "
+            f"{float((idx == ridx).float().mean()):.5f}, keep {float((keep == rkeep).float().mean()):.5f}, "
+            f"d1 max abs err {err:.3e}; kept {int(keep.sum())}")
+        require(bad == 0, "refine_nn 256-d: a decided query differs from the plain version")
+        require(err <= REFINE_D1_ATOL, "refine_nn 256-d: d1 disagrees with the plain version")
+        out["kernels"]["refine_nn"] = at_shape(torch, lambda: refine.refine_nn(*ra), lambda: refine.refine_nn_plain(*ra),
+                                               err, [b, n, p, d], tuple(refine_bound(b, n, p, d).values()))
+        out["kernels"]["refine_nn"].update(decided=int(decided.sum()), queries=b * n, ptxas=ptxas_summary(build, "refine.cu"))
+        del top2, decided
+
+        (sim, dustbin, iters, sm0, sm1), _ = seen["sinkhorn"]
+        b, n, m = sim.shape
+        plan = sinkhorn.sinkhorn(sim, dustbin, iters, sm0, sm1)
+        ref = sinkhorn.sinkhorn_matching(sim, dustbin, iters, sm0, sm1)
+        if wide:
+            controls = {"plain in bf16": sinkhorn.sinkhorn_matching(sim.bfloat16(), dustbin, iters, sm0, sm1).float(),
+                        f"plain, {iters - 1} iterations": sinkhorn.sinkhorn_matching(sim, dustbin, iters - 1, sm0, sm1)}
+            err = check_wide_plan(f"{plan_key} (GM, {b} x {n + 1} x {m + 1})", plan, ref, controls, n, m)["max_abs_err"]
+            del controls
+        else:
+            err = check_plan(f"sinkhorn (GM, {b} x {n + 1} x {m + 1})", plan, ref, n, m)
+        rows_ok = sm0 if sm0 is not None else torch.ones(b, n, dtype=torch.bool, device=dev)
+        agree = float((plan[:, :n].argmax(-1) == ref[:, :n].argmax(-1))[rows_ok].float().mean())
+        log(f"{plan_key} (GM): row argmax agrees on {agree:.5f} of the {int(rows_ok.sum())} valid rows")
+        require(agree >= REFINE_AGREE, f"{plan_key} (GM): row argmax agrees on {agree:.5f} of the rows")
+        out["kernels"][plan_key] = at_shape(
+            torch, lambda: sinkhorn.sinkhorn(sim, dustbin, iters, sm0, sm1),
+            lambda: sinkhorn.sinkhorn_matching(sim, dustbin, iters, sm0, sm1), err, [b, n + 1, m + 1],
+            bound_ms(*sinkhorn_cost(b, n, m, iters), F32_FLOPS))
+        out["kernels"][plan_key]["argmax_agree"] = agree
+        del plan, ref, seen
+    for kname, k in out["kernels"].items():
+        log(f"{kname} on the superpoint path {k['shape']}: {k['ms']:.4f} ms (CUDA events), plain "
+            f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
+
+    # the first queries of each matcher on the card and on the card
+    # machine's CPU (bf16, the plain versions), the card's triplets fed to
+    # the CPU, the card's features
+    cpu_map = to_device(rscene.map, "cpu", desc_dtype=bf16)
+    sub = slice(0, SP_CPU_QUERIES)
+
+    def recording(fn, store):
+        def wrapped(*a):
+            store.append(fn(*a))
+            return store[-1]
+        return wrapped
+
+    for name in matchers:
+        t_cpu = time.perf_counter()
+        found = {"card": [], "cpu": []}
+        with torch.no_grad():
+            f, _, args = front(sub)
+            with recording_triplets() as drawn:
+                res_g = Localizer(dmap, recording(matchers[name], found["card"]), loc_cfg).localize_batch(
+                    torch.Generator().manual_seed(3), *args)
+            cpu_fn = make_nn_match_fn() if name == "nn" else make_gm_match_fn(
+                GM(GMConfig(descriptor_dim=256)).to(bf16).eval(), gm.config.match_threshold)
+            res_c = Localizer(cpu_map, recording(cpu_fn, found["cpu"]), loc_cfg).localize_batch(
+                torch.Generator().manual_seed(3), *to_cpu_args(args), triplets=drawn[0].cpu(),
+                refine_triplets=drawn[1].cpu())
+        cmp = card_vs_cpu(torch, f"superpoint path ({name}, {SP_CPU_QUERIES} queries)", res_g, res_c)
+        # the first stage's matches (a record: the flags are vacuous where
+        # a seeded model localizes nothing on either side)
+        m_card, m_cpu = found["card"][0].cpu(), found["cpu"][0]
+        valid = args[4].cpu().repeat_interleave(m_card.shape[0] // args[4].shape[0], 0)
+        cmp.update(match_agree=float((m_card == m_cpu)[valid].float().mean()),
+                   matches_card=int((m_card[valid] >= 0).sum()), matches_cpu=int((m_cpu[valid] >= 0).sum()),
+                   inliers_card=res_g.num_inliers.tolist(), inliers_cpu=res_c.num_inliers.tolist(),
+                   cpu_s=time.perf_counter() - t_cpu)
+        log(f"superpoint path ({name}) card vs CPU, first-stage matches: agree on {cmp['match_agree']:.5f} of the "
+            f"valid query keypoints, {cmp['matches_card']} vs {cmp['matches_cpu']} matches; inliers "
+            f"{cmp['inliers_card']} vs {cmp['inliers_cpu']}; the CPU side {cmp['cpu_s']:.1f} s")
+        out["paths"][name]["card_vs_cpu"] = cmp
+    del dmap, cpu_map, gm, seg, sp
+    return out
+
+
+def run_segnet_gm_cli_phase(torch, np, dev, bf16, scene, queries, reset_counts, read_counts) -> dict:
+    """Phase 29: cli.inference with network segnet and matching_method gm
+    (GMConfig(), the JAX CLI's) on phase 22's offline layout, counted, and
+    its first queries on the card and with --device cpu; the superpoint-n4096
+    extractor of cli.extract_features on rendered PNG frames, build_compressor
+    on SFD2 descriptors and RetNet on SFD2 mid_features, each against the
+    CPU."""
+    import tempfile
+
+    from pram_tpu_torch.cli import extract_features as cli_extract
+    from pram_tpu_torch.cli import inference as cli_inference
+    from pram_tpu_torch.engine import localizer as loc_mod
+    from pram_tpu_torch.engine.rendered_guard import SFD2_W, extraction_agreement
+    from pram_tpu_torch.maps.rendered import make_world
+    from pram_tpu_torch.models.convert import load_sfd2
+    from pram_tpu_torch.models.retnet import RetNet
+    from pram_tpu_torch.models.sfd2 import extract as sfd2_extract
+    from pram_tpu_torch.models.sfd2 import preprocess_image as sfd2_pre
+    from pram_tpu_torch.ops import sinkhorn
+
+    n_q = len(queries)
+    names_all = set(read_counts())
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="pram_cli_segnet_gm_") as tmp:
+        tmp = Path(tmp)
+        names = [f"query_{i:03d}.png" for i in range(n_q)]
+        top = {"network": "segnet", "feat_dim": 128, "use_mid_feature": False, "layers": 9,
+               "eval_max_keypoints": 512,
+               "localization": {"seg_k": 1, "threshold": 8.0, "min_inliers": 32, "do_refinement": True,
+                                "matching_method": "gm", "refinement_method": "projection", "with_compress": True}}
+        cfg = synthetic_layout(tmp / "offline", scene, queries, names, 112, top)
+        reset_counts()
+        report, lines = run_cli("inference (segnet + gm)", cli_inference.main, ["--config", str(cfg), "--batch",
+                                                                               str(n_q)])
+        torch.cuda.synchronize()
+        got = read_counts()
+        wide = sinkhorn.instance(512, int(scene.map.frame_point_idx.shape[1]), dev)[0] == sinkhorn.WIDE
+        plan_key = "sinkhorn_wide" if wide else "sinkhorn"
+        want = add_launches({plan_key: 1}, PNP_LAUNCHES)
+        log(f"inference CLI (segnet + gm) launches: {got}")
+        require(got == {k: want.get(k, 0) for k in names_all},
+                f"inference CLI (segnet + gm): launches {got}, expected {want} and no other")
+        require(report.n_total == n_q, "inference CLI (segnet + gm): not every query was evaluated")
+        stage = next(line for line in lines if line.startswith("stage times:"))
+        cfg4 = write_configs(tmp / "offline", "Synthetic", "scene", 112, top, config_dir=tmp / "offline_4",
+                             image_list="imglist_4.txt")
+        argv4 = ["--config", str(cfg4), "--batch", "4"]
+        # the runs' results, by side; the evaluator draws the same triplets on
+        # both from its seeded CPU generator
+        found, side = {}, ["card"]
+        real = loc_mod.Localizer.localize_batch
+
+        def recording(self, *a, **k):
+            res = real(self, *a, **k)
+            found.setdefault(side[0], []).append(res)
+            return res
+
+        loc_mod.Localizer.localize_batch = recording
+        try:
+            card4, _ = run_cli("inference (segnet + gm), 4 queries", cli_inference.main, argv4)
+            t_cpu = time.perf_counter()
+            side[0] = "cpu"
+            cpu4, _ = run_cli("inference (segnet + gm), 4 queries, --device cpu", cli_inference.main,
+                              argv4 + ["--device", "cpu"])
+        finally:
+            loc_mod.Localizer.localize_batch = real
+        cpu_s = time.perf_counter() - t_cpu
+        require(card4.failed_cases == cpu4.failed_cases, "inference CLI (segnet + gm): success flags differ card vs CPU")
+        cmp = card_vs_cpu(torch, "inference CLI (segnet + gm), 4 queries", found["card"][0], found["cpu"][0])
+        out["inference"] = dict(launches=got, n_success=report.n_success, fps=report.fps(), stage_times=stage,
+                                card_vs_cpu=dict(cmp, failed_card=card4.failed_cases, failed_cpu=cpu4.failed_cases,
+                                                 cpu_s=cpu_s))
+        log(f"inference CLI (segnet + gm) on card: {report.n_success}/{n_q} localized (seeded SegNet nc113 and "
+            f"GM: no recall figure), {report.fps():.1f} queries/s over one batch of {n_q}, {stage}; 4 queries on "
+            f"the CPU in {cpu_s:.1f} s")
+
+        # the superpoint-n4096 extractor through the CLI's builder on PNG frames
+        world = make_world(np.random.RandomState(0))
+        imgs, _, _ = rendered_path(world, 4, jumps=())
+        paths = []
+        for i, img in enumerate(imgs):
+            paths.append(tmp / f"frame_{i:03d}.png")
+            write_png(paths[-1], np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8))
+        conf = cli_extract.CONFS["superpoint-n4096"]
+        gray = np.stack([cli_extract.load_image(str(p), conf["preprocessing"]["grayscale"], None)[0] for p in paths])
+        kw = {k: conf["model"][k] for k in ("max_keypoints", "conf_th", "min_keypoints", "nms_radius")}
+        model, extract, pre = cli_extract.build_extractor(conf, None, dev)
+        reset_counts()
+        with torch.no_grad():
+            fc = extract(model, pre(torch.from_numpy(gray).to(dev)).to(model.convDb.weight.dtype), **kw)
+        torch.cuda.synchronize()
+        got_x = read_counts()
+        require(got_x == {k: (1 if k == "nms" else 0) for k in names_all},
+                f"superpoint-n4096 extractor: launches {got_x}, expected one nms")
+        model_cpu, _, _ = cli_extract.build_extractor(conf, None, "cpu")
+        with torch.no_grad():
+            f32_card = extract(model.float(), pre(torch.from_numpy(gray[:2]).to(dev)), **kw)
+            f32_cpu = extract(model_cpu, pre(torch.from_numpy(gray[:2])), **kw)
+        ab = extraction_agreement(f32_card, f32_cpu)
+        log(f"superpoint-n4096 extractor (cli.extract_features.build_extractor) on 4 PNG frames: "
+            f"{int(fc['keypoints'].mask.sum())} keypoints, launches {got_x}; card f32 vs CPU f32 on 2 frames: "
+            f"{json.dumps(ab)}")
+        require(ab["kpt_set_agreement"] >= AB_F32[0] and ab["desc_cos_min"] >= AB_F32[1],
+                f"superpoint-n4096 extractor: card vs CPU below {AB_F32}")
+        del model, model_cpu, f32_card, f32_cpu
+
+        # build_compressor(64) on SFD2 descriptors, RetNet on SFD2 mid_features
+        sfd2 = load_sfd2(SFD2_W, device=dev, dtype=bf16)
+        with torch.no_grad():
+            fs = sfd2_extract(sfd2, sfd2_pre(torch.from_numpy(imgs[:2]).to(dev)).to(bf16), max_keypoints=512,
+                              conf_th=1e-4)
+        descs = fs["descriptors"].float()
+        mid = fs["mid_features"].float()
+        comp_card = cli_extract.build_compressor(64, None, dev)
+        comp_cpu = cli_extract.build_compressor(64, None, "cpu")
+        cg, cc = comp_card(descs).float().cpu(), comp_cpu(descs.cpu())
+        m = fs["keypoints"].mask.cpu()
+        comp_cos = float((cg * cc).sum(-1)[m].min())
+        torch.manual_seed(0)
+        ret = RetNet().eval()
+        ret_card = RetNet().eval()
+        ret_card.load_state_dict(ret.state_dict())
+        ret_card = ret_card.to(dev, bf16)
+        with torch.no_grad():
+            rg = ret_card(mid.to(bf16)).float().cpu()
+            rc = ret(mid.cpu())
+        ret_cos = float((rg * rc).sum(-1).min())
+        log(f"build_compressor(64) on SFD2 descriptors ({tuple(descs.shape)}): card bf16 vs CPU f32 cosine min "
+            f"{comp_cos:.5f}; RetNet on SFD2 mid_features ({tuple(mid.shape)}) -> {tuple(rg.shape)}: card bf16 vs "
+            f"CPU f32 cosine min {ret_cos:.5f} (min {BF16_COS_MIN})")
+        require(cg.shape[-1] == 64 and comp_cos >= BF16_COS_MIN, "build_compressor: card vs CPU below the bound")
+        require(rg.shape == (2, 1024) and ret_cos >= BF16_COS_MIN, "RetNet: card vs CPU below the bound")
+        out["extractor"] = dict(launches=got_x, keypoints=int(fc["keypoints"].mask.sum()), card_vs_cpu_f32=ab)
+        out["compressor_cos_min"] = comp_cos
+        out["retnet_cos_min"] = ret_cos
+        del sfd2, ret, ret_card
+    return out
+
 
 
 def main() -> int:
@@ -4901,6 +5404,21 @@ def main() -> int:
     log(f"online CLI at --max_keypoints 1000 (phase 22's inputs): {json.dumps(cli_runs['online_1000'])}")
     phase("shapes", t)
 
+    # ---- 28. the SuperPoint path: SuperPoint -> SegNet -> GM / mutual NN -> Localizer
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    sp_path = run_superpoint_phase(torch, np, dev, bf16, _build, reset_counts, read_counts)
+    log(f"superpoint path: {json.dumps({k: v for k, v in sp_path.items() if k != 'kernels'})}")
+    phase("superpoint", t)
+
+    # ---- 29. the second family through the CLIs' builders: cli.inference with segnet + gm, the
+    # superpoint-n4096 extractor, build_compressor, RetNet
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    sg_cli = run_segnet_gm_cli_phase(torch, np, dev, bf16, scene, queries, reset_counts, read_counts)
+    log(f"segnet + gm CLI: {json.dumps(sg_cli)}")
+    phase("segnet_gm_cli", t)
+
     wide = gml_b["kernels"]["sinkhorn_wide"]
     rows["sinkhorn_wide"] = dict(
         name="sinkhorn_wide", route="cuda", source="pram_tpu_torch/csrc/sinkhorn.cu",
@@ -4914,6 +5432,10 @@ def main() -> int:
         r["launches_aachen_cli"] = gml_b["cli"]["launches"][name]
         r["launches_shapes"] = shapes["launches"][name]
         r["launches_online_1000"] = cli_runs["online_1000"]["launches"][name]
+        r["launches_superpoint"] = {k: run["launches"][name] for k, run in sp_path["paths"].items()}
+        r["launches_segnet_gm_cli"] = sg_cli["inference"]["launches"][name]
+        if name in sp_path["kernels"]:
+            r["superpoint"] = sp_path["kernels"][name]
         for path, got in (("aachen_front", front["kernels"]), ("aachen_gml", gml_b["kernels"])):
             if name in got and name != "sinkhorn_wide":
                 r[path] = got[name]

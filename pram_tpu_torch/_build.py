@@ -65,8 +65,8 @@ _SIGNATURES = {
     # n, m, cluster size and clusters placed at once (int pointers)
     "pram_sinkhorn_plan": [_I, _I, _P, _P],
     # descs, pdesc, kpts, uv, in_img, qmask, gate_r, ratio, nn_idx, d1, keep,
-    # B, N, P, the real points of P, stream
-    "pram_refine_nn": [_P] * 6 + [_F, _F] + [_P] * 3 + [_I, _I, _I, _I, _P],
+    # B, N, P, the real points of P, the descriptor width (128 or 256), stream
+    "pram_refine_nn": [_P] * 6 + [_F, _F] + [_P] * 3 + [_I, _I, _I, _I, _I, _P],
     # cam, R, t, valid, xyz, uv, mask, threshold, out, P, K, N, slices of
     # the point axis, stream
     "pram_ransac_score": [_P] * 7 + [_F, _P, _I, _I, _I, _I, _P],

@@ -1,11 +1,11 @@
 """Feature extraction helpers (pram_tpu/cli/extract_features.py).
 
-Image listing and loading, padding to the stride, and the per-config
-extractor. Images are read without cv2 (``io/image.py``): PNG and ``.npy``;
-any other format, JPEG included, raises naming the file and its format.
-``extract_to_h5`` writes hloc h5 files, which need h5py: it raises
-ImportError, and the command line that drives it and the descriptor
-compressor wait with it (ROADMAP queue 1 items 4 and 6).
+Image listing and loading, padding to the stride, the per-config
+extractor (SFD2 or SuperPoint) and the descriptor compressor. Images are
+read without cv2 (``io/image.py``): PNG and ``.npy``; any other format, JPEG
+included, raises naming the file and its format. ``extract_to_h5`` writes
+hloc h5 files, which need h5py: it raises ImportError, and the command line
+that drives it waits with it (ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -115,10 +115,63 @@ def build_extractor(conf: Dict, weight_path: Optional[str] = None, device="cuda"
             model = model.to(device, dtype).to(memory_format=torch.channels_last).eval()
         return model, extract, preprocess_image
     if name == "superpoint":
-        from pram_tpu_torch.models.registry import build_extractor as build
+        from pram_tpu_torch.cli.match_features import model_dtype
+        from pram_tpu_torch.io.flax_msgpack import read_flax_msgpack
+        from pram_tpu_torch.models.convert import (
+            convert_superpoint,
+            load_torch_state_dict,
+            superpoint_state_dict,
+        )
+        from pram_tpu_torch.models.superpoint import SuperPoint, extract, preprocess_image
 
-        build(name)
+        torch.manual_seed(0)
+        model = SuperPoint(descriptor_dim=conf["model"]["outdim"])
+        if weight_path:
+            if weight_path.endswith(".msgpack"):
+                tree = read_flax_msgpack(weight_path)
+                params = tree.get("params", tree)
+            else:
+                params = convert_superpoint(load_torch_state_dict(weight_path))["params"]
+            model.load_state_dict(superpoint_state_dict(params), strict=True)
+        model = model.to(device, model_dtype(device)).to(memory_format=torch.channels_last).eval()
+        return model, extract, preprocess_image
     raise ValueError(f"unknown extractor {name}")
+
+
+def build_compressor(feat_dim: int, weight_path: Optional[str] = None, device="cuda"):
+    """Optional 128 -> 64 / 32-d descriptor compression (reference
+    main.py:50-63): a callable ``descs [..., N, 128] -> [..., N, feat_dim]``
+    (L2-normalized) on ``device`` in ``cli/match_features.py:model_dtype``,
+    or None when ``feat_dim`` is 128. ``weight_path``: a reference torch
+    checkpoint (``models/convert.py:convert_descriptor_compressor``) or a
+    flax ``.msgpack``; without one torch's seeded init."""
+    if feat_dim == 128:
+        return None
+    from pram_tpu_torch.cli.match_features import model_dtype
+    from pram_tpu_torch.io.flax_msgpack import read_flax_msgpack
+    from pram_tpu_torch.models.convert import (
+        compressor_state_dict,
+        convert_descriptor_compressor,
+        load_torch_state_dict,
+    )
+    from pram_tpu_torch.models.sfd2 import DescriptorCompressor
+
+    torch.manual_seed(0)
+    comp = DescriptorCompressor(outdim=feat_dim)
+    if weight_path:
+        if weight_path.endswith(".msgpack"):
+            tree = read_flax_msgpack(weight_path)
+            params = tree.get("params", tree)
+        else:
+            params = convert_descriptor_compressor(load_torch_state_dict(weight_path))["params"]
+        comp.load_state_dict(compressor_state_dict(params), strict=True)
+    comp = comp.to(device, model_dtype(device)).eval()
+
+    @torch.no_grad()
+    def fn(descs):
+        return comp(torch.as_tensor(descs).to(device, model_dtype(device)))
+
+    return fn
 
 
 def extract_to_h5(*args, **kwargs):

@@ -56,26 +56,36 @@ def scene_configs(cfg):
 
 
 def load_recognizer(network: str, config: Dict, weight_path: Optional[str], device):
-    """The recognition model on ``device`` in ``model_dtype``: from a
-    reference torch checkpoint, a flax ``.msgpack``, or, without a path,
-    torch's seeded random init. The weights must fit ``config`` (``n_class``
+    """The recognition model (``segnetvit`` or ``segnet``) on ``device`` in
+    ``model_dtype``: from a reference torch checkpoint (converted by the
+    network's own converter; the JAX CLI converts any with
+    ``convert_segnetvit``, ROADMAP 3), a flax ``.msgpack``, or, without a
+    path, the seeded init. The weights must fit ``config`` (``n_class``
     included), as flax requires of the JAX CLI's."""
     from pram_tpu_torch.cli.match_features import model_dtype
     from pram_tpu_torch.models import convert
     from pram_tpu_torch.models.registry import build_recognizer
+    from pram_tpu_torch.models.segnet import SegNetConfig
     from pram_tpu_torch.models.segnetvit import SegNetViTConfig
 
     dtype = model_dtype(device)
+    segnet = network.lower() == "segnet"
     if weight_path and weight_path.endswith(".msgpack"):
-        build_recognizer(network, config)  # raises for a model not ported
+        build_recognizer(network, config)  # raises for an unknown network
+        if segnet:
+            return convert.load_segnet(weight_path, SegNetConfig(**config), device=device, dtype=dtype)
         return convert.load_segnetvit(weight_path, SegNetViTConfig(**config), device=device, dtype=dtype)
     torch.manual_seed(0)
     model = build_recognizer(network, config)
     if weight_path:
-        tree = convert.convert_segnetvit(
-            convert.load_torch_state_dict(weight_path), n_layers=config["n_layers"]
-        )
-        model.load_state_dict(convert.segnetvit_state_dict(tree["params"]), strict=True)
+        sd = convert.load_torch_state_dict(weight_path)
+        if segnet:
+            tree = convert.convert_segnet(sd, n_layers=config["n_layers"])
+            state = convert.segnet_state_dict(tree, config["n_layers"])
+        else:
+            tree = convert.convert_segnetvit(sd, n_layers=config["n_layers"])
+            state = convert.segnetvit_state_dict(tree["params"])
+        model.load_state_dict(state, strict=True)
     return model.to(device, dtype).eval()
 
 
@@ -176,12 +186,13 @@ def main(argv=None):
     def recognize(b):
         # on the consuming thread: the batch's upload and recognition (the
         # descriptors feed the recognizer and the matcher alike, as in the
-        # JAX CLI)
+        # JAX CLI; the mask goes by name, which SegNet's third argument,
+        # the scores, is not: ROADMAP 3)
         with timer.stage("rec"):
             b["seg_logits"] = rec(
                 torch.as_tensor(b["descriptors"]).to(device, dtype),
                 torch.as_tensor(b["norm_keypoints"]).to(device),
-                torch.as_tensor(b["mask"]).to(device),
+                mask=torch.as_tensor(b["mask"]).to(device),
             )["prediction"].float()
         return b
 

@@ -29,17 +29,14 @@ CONFS = {
 }
 
 
-def _matches(model, threshold: float = 0.2):
+def _matches(model, threshold: float = 0.2, uses_scores: bool = False):
     """Matcher closure (the module's forward and mutual check, as the JAX
-    package's ``with_scores`` applies them): fn(...) -> matches0."""
-    from pram_tpu_torch.ops.matching import mutual_matches
+    package's ``with_scores`` applies them): fn(...) -> matches0; with
+    ``uses_scores`` the module also takes the keypoint scores (GM)."""
+    from pram_tpu_torch.engine.matching import with_scores
 
-    @torch.no_grad()
-    def fn(d0, nk0, s0, m0, d1, nk1, s1, m1):
-        out = model(d0, d1, nk0, nk1, m0, m1)
-        return mutual_matches(out["plan"], threshold).matches0
-
-    return fn
+    fn = with_scores(model, threshold, uses_scores)
+    return torch.no_grad()(lambda *args: fn(*args)[0])
 
 
 def model_dtype(device) -> torch.dtype:
@@ -50,16 +47,23 @@ def model_dtype(device) -> torch.dtype:
 
 
 def load_matcher(name: str, weight_path: Optional[str], device="cuda"):
-    """GML / AdaGML on ``device`` in :func:`model_dtype`: from a reference
-    torch checkpoint (converted by ``models/convert.py``), the repo's flax
-    ``.msgpack``, or, without a path, torch's seeded random init."""
+    """GML / AdaGML / GM on ``device`` in :func:`model_dtype`: from a
+    reference torch checkpoint (converted by ``models/convert.py``; GM has
+    none, and raises), the repo's flax ``.msgpack``, or, without a path,
+    the seeded init."""
     from pram_tpu_torch.models import convert
     from pram_tpu_torch.models.registry import build_matcher
 
     dtype = model_dtype(device)
     if weight_path and weight_path.endswith(".msgpack"):
-        load = convert.load_gml if name == "gml" else convert.load_adagml
+        load = {"gml": convert.load_gml, "adagml": convert.load_adagml, "gm": convert.load_gm}[name]
         return load(weight_path, device=device, dtype=dtype)
+    if weight_path and name == "gm":
+        # the JAX CLI drops the path for GM (ROADMAP 3)
+        raise ValueError(
+            f"GM weights {weight_path!r}: a reference GM checkpoint has no converter in either "
+            "package (the reference cannot build GM); give a flax .msgpack"
+        )
     torch.manual_seed(0)
     model = build_matcher(name)
     if weight_path:
@@ -77,7 +81,8 @@ def build_match_fn(conf_name: str, weight_path: Optional[str] = None, device="cu
     ``matches0``.
 
     ``weight_path``: a reference torch checkpoint, or the repo's flax
-    ``.msgpack`` (the format the repo ships its weights in)."""
+    ``.msgpack`` (the format the repo ships its weights in); GM
+    (``GMConfig()``, with the keypoint scores) takes only the latter."""
     name = CONFS[conf_name]["model"]["name"]
     if name == "nearest_neighbor":
         from pram_tpu_torch.models.nn_matcher import mutual_nn_match
@@ -91,8 +96,6 @@ def build_match_fn(conf_name: str, weight_path: Optional[str] = None, device="cu
     if name == "adagml":
         return _matches(load_matcher("adagml", weight_path, device))
     if name == "gm":
-        from pram_tpu_torch.models.registry import build_matcher
-
-        build_matcher(name)
+        return _matches(load_matcher("gm", weight_path, device), uses_scores=True)
     raise ValueError(f"unknown matcher {conf_name}")
 

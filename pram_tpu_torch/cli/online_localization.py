@@ -112,7 +112,7 @@ def main(argv=None):
         logits = rec(
             feats["seg_descriptors"],
             kps.xy / torch.tensor([width, height], dtype=torch.float32, device=device) - 0.5,
-            kps.mask,
+            mask=kps.mask,
         )["prediction"].float()
         t2 = _clock(device)
 

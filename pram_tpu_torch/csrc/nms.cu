@@ -20,13 +20,15 @@
 // reaches device memory.
 //
 // The design. A block owns one (image, TH x TW output tile) and loads it
-// with a halo of (1 + 2 * num_iters) * R pixels on all four sides: each pool
+// with a halo of (1 + 2 * num_iters) * R pixels on all four sides, rounded
+// up to an even count (the pair pools start on an even column; more context
+// does not change a max; SuperPoint's R = 3 gives 16): each pool
 // leaves R more pixels of the border of the loaded region wrong, so after
 // the chain exactly the tile is right; each stage computes only the rows
 // still right (the region shrinks by R a stage). The loaded region is LW =
 // 256 columns (four 64-column words) by TH + 2 * halo rows, TH = 56: at
 // SFD2's R = 4, num_iters = 2 (halo 20) a 56 x 216 tile, 2.03x the output
-// loaded, 3 x 9 tiles an image.
+// loaded, 3 x 9 tiles an image; at R = 3 (halo 16) a 56 x 224 tile.
 //   - S, the scores, are kept once in the input type (bf16 holds the main
 //     path's values exactly), loaded by cp.async where W is even (pixel
 //     pairs, 4 or 8 bytes) and plainly where it is odd; positions outside
@@ -34,18 +36,23 @@
 //   - The masks are bits: a word pair {E, O} holds 32 column pairs of a
 //     row, E bit l the even pixel 2l of them and O bit l the odd one. The
 //     binary pools (supp) are dilations: down the column an OR of 2R + 1
-//     words, along the row ORs of funnel shifts by 0..R/2 pairs of E and O
-//     across neighbouring words. Bits outside the image are kept 0.
+//     words, along the row ORs of funnel shifts by up to (R + 1) / 2 pairs
+//     of E and O across neighbouring words (E from E and O from O where
+//     |2s| <= R, E from O where |2s + 1| <= R, O from E where |2s - 1| <=
+//     R). Bits outside the image are kept 0.
 //   - The float pools run on pixel pairs (bf16x2 or float2), one scratch
 //     plane V in the input type: down the column a thread takes a pair and
-//     8 rows, the window's maximum composed from doubling spans (45 max for
-//     16 outputs at R = 4); along the row a thread takes a word pair (32
-//     pairs of a row, lanes on consecutive rows), 8 pairs a step from
-//     16-byte loads: the maxima a0(p) of the R pairs from p - R/2, m(p) =
-//     max(max(a0(p), pair p + R/2), (a0(p).hi, a0(p + 1).lo)) (the odd
-//     half's window stitched by one byte permute), and s == m gathered into
-//     E and O by one set.eq and one LOP3 a pair: ~7 operations for 2 pixels
-//     at R = 4. supp_s = where(supp, 0, s) is formed as the column pass
+//     8 rows, the window's maximum composed from doubling spans up to the
+//     largest power of two WP <= 2R + 1 and one max with the span 2R + 1 -
+//     WP further (45 max for 16 outputs at R = 4); along the row a thread
+//     takes a word pair (32 pairs of a row, lanes on consecutive rows), 8
+//     pairs a step from 16-byte loads: for even R the maxima a0(p) of the R
+//     pairs from p - R/2, m(p) = max(max(a0(p), pair p + R/2), (a0(p).hi,
+//     a0(p + 1).lo)) (the odd half's window stitched by one byte permute);
+//     for R = 3 the maximum f(p) of the pairs p - 1 .. p + 1 and m(p) =
+//     max(f, f with its halves swapped, (pair p - 2 .hi, pair p + 2 .lo));
+//     and s == m gathered into E and O by one set.eq and one LOP3 a pair:
+//     ~7 operations for 2 pixels at R = 4. supp_s = where(supp, 0, s) is formed as the column pass
 //     loads it, from S and the supp bits; the re-detection needs no supp_s
 //     at the compare, since it is masked by ~supp.
 //   - S and V rows are 132 pairs (528 bytes in bf16), so that the row
@@ -76,7 +83,7 @@ constexpr int LP = 32 * NWD;     // pixel pairs of a loaded row
 constexpr int LW = 2 * LP;       // pixels of a loaded row
 constexpr int TH = 56;           // output rows of a block
 constexpr int CH = 8;            // rows a thread emits in a column pass
-constexpr int PADP = 2;          // pairs of padding on each side of a row of V (R / 2)
+constexpr int PADP = 2;          // pairs of padding on each side of a row of V ((R + 1) / 2)
 constexpr int VP = LP + 2 * PADP;  // pairs a row of S and V: 528 bytes in bf16, so that
                                    // lanes on consecutive rows hit distinct banks
 constexpr int CP = 8;            // pairs a step of the row pass
@@ -95,6 +102,7 @@ struct PairBF16 {
     return *reinterpret_cast<unsigned*>(&r);
   }
   static __device__ __forceinline__ P stitch(P a, P b) { return __byte_perm(a, b, 0x5432); }
+  static __device__ __forceinline__ P swap(P a) { return __byte_perm(a, a, 0x1032); }
   static __device__ __forceinline__ P keep(P a, unsigned klo, unsigned khi) {
     return a & ((klo ? 0x0000FFFFu : 0u) | (khi ? 0xFFFF0000u : 0u));
   }
@@ -129,6 +137,7 @@ struct PairF32 {
     return make_float2(fmaxf(a.x, b.x), fmaxf(a.y, b.y));
   }
   static __device__ __forceinline__ P stitch(P a, P b) { return make_float2(a.y, b.x); }
+  static __device__ __forceinline__ P swap(P a) { return make_float2(a.y, a.x); }
   static __device__ __forceinline__ P keep(P a, unsigned klo, unsigned khi) {
     return make_float2(klo ? a.x : 0.f, khi ? a.y : 0.f);
   }
@@ -186,7 +195,9 @@ template <typename T, int R>
 __global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1)
 nms_kernel(const T* __restrict__ scores, T* __restrict__ out, int H, int W,
            int num_iters, int halo) {
-  static_assert(R == 2 || R == 4, "radii 2 and 4");
+  static_assert(R >= 2 && R <= 2 * PADP, "radii 2 to 4");
+  // the column pass's doubling spans reach WP rows, then one max WX further
+  constexpr int WP = 2 * R + 1 >= 8 ? 8 : 4, WX = 2 * R + 1 - WP;
   typedef typename PairOf<T>::type Op;
   typedef typename Op::P P;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -201,7 +212,7 @@ nms_kernel(const T* __restrict__ scores, T* __restrict__ out, int H, int W,
 
   const int b = blockIdx.z;
   const int ty0 = blockIdx.y * TH, tx0 = blockIdx.x * TW;
-  const int gy0 = ty0 - halo, gx0 = tx0 - halo;  // gx0 is even
+  const int gy0 = ty0 - halo, gx0 = tx0 - halo;  // gx0 is even (halo and TW are)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const T* src = scores + (size_t)b * H * W;
 
@@ -264,13 +275,13 @@ nms_kernel(const T* __restrict__ scores, T* __restrict__ out, int H, int W,
         }
         w[i] = a;
       }
-      // w[i] = max over 2R rows from i, by doubling spans, in place
+      // w[i] = max over WP rows from i, by doubling spans, in place
       double_span<Op, 1>(w);
       double_span<Op, 2>(w);
-      if (R == 4) double_span<Op, 4>(w);
+      if (WP == 8) double_span<Op, 4>(w);
       P* vc = V + y0 * VP + p;
 #pragma unroll
-      for (int j = 0; j < CH; ++j) vc[j * VP] = Op::pmax(w[j], w[j + 1]);
+      for (int j = 0; j < CH; ++j) vc[j * VP] = Op::pmax(w[j], w[j + WX]);
     }
     __syncthreads();
     // row pass: a thread a word pair of a row, lanes on consecutive rows,
@@ -290,15 +301,24 @@ nms_kernel(const T* __restrict__ scores, T* __restrict__ out, int H, int W,
         P m2[CP + 2 * PADP - 1];
 #pragma unroll
         for (int i = 0; i + 1 < CP + 2 * PADP; ++i) m2[i] = Op::pmax(x[i], x[i + 1]);
-        P a0[CP + 1];  // a0[j]: the R pairs from p0 + j - R/2
-#pragma unroll
-        for (int j = 0; j <= CP; ++j)
-          a0[j] = R == 4 ? Op::pmax(m2[j + PADP - 2], m2[j + PADP]) : m2[j + PADP - 1];
         unsigned acc = 0;
+        if (R % 2 == 0) {
+          P a0[CP + 1];  // a0[j]: the R pairs from p0 + j - R/2
 #pragma unroll
-        for (int j = 0; j < CP; ++j) {
-          const P m = Op::pmax(Op::pmax(a0[j], x[j + PADP + R / 2]), Op::stitch(a0[j], a0[j + 1]));
-          acc |= Op::eq(s2[j], m) & (0x00010001u << j);
+          for (int j = 0; j <= CP; ++j)
+            a0[j] = R == 4 ? Op::pmax(m2[j + PADP - 2], m2[j + PADP]) : m2[j + PADP - 1];
+#pragma unroll
+          for (int j = 0; j < CP; ++j) {
+            const P m = Op::pmax(Op::pmax(a0[j], x[j + PADP + R / 2]), Op::stitch(a0[j], a0[j + 1]));
+            acc |= Op::eq(s2[j], m) & (0x00010001u << j);
+          }
+        } else {  // R = 3: f, the pairs p - 1 .. p + 1; the ends from pairs p - 2 and p + 2
+#pragma unroll
+          for (int j = 0; j < CP; ++j) {
+            const P f = Op::pmax(m2[j + PADP - 1], x[j + PADP + 1]);
+            const P m = Op::pmax(Op::pmax(f, Op::swap(f)), Op::stitch(x[j + PADP - 2], x[j + PADP + 2]));
+            acc |= Op::eq(s2[j], m) & (0x00010001u << j);
+          }
         }
         e |= (acc & 0xFFFFu) << (CP * c);
         o |= (acc >> 16) << (CP * c);
@@ -337,12 +357,14 @@ nms_kernel(const T* __restrict__ scores, T* __restrict__ out, int H, int W,
       const uint2 tr = k < NWD - 1 ? TB[y * NWD + k + 1] : make_uint2(0u, 0u);
       unsigned e = 0, o = 0;
 #pragma unroll
-      for (int s = -R / 2; s <= R / 2; ++s) {
+      for (int s = -(R + 1) / 2; s <= (R + 1) / 2; ++s) {
         const unsigned se = shifted(tl.x, t.x, tr.x, s), so = shifted(tl.y, t.y, tr.y, s);
-        e |= se;  // even pixel 2l from even pixels 2(l + s)
-        o |= so;  // odd from odd
-        if (s < R / 2) e |= so;   // even 2l from odd 2(l + s) + 1
-        if (s > -R / 2) o |= se;  // odd 2l + 1 from even 2(l + s)
+        if (2 * s <= R && -2 * s <= R) {
+          e |= se;  // even pixel 2l from even pixels 2(l + s)
+          o |= so;  // odd from odd
+        }
+        if (2 * s + 1 <= R && -(2 * s + 1) <= R) e |= so;  // even 2l from odd 2(l + s) + 1
+        if (2 * s - 1 <= R && -(2 * s - 1) <= R) o |= se;  // odd 2l + 1 from even 2(l + s)
       }
       const uint2 cv = row_in(y) ? CV[k] : make_uint2(0u, 0u);
       SP[y * NWD + k] = make_uint2(e & cv.x, o & cv.y);
@@ -381,7 +403,8 @@ nms_kernel(const T* __restrict__ scores, T* __restrict__ out, int H, int W,
 template <typename T, int R>
 int launch(const void* scores, void* out, int B, int H, int W, int num_iters,
            cudaStream_t stream) {
-  const int halo = (1 + 2 * num_iters) * R;
+  int halo = (1 + 2 * num_iters) * R;
+  halo += halo & 1;  // even: the pair pools start on an even column
   const int LH = TH + 2 * halo, TW = LW - 2 * halo;
   const size_t smem = smem_bytes(LH, sizeof(T));
   if (TW < 2 || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
@@ -399,8 +422,9 @@ template <typename T>
 int dispatch(const void* scores, void* out, int B, int H, int W, int radius,
              int num_iters, cudaStream_t s) {
   switch (radius) {
-    // SFD2's radius 4, and 2 for the tests' smaller maps
+    // SFD2's radius 4, SuperPoint's 3, and 2 for the tests' smaller maps
     case 2: return launch<T, 2>(scores, out, B, H, W, num_iters, s);
+    case 3: return launch<T, 3>(scores, out, B, H, W, num_iters, s);
     case 4: return launch<T, 4>(scores, out, B, H, W, num_iters, s);
     default: return (int)cudaErrorInvalidValue;
   }

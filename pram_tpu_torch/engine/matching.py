@@ -63,3 +63,43 @@ def make_adagml_match_fn(
         return mutual_matches(out["plan"], threshold).matches0
 
     return fn
+
+
+def make_gm_match_fn(model, threshold: float = 0.2) -> MatchFn:
+    """GM matcher (``models/gm.py``): mutual-max matches of its plan; GM
+    also takes the keypoint scores."""
+
+    def fn(d0, nk0, s0, m0, d1, nk1, s1, m1):
+        out = model(d0, d1, nk0, nk1, s0, s1, m0, m1)
+        return mutual_matches(out["plan"], threshold).matches0
+
+    return fn
+
+
+def with_scores(model, threshold: float = 0.2, uses_scores: bool = False):
+    """Score-returning variant of a plan matcher: fn(...) -> (matches0,
+    matching_scores0); ``uses_scores`` passes the keypoint scores (GM)."""
+
+    def fn(d0, nk0, s0, m0, d1, nk1, s1, m1):
+        if uses_scores:
+            out = model(d0, d1, nk0, nk1, s0, s1, m0, m1)
+        else:
+            out = model(d0, d1, nk0, nk1, m0, m1)
+        res = mutual_matches(out["plan"], threshold)
+        return res.matches0, res.scores0
+
+    return fn
+
+
+def nn_with_scores(
+    ratio_threshold: Optional[float] = None,
+    distance_threshold: Optional[float] = None,
+):
+    """Score-returning mutual nearest-neighbour matcher: fn(...) ->
+    (matches0, matching_scores0)."""
+
+    def fn(d0, nk0, s0, m0, d1, nk1, s1, m1):
+        res = mutual_nn_match(d0, d1, m0, m1, ratio_threshold, distance_threshold)
+        return res.matches0, res.scores0
+
+    return fn

@@ -11,22 +11,28 @@ order.
 
 The reference's own checkpoints (``state_dict`` layouts of the PRAM torch
 code) map onto the same flax trees through :func:`convert_sfd2`,
-:func:`convert_segnetvit`, :func:`convert_gml` and :func:`convert_adagml`,
-numpy copies of the JAX package's converters; their output goes through
-the ``*_state_dict`` functions below like a tree read from msgpack.
+:func:`convert_superpoint`, :func:`convert_segnetvit`, :func:`convert_segnet`,
+:func:`convert_gml`, :func:`convert_adagml` and
+:func:`convert_descriptor_compressor`, numpy copies of the JAX package's
+converters; their output goes through the ``*_state_dict`` functions below
+like a tree read from msgpack. GM and RetNet have no reference converter in
+either package (the reference's GM cannot be built, and RetNet is unused):
+their flax trees come from the JAX package.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from pram_tpu_torch.io.flax_msgpack import read_flax_msgpack
 from pram_tpu_torch.models.adagml import AdaGML, AdaGMLConfig
+from pram_tpu_torch.models.gm import GM, GMConfig
 from pram_tpu_torch.models.gml import GML, GMLConfig
+from pram_tpu_torch.models.segnet import SegNet, SegNetConfig
 from pram_tpu_torch.models.segnetvit import SegNetViT, SegNetViTConfig
 from pram_tpu_torch.models.sfd2 import ResNet4x
 from pram_tpu_torch.models.sfd2_int8 import Int8ResNet4x, cast_stem, quantize_extractor
@@ -183,18 +189,105 @@ def load_adagml(
     return model.to(device=device, dtype=dtype).eval()
 
 
+def _with_batch_stats(tree: dict) -> Dict[str, torch.Tensor]:
+    """``params`` and, where the tree has them, ``batch_stats`` flattened
+    into one state dict, a zero ``num_batches_tracked`` beside every
+    BatchNorm's running statistics (unused in inference)."""
+    sd = flax_to_state_dict(tree["params"])
+    sd.update(flax_to_state_dict(tree.get("batch_stats", {})))
+    for k in [k for k in sd if k.endswith(".running_mean")]:
+        sd[k[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def _layers_below(sd: Dict[str, torch.Tensor], prefix: str, n: int, what: str) -> Dict[str, torch.Tensor]:
+    """``sd`` without the ``<prefix>.<i>.`` entries of i >= n; raises when it
+    holds fewer than n such layers."""
+    have = len({k.split(".")[1] for k in sd if k.startswith(prefix + ".")})
+    if have < n:
+        raise ValueError(f"{what} params have {have} {prefix} layers, config wants {n}")
+    return {k: v for k, v in sd.items() if not k.startswith(prefix + ".") or int(k.split(".")[1]) < n}
+
+
+def superpoint_state_dict(params: dict) -> Dict[str, torch.Tensor]:
+    """SuperPoint flax params (``conv1a`` .. ``convDb``) -> SuperPoint state
+    dict."""
+    return flax_to_state_dict(params)
+
+
+def segnet_state_dict(tree: dict, n_layers: int) -> Dict[str, torch.Tensor]:
+    """SegNet flax variables (``params``, and ``batch_stats`` with
+    ``norm_fn="bn"``) -> SegNet state dict for the first ``n_layers``
+    layers: ``gnn_<i>`` becomes ``gnn.<i>``."""
+    tree = tree if "params" in tree else {"params": tree}
+    sd = {re.sub(r"^gnn_(\d+)\.", r"gnn.\1.", k): v for k, v in _with_batch_stats(tree).items()}
+    return _layers_below(sd, "gnn", n_layers, "SegNet")
+
+
+def gm_state_dict(params: dict, n_layers: int) -> Dict[str, torch.Tensor]:
+    """GM flax params -> GM state dict for its first ``n_layers`` layer
+    pairs (``gnn_<i>`` for i < 2 n_layers become ``gnn.<i>``). The last
+    ``final_proj_<k>`` of the tree, the one applied, becomes
+    ``final_proj.<n_layers - 1>``; a flax tree holds only that one, and the
+    others of a tree that holds them are dropped, as the module gives them
+    no parameters. The scalar ``bin_score`` is kept as is."""
+    params = dict(params)
+    if "bin_score" not in params:
+        raise ValueError("GM params have no bin_score")
+    bin_score = np.asarray(params.pop("bin_score"), np.float32).reshape(())
+    projs = sorted((k for k in params if k.startswith("final_proj_")), key=lambda k: int(k[11:]))
+    if not projs:
+        raise ValueError("GM params have no final_proj_<k>")
+    last = params.pop(projs[-1])
+    for k in projs[:-1]:
+        del params[k]
+    params[f"final_proj_{n_layers - 1}"] = last
+    sd = {re.sub(r"^(gnn|final_proj)_(\d+)\.", r"\1.\2.", k): v for k, v in flax_to_state_dict(params).items()}
+    sd = _layers_below(sd, "gnn", 2 * n_layers, "GM")
+    sd["bin_score"] = torch.from_numpy(bin_score.copy())
+    return sd
+
+
+def retnet_state_dict(tree: dict) -> Dict[str, torch.Tensor]:
+    """RetNet flax variables (``params`` and ``batch_stats``) -> RetNet state
+    dict; ``gem_p`` is kept as is."""
+    params = dict(tree["params"])
+    gem_p = np.asarray(params.pop("gem_p"), np.float32).reshape(1)
+    sd = _with_batch_stats({"params": params, "batch_stats": tree["batch_stats"]})
+    sd["gem_p"] = torch.from_numpy(gem_p.copy())
+    return sd
+
+
+def compressor_state_dict(params: dict) -> Dict[str, torch.Tensor]:
+    """DescriptorCompressor flax params (``conv``) -> its state dict."""
+    return flax_to_state_dict(params)
+
+
+def load_segnet(path: str, config: SegNetConfig, device="cuda", dtype=torch.float32) -> SegNet:
+    """SegNet with weights from a flax msgpack file (random-free)."""
+    model = SegNet(config)
+    model.load_state_dict(segnet_state_dict(read_flax_msgpack(path), config.n_layers), strict=True)
+    return model.to(device=device, dtype=dtype).eval()
+
+
+def load_gm(path: str, config: Optional[GMConfig] = None, device="cuda", dtype=torch.float32) -> GM:
+    """GM with weights from a flax msgpack file (random-free), at ``config``
+    (default ``GMConfig()``, the CLI's); in bf16 every parameter is
+    rounded, ``bin_score`` included, as for GML."""
+    config = config or GMConfig()
+    tree = read_flax_msgpack(path)
+    model = GM(config)
+    model.load_state_dict(gm_state_dict(tree.get("params", tree), config.n_layers), strict=True)
+    return model.to(device=device, dtype=dtype).eval()
+
+
 def sfd2_state_dict(tree: dict) -> Dict[str, torch.Tensor]:
     """SFD2 flax variables (``params`` and ``batch_stats``) -> ResNet4x state
     dict: ``res_<i>`` becomes ``res.<i>``, and every BatchNorm gets a zero
     ``num_batches_tracked`` (unused in inference)."""
     if "params" not in tree or "batch_stats" not in tree:
         raise ValueError("SFD2 variables need both params and batch_stats")
-    sd = flax_to_state_dict(tree["params"])
-    sd.update(flax_to_state_dict(tree["batch_stats"]))
-    sd = {re.sub(r"^res_(\d+)\.", r"res.\1.", k): v for k, v in sd.items()}
-    for k in [k for k in sd if k.endswith(".running_mean")]:
-        sd[k[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
-    return sd
+    return {re.sub(r"^res_(\d+)\.", r"res.\1.", k): v for k, v in _with_batch_stats(tree).items()}
 
 
 def load_sfd2(path: str, device="cuda", dtype=torch.float32) -> ResNet4x:
@@ -400,3 +493,76 @@ def convert_adagml(sd: Dict[str, np.ndarray], n_layers: int = 9) -> Dict:
             "predict_3": _linear(sd, f"{p}.predict.3"),
         }
     return out
+
+
+def convert_superpoint(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """Map the reference SuperPoint state_dict (nets/superpoint.py:123-138)."""
+    names = ("conv1a", "conv1b", "conv2a", "conv2b", "conv3a", "conv3b", "conv4a", "conv4b",
+             "convPa", "convPb", "convDa", "convDb")
+    return {"params": {name: _conv(sd, name) for name in names}}
+
+
+def _conv1d(sd, name):
+    """torch Conv1d [O, I, 1] -> Dense kernel [I, O]."""
+    p = {"kernel": np.ascontiguousarray(sd[f"{name}.weight"][:, :, 0].T)}
+    if f"{name}.bias" in sd:
+        p["bias"] = sd[f"{name}.bias"]
+    return p
+
+
+def _point_mlp(sd, prefix, n_convs):
+    """Reference MLP helper (Conv1d + norm + act; nets/layers.py:15-35):
+    convs sit at Sequential indices 0, 3, 6, ...; InstanceNorm1d has no
+    parameters, BatchNorm1d (norm_fn='bn') contributes affine params and
+    running stats at indices 1, 4, ...
+
+    Returns (params, batch_stats); batch_stats is {} for the 'in' case.
+    """
+    params = {f"lin_{i}": _conv1d(sd, f"{prefix}.{3 * i}") for i in range(n_convs)}
+    stats = {}
+    for i in range(n_convs - 1):
+        bn = f"{prefix}.{3 * i + 1}"
+        if f"{bn}.running_mean" in sd:
+            params[f"norm_{i}"] = {"scale": sd[f"{bn}.weight"], "bias": sd[f"{bn}.bias"]}
+            stats[f"norm_{i}"] = {"mean": sd[f"{bn}.running_mean"], "var": sd[f"{bn}.running_var"]}
+    return params, stats
+
+
+def convert_segnet(sd: Dict[str, np.ndarray], n_layers: int = 9) -> Dict:
+    """Map the reference SegNet state_dict (nets/segnet.py:32-84) to flax."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+
+    def put(name, pair):
+        p, s = pair
+        params[name] = p
+        if s:
+            stats[name] = s
+
+    # kenc: channels [in]+[32,64,128,256]+[256] -> 5 convs
+    put("kenc", _point_mlp(sd, "kenc.encoder", 5))
+    put("seg", _point_mlp(sd, "seg", 2))
+    for i in range(n_layers):
+        p = f"gnn.layers.{i}"
+        mlp_p, mlp_s = _point_mlp(sd, f"{p}.mlp", 2)
+        params[f"gnn_{i}"] = {
+            "proj_q": _conv1d(sd, f"{p}.attn.proj.0"),
+            "proj_k": _conv1d(sd, f"{p}.attn.proj.1"),
+            "proj_v": _conv1d(sd, f"{p}.attn.proj.2"),
+            "merge": _conv1d(sd, f"{p}.attn.merge"),
+            "mlp": mlp_p,
+        }
+        if mlp_s:
+            stats[f"gnn_{i}"] = {"mlp": mlp_s}
+    if "sc.0.weight" in sd:
+        put("sc", _point_mlp(sd, "sc", 2))
+    out: Dict[str, Any] = {"params": params}
+    if stats:
+        out["batch_stats"] = stats
+    return out
+
+
+def convert_descriptor_compressor(sd: Dict[str, np.ndarray]) -> Dict:
+    """Map the reference DescriptorCompressor state_dict (nets/sfd2.py:357-365):
+    a single 1x1 Conv1d 'conv' with bias."""
+    return {"params": {"conv": _conv1d(sd, "conv")}}

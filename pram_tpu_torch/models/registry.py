@@ -1,21 +1,14 @@
 """Model registry: construction by config name (pram_tpu/models/registry.py).
 
 The reference's plugin loader (localization/base_model.py:9-44,
-nets/load_segnet.py) selects models by string name from a config. The port
-builds SegNetViT, GML, AdaGML and SFD2 (``sfd2`` / ``resnet4x``); SegNet, GM
-and SuperPoint are not ported yet (ROADMAP queue 1 item 6) and raise.
+nets/load_segnet.py) selects models by string name from a config: the
+recognizers SegNetViT and SegNet, the matchers GML, AdaGML and GM, and the
+extractors SFD2 (``sfd2`` / ``resnet4x``) and SuperPoint.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
-
-
-def _not_ported(name: str):
-    raise NotImplementedError(
-        f"model {name!r} is not ported to pram_tpu_torch yet (ROADMAP queue 1 item 6: "
-        "remaining models)"
-    )
 
 
 def build_recognizer(name: str, config: Optional[Dict[str, Any]] = None):
@@ -27,7 +20,9 @@ def build_recognizer(name: str, config: Optional[Dict[str, Any]] = None):
 
         return SegNetViT(SegNetViTConfig(**config))
     if name == "segnet":
-        _not_ported(name)
+        from pram_tpu_torch.models.segnet import SegNet, SegNetConfig
+
+        return SegNet(SegNetConfig(**config))
     raise ValueError(f"unknown recognizer: {name}")
 
 
@@ -44,7 +39,9 @@ def build_matcher(name: str, config: Optional[Dict[str, Any]] = None):
 
         return AdaGML(AdaGMLConfig(**config))
     if name == "gm":
-        _not_ported(name)
+        from pram_tpu_torch.models.gm import GM, GMConfig
+
+        return GM(GMConfig(**config))
     raise ValueError(f"unknown matcher: {name}")
 
 
@@ -57,5 +54,7 @@ def build_extractor(name: str, config: Optional[Dict[str, Any]] = None):
 
         return ResNet4x(**config)
     if name == "superpoint":
-        _not_ported(name)
+        from pram_tpu_torch.models.superpoint import SuperPoint
+
+        return SuperPoint(**config)
     raise ValueError(f"unknown extractor: {name}")

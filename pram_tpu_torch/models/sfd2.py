@@ -12,6 +12,7 @@ The stem (conv1a + conv1b) goes through ``ops/stem.py`` (kernel 8) unless
 ``use_stem_kernel`` is off; the other convolutions are ``F.conv2d``, as the
 JAX package leaves them to XLA. :func:`extract` runs NMS through
 ``ops/nms.py`` (kernel 9) unless ``use_nms_kernel`` is off.
+:class:`DescriptorCompressor` maps the 128-d descriptors to 64 or 32.
 """
 
 from __future__ import annotations
@@ -185,3 +186,19 @@ def extract(
         "desc_map": out["desc_map"],
         "mid_features": out["mid_features"],
     }
+
+
+class DescriptorCompressor(nn.Module):
+    """128-d SFD2 descriptors compressed to ``outdim`` (64 or 32) and
+    re-normalized (pram_tpu/models/sfd2.py:DescriptorCompressor): the
+    reference's 1x1 Conv1d over ``[B, C, N]``, a ``Linear`` named ``conv``
+    on channel-last tokens ``[..., N, indim]``."""
+
+    def __init__(self, outdim: int = 64, indim: int = 128):
+        super().__init__()
+        self.conv = nn.Linear(indim, outdim)
+
+    def forward(self, descs: torch.Tensor) -> torch.Tensor:
+        out = self.conv(descs)
+        norm = torch.sqrt(torch.sum(out.float() * out.float(), dim=-1, keepdim=True))
+        return (out.float() / torch.clamp(norm, min=1e-12)).to(out.dtype)

@@ -14,7 +14,7 @@ from pram_tpu_torch._build import check_status, check_tensor, library, ptr, stre
 
 LAUNCHES = {"nms": 0}
 
-KERNEL_RADII = (2, 4)  # the radii the CUDA kernel is instantiated for
+KERNEL_RADII = (2, 3, 4)  # the radii the CUDA kernel is instantiated for
 
 
 def max_pool_2d(x: torch.Tensor, radius: int) -> torch.Tensor:

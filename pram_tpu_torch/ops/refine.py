@@ -4,7 +4,8 @@ refine_projection_core).
 
 :func:`refine_nn` replaces ``pram_tpu/ops/refine_pallas.py:refine_nn_pallas``,
 batched over problems: a CPU tensor takes :func:`refine_nn_plain`, a CUDA
-tensor launches ``csrc/refine.cu`` or raises. Query and point counts off
+tensor launches ``csrc/refine.cu`` (its instance for the descriptor width:
+SFD2's 128 or SuperPoint's 256) or raises. Query and point counts off
 the kernel's 64 are padded inside the CUDA wrapper
 (:func:`refine_on_tile`): padded queries are sliced off, and the kernel
 skips the points from the real count on, so a padded point never enters
@@ -22,8 +23,8 @@ from pram_tpu_torch.ops.padding import pad_end, round_up
 
 LAUNCHES = {"refine_nn": 0}
 
-# shapes the CUDA kernel is written for
-KERNEL_DESC_DIM = 128
+# shapes the CUDA kernel is written for: an instance a descriptor width
+KERNEL_DESC_DIMS = (128, 256)
 KERNEL_QUERY_TILE = 64
 KERNEL_POINT_TILE = 64
 
@@ -80,8 +81,8 @@ def _refine_nn_cuda(descs, pdesc, kpts, uv, in_img, qmask, gate_radius, ratio, n
     b, n, d = descs.shape
     p = pdesc.shape[1]
     dev = descs.device
-    if d != KERNEL_DESC_DIM:
-        raise ValueError(f"CUDA refinement NN is built for {KERNEL_DESC_DIM}-d descriptors; got d={d}")
+    if d not in KERNEL_DESC_DIMS:
+        raise ValueError(f"CUDA refinement NN is built for {KERNEL_DESC_DIMS}-d descriptors; got d={d}")
     bf, f32, u8 = torch.bfloat16, torch.float32, torch.uint8
     check_tensor(descs, "descs", (b, n, d), bf, dev)
     check_tensor(pdesc, "pdesc", (b, p, d), bf, dev)
@@ -100,7 +101,7 @@ def _refine_nn_cuda(descs, pdesc, kpts, uv, in_img, qmask, gate_radius, ratio, n
         library().pram_refine_nn(
             ptr(descs), ptr(pdesc), ptr(kpts), ptr(uv), ptr(in_img.view(u8)),
             ptr(qmask.view(u8)), ctypes.c_float(gate_radius), ctypes.c_float(ratio),
-            ptr(nn_idx), ptr(d1), ptr(keep), b, n, p, n_points, stream_of(dev),
+            ptr(nn_idx), ptr(d1), ptr(keep), b, n, p, n_points, d, stream_of(dev),
         ),
         "pram_refine_nn",
     )

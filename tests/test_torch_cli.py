@@ -262,11 +262,6 @@ def test_unported_flags_raise_naming_their_queue_item(tmp_path):
 
     with pytest.raises(ImportError, match="h5py"):
         parsers.get_keypoints("f.h5", "a")
-    from pram_tpu_torch.models.registry import build_extractor, build_matcher, build_recognizer
-
-    for build, name in ((build_recognizer, "segnet"), (build_matcher, "gm"), (build_extractor, "superpoint")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            build(name)
 
 
 # ---- reference checkpoints

@@ -23,7 +23,8 @@ sums in another order flip near-ties of the 0.995 ratio test) and d1 within
 map descriptors, where d1 ~ 1e-3 and its slope in the similarity is 1/d1;
 the noisy copies here keep d1 above 0.1); the stem within 2% of the
 output's scale in bf16 and within rtol = atol = 1e-4 in f32 (cuDNN's TF32
-off); NMS bit for bit in both types. Kernels 10-12 (packed self- and
+off); NMS bit for bit in both types, at radii 2, 3 (SuperPoint's) and 4;
+kernel 7's 256-d instance (SuperPoint's descriptors) as its 128-d one. Kernels 10-12 (packed self- and
 cross-attention with AdaGML's statistics): messages within 2% of their
 scale in bf16 and 1e-4 in f32 (products on the CUDA cores; summation order
 only), statistics within 1e-3 of their scale in bf16 and 1e-4 in f32
@@ -256,14 +257,14 @@ def test_refine_nn_kernel(dev, b, n, p):
     assert keep.any()
 
 
-def _refine_tie_case(g, b, n, p, dev):
+def _refine_tie_case(g, b, n, p, dev, d=128):
     """Near-duplicate map points for half the queries, exact duplicates of
     the first 16 (and of the next 8 in the last tile) with their
     projections, every point of the last problem outside the image."""
-    descs = torch.nn.functional.normalize(_rand(g, b, n, 128), dim=-1)
-    pdesc = torch.nn.functional.normalize(_rand(g, b, p, 128), dim=-1)
+    descs = torch.nn.functional.normalize(_rand(g, b, n, d), dim=-1)
+    pdesc = torch.nn.functional.normalize(_rand(g, b, p, d), dim=-1)
     h = n // 2
-    pdesc[:, :h] = torch.nn.functional.normalize(descs[:, :h] + _rand(g, b, h, 128, scale=0.05), dim=-1)
+    pdesc[:, :h] = torch.nn.functional.normalize(descs[:, :h] + _rand(g, b, h, d, scale=0.05), dim=-1)
     pdesc[:, h : h + 16] = pdesc[:, :16]
     pdesc[:, p - 8 :] = pdesc[:, 16:24]
     kpts = torch.rand(b, n, 2, generator=g) * torch.tensor([640.0, 480.0])
@@ -551,7 +552,8 @@ def test_stem_kernel(dev, dtype, b, h, w):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,h,w,r", [(2, 50, 70, 4), (2, 96, 256, 4), (1, 61, 333, 2)])
+@pytest.mark.parametrize("b,h,w,r", [(2, 50, 70, 4), (2, 96, 256, 4), (1, 61, 333, 2), (2, 61, 333, 3),
+                                     (1, 120, 449, 3)])
 def test_nms_kernel(dev, dtype, b, h, w, r):
     g = torch.Generator().manual_seed(h + w + r)
     for s in (torch.rand(b, h, w, generator=g) ** 4,
@@ -576,9 +578,61 @@ def test_nms_kernel_ragged_two_launches(dev, dtype, bits, b, h, w, r):
     assert torch.equal(nms.nms(s, r).view(bits), got.view(bits))
 
 
+@pytest.mark.parametrize("dtype,bits", [(torch.bfloat16, torch.int16), (torch.float32, torch.int32)])
+def test_nms_kernel_radius_3_superpoint_maps(dev, dtype, bits):
+    """Kernel 9's R = 3 instance (halo 15 rounded up to 16: 56 x 224 tiles)
+    on SuperPoint-shaped score maps, 2 x 480 x 640: 65-way softmax cells
+    without their dustbin, pixel-shuffled (values near 1/65, exact ties in
+    a quantized band), bit for bit against simple_nms on two launches, one
+    counted launch a call."""
+    g = torch.Generator().manual_seed(3)
+    logits = torch.randn(2, 65, 60, 80, generator=g) * 2.0
+    s = torch.nn.functional.pixel_shuffle(torch.softmax(logits, 1)[:, :-1], 8)[:, 0]
+    s[:, 200:260] = torch.round(s[:, 200:260] * 256) / 256
+    s = s.to(dev, dtype).contiguous()
+    before = nms.LAUNCHES["nms"]
+    got = nms.nms(s, 3)
+    torch.cuda.synchronize()
+    assert nms.LAUNCHES["nms"] == before + 1
+    assert torch.equal(got.view(bits), nms.simple_nms(s, 3).view(bits))
+    assert torch.equal(nms.nms(s, 3).view(bits), got.view(bits))
+    assert int((got > 0).sum()) > 1000
+
+
+@pytest.mark.parametrize("b,n,p", [(4, 512, 2048), (2, 4096, 4096), (2, 192, 320)])
+def test_refine_nn_kernel_256d(dev, b, n, p):
+    """Kernel 7's 256-d instance (one CTA an SM, the query tiles and stages
+    of four boxes), on the tie case at SuperPoint's width: agreement,
+    ties and gating as the 128-d instance's, one counted launch, the same
+    bits on two launches; a padded shape through the wrapper."""
+    args = _refine_tie_case(torch.Generator().manual_seed(n + p + 256), b, n, p, dev, d=256)
+    before = refine.LAUNCHES["refine_nn"]
+    idx, d1, keep = refine.refine_nn(*args)
+    torch.cuda.synchronize()
+    assert refine.LAUNCHES["refine_nn"] == before + 1
+    ridx, rd1, rkeep = refine.refine_nn_plain(*args)
+    assert (idx == ridx).float().mean().item() >= 0.99
+    assert (keep == rkeep).float().mean().item() >= 0.99
+    assert (d1 - rd1).abs().max().item() <= 1e-4
+    ties = torch.arange(16, device=dev).expand(b - 1, 16)
+    assert torch.equal(idx[:-1, :16], ties) and not keep[:, :16].any() and not keep[-1].any()
+    assert keep.any()
+    again = refine.refine_nn(*args)
+    for a, r in zip(again, (idx, d1, keep)):
+        assert torch.equal(a, r)
+    cut = [args[0][:, : n - 7], args[1][:, : p - 13], args[2][:, : n - 7], args[3][:, : p - 13],
+           args[4][:, : p - 13], args[5][:, : n - 7]]
+    cut = [t.contiguous() for t in cut] + args[6:]
+    idx, _, keep = refine.refine_nn(*cut)
+    ridx, _, rkeep = refine.refine_nn_plain(*cut)
+    assert (idx == ridx).float().mean().item() >= 0.99 and (keep == rkeep).float().mean().item() >= 0.99
+    with pytest.raises(ValueError, match="descriptors"):
+        refine.refine_nn(*[a[..., :64].contiguous() if i < 2 else a for i, a in enumerate(args)])
+
+
 def test_extractor_wrappers_refuse_what_the_kernels_do_not_take(dev):
     s = torch.rand(1, 32, 32, device=dev)
-    for r in (3, 9):
+    for r in (1, 9):
         with pytest.raises(ValueError, match="radius"):
             nms.nms(s, r)
     with pytest.raises(ValueError, match="f32 or bf16"):

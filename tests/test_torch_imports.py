@@ -12,7 +12,9 @@ same with the first 2 layers of the trained Aachen AdaGML
 augmented training steps of the first layer of the rendered SegNetViT on
 that view through ``Trainer``; and the int8 path on that view: the int8
 extractor quantized and calibrated there, and the 2-layer GML with int8
-projections and MLPs; then both serving CLIs' ``main`` on the CPU with
+projections and MLPs; SuperPoint, SegNet and GM at one layer on the view,
+RetNet and the descriptor compressor on SFD2's outputs; then both serving
+CLIs' ``main`` on the CPU with
 2-layer recognizers, on the synthetic scene's map and features and on a
 160 x 120 rendered map with two PNG frames, written by chip_smoke.py's
 writers (the config, COLMAP, feature, image and weight readers of their
@@ -162,6 +164,32 @@ SCRIPT = textwrap.dedent(
              "gt_seg": torch.arange(64)[None], "mask": kp.mask}
     means = trainer.process_epoch([batch, batch])
     assert trainer.state.iteration == 2 and np.isfinite(means["loss"])
+
+    # the second model family on the view: SuperPoint (radius 3), SegNet and
+    # GM at one layer (pair), RetNet and the compressor on SFD2's outputs
+    from pram_tpu_torch.engine.matching import make_gm_match_fn
+    from pram_tpu_torch.models.registry import build_extractor, build_matcher, build_recognizer
+    from pram_tpu_torch.models.retnet import RetNet
+    from pram_tpu_torch.models.sfd2 import DescriptorCompressor
+    from pram_tpu_torch.models.superpoint import extract as sp_extract
+    from pram_tpu_torch.models.superpoint import preprocess_image as sp_pre
+
+    torch.manual_seed(0)
+    sp = build_extractor("superpoint").eval()
+    with torch.no_grad():
+        fsp = sp_extract(sp, sp_pre(torch.from_numpy(img[None])), max_keypoints=64, conf_th=0.005)
+        ksp = fsp["keypoints"]
+        nksp = ksp.xy / torch.tensor([160.0, 120.0]) - 0.5
+        pred = build_recognizer("segnet", {"n_layers": 1, "n_class": 5}).eval()(
+            fsp["seg_descriptors"], nksp, mask=ksp.mask)["prediction"]
+        gm = build_matcher("gm", {"n_layers": 1, "descriptor_dim": 256}).eval()
+        gm_m = make_gm_match_fn(gm, 0.0)(fsp["descriptors"], nksp, ksp.scores, ksp.mask,
+                                         fsp["descriptors"], nksp, ksp.scores, ksp.mask)
+        glob = RetNet().eval()(feats["mid_features"])
+        comp = DescriptorCompressor(64)(feats["descriptors"])
+    assert fsp["descriptors"].shape == (1, 64, 256) and fsp["seg_descriptors"].shape == (1, 64, 256)
+    assert pred.shape == (1, 64, 5) and torch.isfinite(pred).all() and gm_m.shape == (1, 64)
+    assert glob.shape == (1, 1024) and comp.shape == (1, 64, 64)
 
     # the two serving CLIs, through main(argv) on the CPU at 2 layers: the
     # config, map, feature, image and weight readers of their paths

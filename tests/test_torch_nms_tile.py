@@ -2,7 +2,8 @@
 numpy on the CPU.
 
 A block owns a TH x TW output tile of one image and loads it with a halo of
-(1 + 2 num_iters) R pixels on every side into a region of LW = 256 columns
+(1 + 2 num_iters) R pixels on every side, rounded up to an even count (the
+pair pools start on an even column), into a region of LW = 256 columns
 (NWD = 4 word pairs of 64 pixels) by TH + 2 halo rows, TH = 56, with -inf
 outside the image. Stage s of the chain (1 + 2 num_iters stages) computes
 rows [s R, LH - s R) of the region, all its columns. The masks are words:
@@ -10,19 +11,23 @@ rows [s R, LH - s R) of the region, all its columns. The masks are words:
 + 31 (bit l: pair 32 k + l), 0 outside the image. A float pool runs on
 pixel pairs: down the column a thread takes a pair and CH = 8 rows (the
 last run of a stage ends at its last row, overlapping the one before), the
-window's maximum composed from doubling spans in place; along the row a
-thread takes a word pair, and for each pair p the maxima a0 / a1 of the R
-pairs from p - R/2 and from p - R/2 + 1, and m = max(max(a0, pair p +
-R/2), (a0.hi, a1.lo)); s == m sets bit l of E and O. supp_s = where(supp,
-0, s) is formed as the column pass loads it. A binary pool (supp) is an OR of
-2R + 1 words down the column, then funnel shifts of E and O by -R/2..R/2
-pairs across the neighbouring words. The mirror below does exactly these
+window's maximum composed from doubling spans in place up to the largest
+power of two WP <= 2R + 1 and one max with the span 2R + 1 - WP further;
+along the row a thread takes a word pair, and for even R, for each pair p
+the maxima a0 / a1 of the R pairs from p - R/2 and from p - R/2 + 1, and m
+= max(max(a0, pair p + R/2), (a0.hi, a1.lo)); for R = 3 the maximum f of
+the pairs p - 1 .. p + 1 and m = max(f, f swapped, (pair p - 2 .hi, pair
+p + 2 .lo)); s == m sets bit l of E and O. supp_s = where(supp, 0, s) is
+formed as the column pass loads it. A binary pool (supp) is an OR of 2R + 1
+words down the column, then funnel shifts of E and O by s pairs across the
+neighbouring words: same-parity bits where |2s| <= R, even from odd where
+|2s + 1| <= R, odd from even where |2s - 1| <= R. The mirror below does exactly these
 steps (uint32 words, uint64 funnel shifts, the pairs as even and odd
 planes), so its geometry and bit layout are the kernel's.
 
 Tolerances: none. Max and equality are exact, so the mirror is bit-equal to
 ``simple_nms`` (f32 maps, and bf16 maps whose values f32 holds exactly) for
-radii 2 and 4, widths that are not multiples of 32 or 64, and maps with
+radii 2, 3 and 4, widths that are not multiples of 32 or 64, and maps with
 many exact ties; and bit-equal to the JAX package's Pallas kernel in
 interpret mode on non-negative maps, since that kernel pads with zeros
 (pram_tpu/ops/nms_pallas.py:11-14).
@@ -43,6 +48,7 @@ M32 = np.uint64(0xFFFFFFFF)
 
 def geometry(radius, num_iters):
     halo = (1 + 2 * num_iters) * radius
+    halo += halo & 1  # even: extra context does not change a max
     return halo, TH + 2 * halo, LW - 2 * halo
 
 
@@ -86,14 +92,15 @@ def dilate_words(e, o, r0, r1, radius):
         te[y] = np.bitwise_or.reduce(e[y - radius:y + radius + 1], 0)
         to[y] = np.bitwise_or.reduce(o[y - radius:y + radius + 1], 0)
     de, do = np.zeros_like(e), np.zeros_like(o)
-    h = radius // 2
+    h = (radius + 1) // 2
     for s in range(-h, h + 1):
         se, so = shifted(te, s), shifted(to, s)
-        de |= se
-        do |= so
-        if s < h:
+        if abs(2 * s) <= radius:  # same parity, 2 s pixels away
+            de |= se
+            do |= so
+        if abs(2 * s + 1) <= radius:  # even 2l from odd 2(l + s) + 1
             de |= so
-        if s > -h:
+        if abs(2 * s - 1) <= radius:  # odd 2l + 1 from even 2(l + s)
             do |= se
     de[:r0] = de[r1:] = 0
     do[:r0] = do[r1:] = 0
@@ -102,33 +109,42 @@ def dilate_words(e, o, r0, r1, radius):
 
 def column_pool(lo, hi, r0, r1, radius):
     """V of rows [r0, r1) from the pair planes lo, hi [LH, LP]: runs of CH
-    rows (the last one ending at r1, overlapping the one before), the
-    window's max by doubling spans in place, out[j] = max(w[j], w[j + 1])."""
+    rows (the last one ending at r1, overlapping the one before), the max of
+    WP rows by doubling spans in place (WP the largest power of two <= 2R +
+    1), out[j] = max(w[j], w[j + 2R + 1 - WP])."""
     vlo, vhi = np.full_like(lo, -np.inf), np.full_like(hi, -np.inf)
     nwin = CH + 2 * radius
+    s2 = 1 << ((2 * radius + 1).bit_length() - 1)
     for start in range(r0, r1, CH):
         y0 = min(start, r1 - CH)
         rows = np.arange(y0 - radius, y0 - radius + nwin)
         for src, dst in ((lo, vlo), (hi, vhi)):
             w = src[rows].copy()
             span = 1
-            while span < 2 * radius:
+            while 2 * span <= s2:
                 for i in range(nwin - 2 * span + 1):
                     w[i] = np.maximum(w[i], w[i + span])
                 span *= 2
             for j in range(CH):
-                dst[y0 + j] = np.maximum(w[j], w[j + 1])
+                dst[y0 + j] = np.maximum(w[j], w[j + 2 * radius + 1 - s2])
     return vlo, vhi
 
 
 def row_pool(vlo, vhi, radius):
     """The along-the-row max of every pair from V (padded with -inf by PADP
-    pairs): a0, a1 over R pairs, the stitch (a0.hi, a1.lo)."""
+    pairs): for even R, a0, a1 over R pairs and the stitch (a0.hi, a1.lo);
+    for R = 3, f over the 3 pairs p - 1 .. p + 1, f swapped, and the stitch
+    (pair p - 2 .hi, pair p + 2 .lo)."""
     pad = np.full((vlo.shape[0], PADP), -np.inf, vlo.dtype)
     plo, phi = np.concatenate([pad, vlo, pad], 1), np.concatenate([pad, vhi, pad], 1)
     def pair(i):  # pair p - R/2 + i for every p
         s = PADP - radius // 2 + i
         return plo[:, s:s + LP], phi[:, s:s + LP]
+    if radius == 3:  # pair(i) is pair p - 1 + i
+        f_lo = np.maximum(np.maximum(pair(0)[0], pair(1)[0]), pair(2)[0])
+        f_hi = np.maximum(np.maximum(pair(0)[1], pair(1)[1]), pair(2)[1])
+        f = np.maximum(f_lo, f_hi)  # max(f, f swapped), either half
+        return np.maximum(f, pair(-1)[1]), np.maximum(f, pair(3)[0])
     c_lo, c_hi = pair(1)
     for i in range(2, radius):
         c_lo, c_hi = np.maximum(c_lo, pair(i)[0]), np.maximum(c_hi, pair(i)[1])
@@ -212,7 +228,7 @@ def _bits(a):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("radius", [2, 4])
+@pytest.mark.parametrize("radius", [2, 3, 4])
 @pytest.mark.parametrize("kind", ["random", "ties", "signed"])
 @pytest.mark.parametrize("shape", [(2, 61, 333), (1, 120, 70)])
 def test_tile_nms_bit_equal_to_simple_nms(dtype, radius, kind, shape):
@@ -232,7 +248,7 @@ def test_tile_nms_other_iteration_counts(num_iters):
     np.testing.assert_array_equal(_bits(tile_nms(s, 2, num_iters)), _bits(ref))
 
 
-@pytest.mark.parametrize("radius", [2, 4])
+@pytest.mark.parametrize("radius", [2, 3, 4])
 @pytest.mark.parametrize("kind", ["random", "ties"])
 def test_tile_nms_bit_equal_to_pallas_interpret(radius, kind):
     """Non-negative maps (the Pallas kernel pads with zeros), H a multiple
@@ -242,7 +258,7 @@ def test_tile_nms_bit_equal_to_pallas_interpret(radius, kind):
     np.testing.assert_array_equal(_bits(tile_nms(s, radius)), _bits(pal))
 
 
-@pytest.mark.parametrize("radius", [2, 4])
+@pytest.mark.parametrize("radius", [2, 3, 4])
 def test_word_dilation_is_the_binary_pool(radius):
     """The column OR and the funnel-shifted row ORs over E / O words equal
     maxpool(mask) > 0 away from the region's border."""
@@ -258,7 +274,7 @@ def test_word_dilation_is_the_binary_pool(radius):
     assert np.array_equal(unpack(*pack(mask)), mask)
 
 
-@pytest.mark.parametrize("radius", [2, 4])
+@pytest.mark.parametrize("radius", [2, 3, 4])
 def test_pair_pool_is_max_pool(radius):
     """The column pass by doubling spans and the row pass on pairs with the
     stitch equal the plain separable max pool inside the region."""
@@ -272,3 +288,20 @@ def test_pair_pool_is_max_pool(radius):
     ref = max_pool_2d(torch.from_numpy(a), radius).numpy()
     inner = (slice(radius, lh - radius), slice(radius, LW - radius))
     np.testing.assert_array_equal(got[inner], ref[inner])
+
+
+@pytest.mark.parametrize("num_iters", [1, 2])
+def test_tile_nms_radius_3_geometry(num_iters):
+    """At R = 3 the halo (1 + 2 num_iters) 3 is odd and is rounded up (16 at
+    two iterations: a 56 x 224 tile, 88 loaded rows); the extra column and
+    row of context leave the result bit-equal on SuperPoint-like maps
+    (the score map of 65-way softmax cells: values near 1/65 with exact
+    ties) whose widths put a tile edge on an odd column."""
+    halo, lh, tw = geometry(3, num_iters)
+    assert halo % 2 == 0 and halo == (1 + 2 * num_iters) * 3 + 1 and tw == LW - 2 * halo
+    rng = np.random.RandomState(num_iters)
+    s = (rng.dirichlet(np.ones(65), (2, 9, 40))[..., :64].reshape(2, 9, 40, 8, 8)
+         .transpose(0, 1, 3, 2, 4).reshape(2, 72, 320)).astype(np.float32)
+    s[:, :, 100:140] = np.round(s[:, :, 100:140] * 64) / 64  # ties
+    ref = simple_nms(torch.from_numpy(s), 3, num_iters).numpy()
+    np.testing.assert_array_equal(_bits(tile_nms(s, 3, num_iters)), _bits(ref))

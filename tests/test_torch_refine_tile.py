@@ -26,7 +26,9 @@ multiple of the 64-point stage but not of 128, which keeps a query tile on
 one CTA, and multiples of 128, whose query tiles are split between two
 CTAs (rank 1's rows merged into rank 0's by the same rule). Against the Pallas kernel in interpret mode, as
 tests/test_torch_refine.py holds it: indices and flags exact, d1 within
-1e-6.
+1e-6. The kernel's 256-d instance (SuperPoint's descriptors) runs the same
+fold on similarities of twice the k-steps: the cases at d = 256 hold it
+likewise, and ``refine_nn_plain`` at 256-d against the Pallas kernel.
 """
 
 import jax.numpy as jnp
@@ -137,13 +139,15 @@ def _case(seed, b, n, p, d=128):
 # whose query tiles the kernel splits between two CTAs of a cluster where
 # they do not fill the card (256, 384); N = 192 leaves a CTA's second
 # warpgroup without queries
-CASES = [(3, 128, 320, 1), (2, 192, 448, 1), (2, 128, 256, 2), (2, 64, 384, 2)]
+CASES = [(3, 128, 320, 1, 128), (2, 192, 448, 1, 128), (2, 128, 256, 2, 128), (2, 64, 384, 2, 128),
+         (2, 192, 320, 1, 256), (2, 128, 256, 2, 256)]
 
 
-@pytest.fixture(scope="module", params=CASES, ids=[f"b{b}_n{n}_p{p}_split{s}" for b, n, p, s in CASES])
+@pytest.fixture(scope="module", params=CASES,
+                ids=[f"b{b}_n{n}_p{p}_split{s}" + ("" if d == 128 else f"_d{d}") for b, n, p, s, d in CASES])
 def case(request):
-    b, n, p, split = request.param
-    arrays = _case(11 + n + p, b, n, p)
+    b, n, p, split, d = request.param
+    arrays = _case(11 + n + p + d, b, n, p, d)
     descs, pdesc, kpts, uv, in_img, qmask = (T(a) for a in arrays)
     sim = descs @ pdesc.transpose(-1, -2)  # the plain version's f32 similarities
     tile = refine_tile(sim, kpts, uv, in_img, qmask, GATE, RATIO, split)
@@ -203,3 +207,18 @@ def test_merge_order_does_not_change_the_result():
         for got in (merge(merge(a, b), merge(c, d)), merge(merge(merge(a, b), c), d)):
             for x, y in zip(got, ref):
                 assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("p", [256, 320])
+def test_refine_nn_plain_at_256d_matches_pallas_interpret(p):
+    """SuperPoint's width: ``refine_nn_plain`` on 256-d descriptors gives
+    the Pallas kernel's nn_idx and keep (d1 within 1e-6); the Pallas
+    kernel tiles any width its point block divides."""
+    arrays = _case(40 + p, 2, 128, p, 256)
+    idx, d1, keep = refine_nn_plain(*(T(a) for a in arrays), GATE, RATIO)
+    for i in range(2):
+        ridx, rd1, rkeep = refine_nn_pallas(*(jnp.asarray(a[i]) for a in arrays), GATE, RATIO, interpret=True)
+        np.testing.assert_array_equal(idx[i].numpy(), np.asarray(ridx))
+        np.testing.assert_allclose(d1[i].numpy(), np.asarray(rd1), rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(keep[i].numpy(), np.asarray(rkeep))
+    assert keep.any() and not keep[:, :16].any()
