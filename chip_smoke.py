@@ -311,6 +311,33 @@ Phases, each printed with its elapsed seconds:
                 SFD2 descriptors and RetNet on SFD2 mid_features, card bf16
                 against CPU f32.
 
+30. mapping     map building at a real mapping run's size: 64 reference views of the
+                image slice's world at 480 x 640 rendered on the host, SFD2
+                in bf16 on the card (kernels 8 and 9) at 2048 keypoints a
+                view written as an npy feature directory, each view paired
+                with its 8 nearest by camera centre (a retrieval file read
+                back through maps/parsers.py), every pair matched by mutual
+                NN on the card, triangulated with the known poses through
+                mapping/triangulate.py:triangulate_model (points, track
+                length, the distance of each point to the rendered surface
+                under its first observation, also on tracks of 3+ views, on
+                tracks the ground truth confirms and by triangulation
+                angle), then cli.build_map's main with
+                KMeans and with Birch on the card (stages by a synchronized
+                StageTimer), and again with --device cpu: KMeans labels equal
+                on >= 99.9% of points, Birch labels equal, the chosen track
+                descriptor equal on >= 99.9% (where not, the two medians
+                within 1e-5), VRFs equal on segments whose members agree,
+                the compressed model's points equal wherever every
+                segment's first VRF agrees; the KMeans map loaded by
+                load_scene_map localizes phase 10's 32 noisy queries (SFD2,
+                routing by the ground truth over the map's labels, GML,
+                RANSAC PnP, projection refinement) with kernels 1-9 each
+                launched, recall@5cm/5deg >= 31/32, queries/s; KMeans at 10^6
+                points x 512 clusters x 50 iterations and best_of over 65536
+                tracks of up to 64 views of 128-d, by host clock, CUDA events
+                and peak device memory.
+
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Each
 kernel's row carries ``launches_cli``, its launches on phase 22's two paths,
@@ -319,8 +346,8 @@ kernel's row carries ``launches_cli``, its launches on phase 22's two paths,
 float), ``launches_aachen_gml``, ``launches_aachen_cli``, ``launches_shapes``
 and ``launches_online_1000``, and where the kernel ran there, its figures at
 path A's and path B's shapes (``aachen_front``, ``aachen_gml``);
-``launches_superpoint`` (phase 28, by matcher) and ``launches_segnet_gm_cli``
-(phase 29), and for kernels 9, 7 and 6 their figures on the SuperPoint
+``launches_superpoint`` (phase 28, by matcher), ``launches_segnet_gm_cli``
+(phase 29) and ``launches_mapping`` (phase 30's localization), and for kernels 9, 7 and 6 their figures on the SuperPoint
 path (``superpoint``: R = 3, 256-d, GM's plan). The row
 ``sinkhorn_wide`` is kernel 6's wide instance, its launches path B's. Any failed
 check raises, so the script exits non-zero and prints no result. It needs a
@@ -3096,6 +3123,418 @@ def run_segnet_gm_cli_phase(torch, np, dev, bf16, scene, queries, reset_counts, 
 
 
 
+# ---- phase 30: map building (the offline landmark pipeline) on the card, at
+# a real mapping run's size: 64 reference views of the image slice's textured
+# world at 480 x 640, SFD2 (bf16, kernels 8 and 9) at 2048 keypoints a view,
+# 8 nearest views a view, mutual-NN matching on the card (cli/match_features
+# .py's NNM), triangulation with the known poses, then cli.build_map with
+# KMeans and with Birch; the KMeans map localizes phase 10's 32 queries
+MAP_VIEWS, MAP_W, MAP_H, MAP_FOCAL = 64, 640, 480, 500.0
+MAP_KPTS = 2048
+MAP_QUERIES = 32  # phase 10's noisy queries (seed 11)
+MAP_PAIRS = 8
+MAP_MATCH_BATCH = 64  # pairs a mutual-NN call
+MAP_EXTRACT_BATCH = 16  # views an SFD2 call
+# cli.build_map's flags: the landmark count of the image slice's scene (16
+# clusters), xyz as the rendered world is a room and not a street; a frame
+# becomes a VRF candidate with 300 of its ~1000 triangulated keypoints (the
+# reference's 120-250 on views of 4096); the compression's 8 px keeps a
+# covisible frame's points away from those kept (its 2048 keypoints sit
+# ~12 px apart; the reference's 15-64 px are for 4096 keypoints on larger
+# images); Birch at the CLI's default threshold, the reference's 0.01 for
+# indoor scenes
+MAP_N_CLUSTER = 16
+MAP_FLAGS = ["--n_cluster", str(MAP_N_CLUSTER), "--cluster_mode", "xyz", "--vrf_min_obs", "300",
+             "--compress_radius", "8"]
+# the localizer's tables: the image slice's caps (frames of 1024 points, 2048
+# refinement points), which keep GML's frame side on kernel 6's cluster
+# instance (m + 1 <= 1152)
+MAP_LOAD_CAPS = dict(max_kp_per_frame=1024, max_ref_points=2048)
+MAP_ROUTE_RADIUS = 0.25  # a query keypoint takes the label of the map point nearest its lift within this
+MAP_LIFT_AGREE = 0.03  # a track the ground truth confirms: every observation lifts within this of the first's
+MAP_RECALL_MIN = 31 / 32
+# card vs CPU builds: KMeans labels (f32 sums in another order) and the
+# track descriptor (its median ties within the sums' rounding) by share;
+# Birch is host code on both sides, so equal
+MAP_KMEANS_AGREE = 0.999
+MAP_DESC_AGREE, MAP_DESC_MEDIAN_TOL = 0.999, 1e-5
+# scale timings: KMeans over 10^6 points at the Aachen config's 512
+# clusters, 50 iterations; best_of over 65536 tracks of up to 64 views of
+# 128-d descriptors
+SCALE_KMEANS = (1_000_000, 512, 50)
+SCALE_TRACKS = (65536, 64, 128)
+
+
+def nearest_view_pairs(np, poses, names, k: int) -> list:
+    """``(name_i, name_j)`` for each view and its ``k`` nearest views by camera
+    centre, nearest first."""
+    centres = np.array([-R.T @ t for R, t in poses])
+    d = np.linalg.norm(centres[:, None] - centres[None], axis=-1)
+    pairs = []
+    for i in range(len(poses)):
+        near = [j for j in np.argsort(d[i], kind="stable") if j != i][:k]
+        pairs += [(names[i], names[j]) for j in near]
+    return pairs
+
+
+def route_by_lift(np, world, kpts, mask, poses, cam, point_xyz, point_seg, n_class: int):
+    """Logits ``[B, N, n_class]`` that route queries by the ground truth over
+    a built map's labels: +10 at 1 + the label of the map point nearest the
+    world point each keypoint lifts to (within MAP_ROUTE_RADIUS; else class
+    0, the background), -10 elsewhere."""
+    from scipy.spatial import cKDTree
+
+    tree = cKDTree(point_xyz)
+    b, n = mask.shape
+    logits = np.full((b, n, n_class), -10.0, np.float32)
+    for i, (R, t) in enumerate(poses):
+        xyz, _, _, _, ok = world.lift(kpts[i].astype(np.float64), R, t, cam)
+        dist, nn = tree.query(xyz)
+        cls = np.where(ok & mask[i] & (dist <= MAP_ROUTE_RADIUS), point_seg[nn] + 1, 0)
+        logits[i, np.arange(n), cls] = 10.0
+    return logits
+
+
+def surface_distances(np, world, points, poses, names, kp_by_name, cam):
+    """Each triangulated point's distance to the surface point its first
+    observation lifts to (``TexturedWorld.lift``), and that distance's
+    ``[count, median, p90]`` over the readings that tell its causes apart:
+    tracks of 3 or more views; points the ground truth confirms (every
+    observation lifts within MAP_LIFT_AGREE of the first's: no look-alike
+    match); those of both; and confirmed points by their widest triangulation
+    angle (the depth's spread grows as the angle shrinks)."""
+    obs_by_img = {}
+    for pid, p in points.items():
+        for o, (iid, k) in enumerate(zip(p.image_ids, p.point2D_idxs)):
+            obs_by_img.setdefault(int(iid), []).append((pid, o, int(k)))
+    lifts = {pid: np.full((len(p.image_ids), 3), np.nan) for pid, p in points.items()}
+    for iid, obs in obs_by_img.items():
+        R, t = poses[iid - 1]
+        gt, _, _, _, ok = world.lift(kp_by_name[names[iid - 1]][[k for _, _, k in obs]].astype(np.float64), R, t, cam)
+        for (pid, o, _), x, v in zip(obs, gt, ok):
+            if v:
+                lifts[pid][o] = x
+    centres = np.array([-R.T @ t for R, t in poses])
+    rows = []  # (distance, track length, confirmed, widest angle in degrees)
+    for pid, p in points.items():
+        lift = lifts[pid]
+        if not np.isfinite(lift[0]).all():
+            continue
+        rays = p.xyz[None] - centres[np.asarray(p.image_ids) - 1]
+        rays /= np.linalg.norm(rays, axis=1, keepdims=True)
+        angle = np.degrees(np.arccos(np.clip((rays @ rays.T).min(), -1.0, 1.0)))
+        confirmed = bool(np.isfinite(lift).all() and (np.linalg.norm(lift - lift[0], axis=1) <= MAP_LIFT_AGREE).all())
+        rows.append((np.linalg.norm(p.xyz - lift[0]), len(p.image_ids), confirmed, angle))
+    d, n, c, a = (np.array(x) for x in zip(*rows))
+    stat = lambda sel: [int(sel.sum()), float(np.median(d[sel])), float(np.percentile(d[sel], 90))] if sel.any() \
+        else [0, None, None]
+    by = {"track3": stat(n >= 3), "confirmed": stat(c), "confirmed_track3": stat(c & (n >= 3))}
+    for lo, hi in ((0, 5), (5, 15), (15, 180)):
+        by[f"confirmed_angle_{lo}_{hi}"] = stat(c & (a >= lo) & (a < hi))
+    return d, by
+
+
+def same_records(a, b) -> bool:
+    """Nested dicts / lists / arrays equal."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and list(a) == list(b) and all(same_records(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(map(same_records, a, b))
+    if hasattr(a, "shape"):
+        return hasattr(b, "shape") and a.shape == b.shape and bool((a == b).all())
+    return a == b
+
+
+def compare_builds(np, card_dir: Path, cpu_dir: Path, tag: str, tracks: dict) -> dict:
+    """The card's and the CPU's builds of one method: labels, track
+    descriptors (by the medians where the choice differs), VRFs of the
+    segments whose points agree, the compressed model's point ids."""
+    from pram_tpu_torch.maps.colmap_io import read_compressed_model
+
+    load = lambda d, f: np.load(d / f, allow_pickle=True)[()]
+    cg, cc = load(card_dir, f"point3D_cluster_{tag}.npy"), load(cpu_dir, f"point3D_cluster_{tag}.npy")
+    require(np.array_equal(cg["id"], cc["id"]), f"{tag}: clustered points differ card vs CPU")
+    label_agree = float((cg["label"] == cc["label"]).mean())
+    dg, dc = load(card_dir, "point3D_desc.npy"), load(cpu_dir, "point3D_desc.npy")
+    require(list(dg) == list(dc), f"{tag}: described points differ card vs CPU")
+    differ, gap = 0, 0.0
+    for pid, d in dg.items():
+        if np.array_equal(d, dc[pid]):
+            continue
+        differ += 1
+        t = tracks[pid].astype(np.float64)
+        med = np.median(2.0 - 2.0 * t @ t.T, axis=1)
+        i, j = (int(np.nonzero((tracks[pid] == x).all(1))[0][0]) for x in (d, dc[pid]))
+        gap = max(gap, abs(float(med[i] - med[j])))
+    members = {}
+    for side, c in (("card", cg), ("cpu", cc)):
+        for pid, lab in zip(c["id"], c["label"]):
+            members.setdefault(side, {}).setdefault(int(lab), set()).add(int(pid))
+    same_segs = [s for s, m in members["card"].items() if members["cpu"].get(s) == m]
+    vg, vc = load(card_dir, f"point3D_vrf_{tag}.npy"), load(cpu_dir, f"point3D_vrf_{tag}.npy")
+    vrf_equal = all(same_records(vg.get(s), vc.get(s)) for s in same_segs)
+    # the compression is host code over the shared model, seeded by each
+    # segment's first VRF: equal seeds must give equal point ids, whether or
+    # not every label agrees
+    seeds = lambda v: [int(r[0]["image_id"]) for r in v.values() if 0 in r]
+    method = tag.split("_")[-1]
+    pg = set(read_compressed_model(str(card_dir / f"compress_model_{method}"), ".bin")[2])
+    pc = set(read_compressed_model(str(cpu_dir / f"compress_model_{method}"), ".bin")[2])
+    return dict(label_agree=label_agree, desc_agree=1.0 - differ / max(len(dg), 1), desc_differ=differ,
+                desc_median_gap_max=gap, segments=len(members["card"]), segments_same=len(same_segs),
+                vrf_equal_on_same_segments=vrf_equal, vrf_seeds_equal=seeds(vg) == seeds(vc),
+                compressed_points=[len(pg), len(pc)], compressed_equal=pg == pc)
+
+
+def run_mapping_phase(torch, np, dev, bf16, reset_counts, read_counts, path_kernels) -> dict:
+    """Phase 30: the offline landmark pipeline on the card from the port's
+    own SFD2 features (triangulation, cli.build_map with KMeans and Birch),
+    the KMeans map localized through kernels 1-9, counted; the same build
+    on the card machine's CPU, compared."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pram_tpu_torch.cli import build_map as cli_build_map
+    from pram_tpu_torch.engine.localizer import LocConfig, Localizer
+    from pram_tpu_torch.engine.matching import make_gml_match_fn
+    from pram_tpu_torch.engine.rendered_guard import GML_W, SFD2_W, apply_noise, render_views
+    from pram_tpu_torch.geometry.camera import Camera
+    from pram_tpu_torch.geometry.rotations import compute_pose_error
+    from pram_tpu_torch.maps.colmap_io import ColmapCamera, ColmapImage, read_model
+    from pram_tpu_torch.maps.device import to_device
+    from pram_tpu_torch.maps.loader import load_scene_map
+    from pram_tpu_torch.maps.packed import _qvec2rotmat_np
+    from pram_tpu_torch.maps.parsers import parse_retrieval
+    from pram_tpu_torch.maps.rendered import make_world, ref_poses
+    from pram_tpu_torch.maps.synthetic import _rotmat2qvec_np
+    from pram_tpu_torch.mapping.triangulate import triangulate_model
+    from pram_tpu_torch.models.convert import load_gml, load_sfd2
+    from pram_tpu_torch.models.gml import GMLConfig
+    from pram_tpu_torch.models.nn_matcher import mutual_nn_match
+    from pram_tpu_torch.models.sfd2 import extract, preprocess_image
+
+    out, secs = {}, {}
+    cam = (MAP_FOCAL, MAP_FOCAL, MAP_W / 2, MAP_H / 2)
+    with tempfile.TemporaryDirectory(prefix="pram_mapping_") as tmp:
+        tmp = Path(tmp)
+        # 1. reference views of the image slice's world, rendered on the host
+        t = time.perf_counter()
+        wrng = np.random.RandomState(0)
+        world = make_world(wrng)
+        poses = ref_poses(MAP_VIEWS, wrng)
+        with ThreadPoolExecutor(8) as pool:
+            imgs = np.stack(list(pool.map(lambda p: world.render(*p, cam, MAP_W, MAP_H), poses))).astype(np.float32)
+        secs["render"] = time.perf_counter() - t
+
+        # 2. SFD2 on the card (bf16: kernels 8 and 9), written as FeatureSource's npy directory
+        t = time.perf_counter()
+        sfd2 = load_sfd2(SFD2_W, device=dev, dtype=bf16)
+        names = [f"db/view_{i:03d}.png" for i in range(MAP_VIEWS)]
+        feats_dir = tmp / "features"
+        feats_dir.mkdir()
+        kp_by_name, desc_by_name = {}, {}
+        with torch.no_grad():
+            for s in range(0, MAP_VIEWS, MAP_EXTRACT_BATCH):
+                x = preprocess_image(torch.from_numpy(imgs[s:s + MAP_EXTRACT_BATCH]).to(dev)).to(bf16)
+                f = extract(sfd2, x, max_keypoints=MAP_KPTS, conf_th=1e-4)
+                k = f["keypoints"]
+                for j in range(x.shape[0]):
+                    m = k.mask[j].cpu().numpy()
+                    name = names[s + j]
+                    kp_by_name[name] = k.xy[j].cpu().numpy()[m].astype(np.float32)
+                    desc_by_name[name] = f["descriptors"][j].float().cpu().numpy()[m]
+                    np.save(feats_dir / (name.replace("/", "+") + ".npy"), {
+                        "keypoints": kp_by_name[name], "scores": k.scores[j].float().cpu().numpy()[m],
+                        "descriptors": desc_by_name[name], "image_size": np.array([MAP_W, MAP_H])})
+        torch.cuda.synchronize()
+        secs["extract"] = time.perf_counter() - t
+        n_kp = [len(v) for v in kp_by_name.values()]
+
+        # 3. pairs: the 8 nearest views by camera centre, through a retrieval file
+        pairs_txt = tmp / "pairs.txt"
+        pairs_txt.write_text("".join(f"{a} {b}\n" for a, b in nearest_view_pairs(np, poses, names, MAP_PAIRS)))
+        pairs = [(q, r) for q, rs in parse_retrieval(str(pairs_txt)).items() for r in rs]
+
+        # 4. mutual-NN matching of every pair on the card (cli/match_features.py's NNM)
+        t = time.perf_counter()
+        row = {n: i for i, n in enumerate(names)}
+        dpad = torch.zeros(MAP_VIEWS, MAP_KPTS, desc_by_name[names[0]].shape[1], device=dev)
+        mpad = torch.zeros(MAP_VIEWS, MAP_KPTS, dtype=torch.bool, device=dev)
+        for n, d in desc_by_name.items():
+            dpad[row[n], :len(d)] = torch.from_numpy(d).to(dev)
+            mpad[row[n], :len(d)] = True
+        matches = {}
+        for s in range(0, len(pairs), MAP_MATCH_BATCH):
+            chunk = pairs[s:s + MAP_MATCH_BATCH]
+            i0 = torch.tensor([row[a] for a, _ in chunk], device=dev)
+            i1 = torch.tensor([row[b] for _, b in chunk], device=dev)
+            res = mutual_nn_match(dpad[i0], dpad[i1], mpad[i0], mpad[i1])
+            m0, s0 = res.matches0.cpu().numpy(), res.scores0.cpu().numpy()
+            for j, p in enumerate(chunk):
+                idx = np.nonzero(m0[j] >= 0)[0]
+                matches[p] = (np.stack([idx, m0[j][idx]], -1), s0[j][idx])
+        torch.cuda.synchronize()
+        secs["match"] = time.perf_counter() - t
+        n_matches = [len(m) for m, _ in matches.values()]
+
+        # 5. triangulation with the known poses (the sqlite database in the temporary directory)
+        t = time.perf_counter()
+        # the renderer's pixel centres sit at whole coordinates and COLMAP's at
+        # half ones (triangulation adds 0.5 to every keypoint): the principal
+        # point moves with them
+        cameras = {1: ColmapCamera(1, "PINHOLE", MAP_W, MAP_H, np.array([*cam[:2], cam[2] + 0.5, cam[3] + 0.5]))}
+        images = {i + 1: ColmapImage(i + 1, _rotmat2qvec_np(R), t_, 1, names[i], np.zeros((0, 2)),
+                                     np.zeros(0, np.int64)) for i, (R, t_) in enumerate(poses)}
+        model_dir = tmp / "model"
+        tri = triangulate_model(cameras, images, kp_by_name, pairs, matches, str(model_dir))
+        secs["triangulate"] = time.perf_counter() - t
+        _, _, points = read_model(str(model_dir), ".bin")
+        errs, by = surface_distances(np, world, points, poses, names, kp_by_name, cam)
+        tri.update(seconds=secs["triangulate"], lift_err_median=float(np.median(errs)),
+                   lift_err_p90=float(np.percentile(errs, 90)), lifted=len(errs), lift_err_by=by)
+        log(f"mapping: {MAP_VIEWS} views of {MAP_H} x {MAP_W} rendered in {secs['render']:.2f} s (host, 8 threads); "
+            f"SFD2 bf16 at {MAP_KPTS} keypoints {secs['extract']:.2f} s ({min(n_kp)}-{max(n_kp)} a view); "
+            f"{len(pairs)} pairs matched by mutual NN on the card in {secs['match']:.2f} s ({np.mean(n_matches):.0f} "
+            f"matches a pair); triangulation {json.dumps(tri)}")
+        require(tri["num_points"] > 1000 and np.isfinite(errs).all(), "mapping: triangulation gave too few points")
+
+        # tracks' descriptors, for the card vs CPU check of the descriptor choice
+        tracks = {pid: np.stack([desc_by_name[names[i - 1]][k] for i, k in zip(p.image_ids, p.point2D_idxs)])
+                  for pid, p in points.items()}
+
+        # 6. cli.build_map through main(argv): KMeans and Birch, on the card, then on the CPU
+        builds = {}
+        for method in ("kmeans", "birch"):
+            for side, device in (("card", str(dev)), ("cpu", "cpu")):
+                d = tmp / f"landmarks_{method}_{side}"
+                t = time.perf_counter()
+                stages, _ = run_cli(f"build_map ({method}, {side})", cli_build_map.main, [
+                    "--model", str(model_dir), "--features", str(feats_dir), "--output", str(d),
+                    "--cluster_method", method, "--device", device, *MAP_FLAGS])
+                builds[(method, side)] = dict(dir=d, seconds=time.perf_counter() - t,
+                                              stages_ms={k: round(v, 3) for k, v in stages.items()})
+        out["build"] = {f"{m}_{s}": {k: v for k, v in b.items() if k != "dir"} for (m, s), b in builds.items()}
+        log(f"mapping: cli.build_map {json.dumps(out['build'])}")
+
+        # 8. card vs CPU builds
+        tag = f"n{MAP_N_CLUSTER}_xyz"
+        cmp = {m: compare_builds(np, builds[(m, "card")]["dir"], builds[(m, "cpu")]["dir"], f"{tag}_{m}", tracks)
+               for m in ("kmeans", "birch")}
+        out["card_vs_cpu"] = cmp
+        log(f"mapping: card vs CPU builds {json.dumps(cmp)}")
+        require(cmp["kmeans"]["label_agree"] >= MAP_KMEANS_AGREE, "mapping: KMeans labels differ card vs CPU")
+        require(cmp["birch"]["label_agree"] == 1.0, "mapping: Birch labels differ card vs CPU")
+        for m, c in cmp.items():
+            require(c["desc_agree"] >= MAP_DESC_AGREE and c["desc_median_gap_max"] <= MAP_DESC_MEDIAN_TOL,
+                    f"mapping ({m}): track descriptors differ card vs CPU")
+            require(c["vrf_equal_on_same_segments"], f"mapping ({m}): VRFs differ card vs CPU")
+            require(c["compressed_equal"] or not c["vrf_seeds_equal"],
+                    f"mapping ({m}): compressed models differ card vs CPU from equal VRF seeds")
+
+        # 7. the KMeans map, loaded as a user loads it, localizes phase 10's queries, counted
+        pmap = load_scene_map(str(builds[("kmeans", "card")]["dir"]), n_cluster=MAP_N_CLUSTER, cluster_mode="xyz",
+                              cluster_method="kmeans", with_compress=True, **MAP_LOAD_CAPS)
+        gml = load_gml(GML_W, GMLConfig(), device=dev, dtype=bf16)
+        cfg = LocConfig(seg_k=1, min_inliers=32, threshold=8.0, num_hypotheses=128, do_refinement=True,
+                        gn_iters=5, lo_rounds=1)
+        loc = Localizer(to_device(pmap, dev, desc_dtype=bf16), make_gml_match_fn(gml, gml.config.match_threshold),
+                        cfg)
+        q_imgs, q_qvecs, q_tvecs = render_views(MAP_QUERIES, 11, world)
+        q_imgs = apply_noise(q_imgs, np.random.RandomState(12))
+        q_poses = [(_qvec2rotmat_np(q), tv.astype(np.float64)) for q, tv in zip(q_qvecs, q_tvecs)]
+        camera = Camera(torch.tensor([[*cam, 0.0, 0.0, 0.0, 0.0]] * MAP_QUERIES, device=dev),
+                        torch.tensor([[float(MAP_W), float(MAP_H)]] * MAP_QUERIES, device=dev))
+
+        def localize(route=None):
+            """(features, logits, result, extraction s, localization s)."""
+            with torch.no_grad():
+                t0 = time.perf_counter()
+                f = extract(sfd2, preprocess_image(torch.from_numpy(q_imgs).to(dev)).to(bf16), max_keypoints=512,
+                            conf_th=1e-4)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                k = f["keypoints"]
+                logits = route if route is not None else torch.from_numpy(route_by_lift(
+                    np, world, k.xy.cpu().numpy(), k.mask.cpu().numpy(), q_poses, cam, pmap.point_xyz,
+                    pmap.point_seg, pmap.n_class)).to(dev)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                res = loc.localize_batch(torch.Generator().manual_seed(7), camera, k.xy, k.scores.float(),
+                                         f["descriptors"].to(bf16), k.mask, logits)
+                torch.cuda.synchronize()
+                return f, logits, res, t1 - t0, time.perf_counter() - t2
+
+        reset_counts()
+        f, logits, res, _, _ = localize()
+        launches = read_counts()
+        log(f"mapping: localization launches {launches}")
+        for name in path_kernels:
+            require(launches[name] > 0, f"mapping: kernel {name} was not launched on the built map's path")
+        qe, te = compute_pose_error(res.qvec.cpu(), res.tvec.cpu(), torch.from_numpy(q_qvecs).float(),
+                                    torch.from_numpy(q_tvecs))
+        ok = res.success.cpu() & (te < 0.05) & (qe < 5.0)
+        runs = [localize(logits) for _ in range(3)]
+        ext_s, loc_s = sorted(r[3] for r in runs)[1], sorted(r[4] for r in runs)[1]
+        out["localization"] = dict(
+            map_points=pmap.num_points, map_frames=pmap.num_frames, n_class=pmap.n_class,
+            recall=int(ok.sum()) / MAP_QUERIES, n_ok=int(ok.sum()), success=int(res.success.sum()),
+            median_t_err=float(te.median()), median_q_err=float(qe.median()),
+            routed_share=float((logits.argmax(-1) > 0)[f["keypoints"].mask].float().mean()),
+            extract_ms=ext_s * 1e3, localize_ms=loc_s * 1e3, queries_per_s=MAP_QUERIES / (ext_s + loc_s),
+            launches=launches)
+        log(f"mapping: the KMeans map localized {int(ok.sum())}/{MAP_QUERIES} queries within 5 cm / 5 deg "
+            f"{json.dumps({k: v for k, v in out['localization'].items() if k != 'launches'})} (median of 3 runs by "
+            f"host clock, synchronized; the ground-truth routing excluded)")
+        require(ok.sum() >= MAP_RECALL_MIN * MAP_QUERIES, "mapping: recall@5cm/5deg below 31/32 on the built map")
+        out["views"], out["pairs"], out["secs"] = MAP_VIEWS, len(pairs), secs
+        out["keypoints"], out["matches_per_pair"] = [min(n_kp), max(n_kp)], float(np.mean(n_matches))
+        out["triangulation"] = tri
+        del sfd2, gml, loc
+    return out
+
+
+def mapping_scale_timings(torch, dev) -> dict:
+    """KMeans at SCALE_KMEANS and best_of at SCALE_TRACKS on the card: a call
+    by host clock (synchronized) and by CUDA events, and the peak of device
+    memory it allocated."""
+    from pram_tpu_torch.mapping.clustering import kmeans
+    from pram_tpu_torch.mapping.recmap import best_of
+
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(0)
+    n, k, iters = SCALE_KMEANS
+    pts = torch.rand(n, 3, generator=g, device=dev) * torch.tensor([10.0, 7.0, 5.0], device=dev)
+    b, tmax, d = SCALE_TRACKS
+    desc = torch.randn(b, tmax, d, generator=g, device=dev)
+    desc = (desc / desc.norm(dim=-1, keepdim=True)).to(torch.bfloat16).float()
+    lens = torch.randint(1, tmax + 1, (b,), generator=g, device=dev)
+    mask = torch.arange(tmax, device=dev)[None] < lens[:, None]
+    cases = {
+        "kmeans": lambda: kmeans(pts, k, iters, generator=torch.Generator().manual_seed(0)),
+        "best_of": lambda: best_of(desc, mask),
+    }
+    for name, fn in cases.items():
+        fn()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out[name] = dict(host_ms=host_ms, cuda_ms=start.elapsed_time(end), peak_bytes=int(peak))
+    out["kmeans"]["shape"] = dict(points=n, clusters=k, iterations=iters)
+    out["best_of"]["shape"] = dict(tracks=b, max_views=tmax, dim=d, views=int(lens.sum()))
+    log(f"mapping scale timings: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -5419,6 +5858,15 @@ def main() -> int:
     log(f"segnet + gm CLI: {json.dumps(sg_cli)}")
     phase("segnet_gm_cli", t)
 
+    # ---- 30. map building: triangulation and cli.build_map on the card from the port's SFD2 features,
+    # the built map localized through kernels 1-9, the card's build against the CPU's, the scale timings
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    mapping = run_mapping_phase(torch, np, dev, bf16, reset_counts, read_counts, gml_kernels + ("fused_stem", "nms"))
+    mapping["scale"] = mapping_scale_timings(torch, dev)
+    log(f"mapping: {json.dumps({k: v for k, v in mapping.items() if k != 'localization'})}; card: {smi}")
+    phase("mapping", t)
+
     wide = gml_b["kernels"]["sinkhorn_wide"]
     rows["sinkhorn_wide"] = dict(
         name="sinkhorn_wide", route="cuda", source="pram_tpu_torch/csrc/sinkhorn.cu",
@@ -5434,6 +5882,7 @@ def main() -> int:
         r["launches_online_1000"] = cli_runs["online_1000"]["launches"][name]
         r["launches_superpoint"] = {k: run["launches"][name] for k, run in sp_path["paths"].items()}
         r["launches_segnet_gm_cli"] = sg_cli["inference"]["launches"][name]
+        r["launches_mapping"] = mapping["localization"]["launches"][name]
         if name in sp_path["kernels"]:
             r["superpoint"] = sp_path["kernels"][name]
         for path, got in (("aachen_front", front["kernels"]), ("aachen_gml", gml_b["kernels"])):

@@ -20,7 +20,12 @@ CLIs' ``main`` on the CPU with
 writers (the config, COLMAP, feature, image and weight readers of their
 paths); then both training CLIs' ``main`` on the CPU: the GML fit at one
 layer, and cli.train at two layers on a tiny layout written by
-chip_smoke.training_layout.
+chip_smoke.training_layout; then map building: the mapping scene of
+tests/torch_mapping_scene.py triangulated through the port's
+``triangulate_model`` (the COLMAP database in sqlite3), and
+``cli.build_map``'s ``main`` on the CPU on its npy features and model with
+KMeans and with Birch (the port's own, in numpy and scipy: no sklearn, and
+no h5py on the path).
 """
 
 import os
@@ -37,7 +42,7 @@ BLOCKED = (
 
 SCRIPT = textwrap.dedent(
     """
-    import importlib, importlib.abc, pkgutil, sys
+    import importlib, importlib.abc, os, pkgutil, sys
 
     BLOCKED = set(%r)
 
@@ -257,6 +262,27 @@ SCRIPT = textwrap.dedent(
         cfg = chip_smoke.training_layout(tmp / "train", small, 6, 3, top, n_kpts=48, n_outliers=32)
         run = cli_train.main(["--config", str(cfg), "--device", "cpu", "--save_dir", str(tmp / "ck")])
         assert run.state.iteration == 2 and (tmp / "ck" / "epoch_0001.pt").exists()
+
+        # map building: triangulation with known poses, then cli.build_map with
+        # both clustering methods, on the CPU
+        from pram_tpu_torch.cli import build_map as cli_build_map
+        from pram_tpu_torch.maps.colmap_io import read_model
+        from pram_tpu_torch.mapping.triangulate import triangulate_model
+        from tests.torch_mapping_scene import keypoints_by_name, make_scene, matches_by_pair, write_inputs
+
+        mscene = make_scene(np.random.RandomState(0), n_pts=200, n_views=6)
+        paths = write_inputs(mscene, str(tmp / "mapping"))
+        assert not os.path.exists(paths["feats_h5"])
+        cams, ims, _ = read_model(paths["ref"], ".bin")
+        stats = triangulate_model(cams, ims, keypoints_by_name(mscene), mscene["pairs"], matches_by_pair(mscene),
+                                  str(tmp / "mapping" / "model"))
+        assert stats["num_points"] > 100
+        for method in ("kmeans", "birch"):
+            out = tmp / "mapping" / method
+            stages = cli_build_map.main(["--model", str(tmp / "mapping" / "model"), "--features", paths["npy"],
+                                         "--output", str(out), "--n_cluster", "4", "--cluster_method", method,
+                                         "--vrf_min_obs", "10", "--compress_radius", "8", "--device", "cpu"])
+            assert (out / f"compress_model_{method}" / "points3D.bin").exists() and "descriptors" in stages
     leaked = BLOCKED & {m.split(".")[0] for m in sys.modules}
     assert not leaked, leaked
     print("FENCE OK", len(names))
