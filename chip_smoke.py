@@ -337,6 +337,24 @@ Phases, each printed with its elapsed seconds:
                 points x 512 clusters x 50 iterations and best_of over 65536
                 tracks of up to 64 views of 128-d, by host clock, CUDA events
                 and peak device memory.
+31. hloc        the hloc file pipeline through the CLIs' main(argv) on phase
+                30's world: its 64 reference views and 32 queries written as
+                PNGs, cli.extract_features (SFD2 bf16, the sfd2 config's 4096
+                keypoints, one image at a time) into feats.h5, the 8 nearest
+                views a view, cli.match_features with GML (batches of 8 pairs
+                padded to 4096 a side) into matches.h5, cli.triangulate
+                against the known poses, cli.build_map --features feats.h5
+                with KMeans; every dataset written read back by io/h5.py
+                equal; the queries on the built map through Localizer (as
+                phase 30, recall@5cm/5deg >= 31/32) and through
+                engine/hloc_localizer.py:run_localizer with each query's 10
+                nearest reference views by camera centre (recall@0.25m/2deg
+                >= 31/32, queries/s); kernels 1, 5, 2 and 6's wide instance
+                at the pair matcher's first batch against their plain
+                versions; run_localizer with mutual NN on the first 4 queries,
+                card against CPU on the card's triplets (equal flags, poses
+                within 5 mm / 0.1 deg); stage seconds, every kernel counted
+                over the path.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Each
@@ -347,7 +365,9 @@ float), ``launches_aachen_gml``, ``launches_aachen_cli``, ``launches_shapes``
 and ``launches_online_1000``, and where the kernel ran there, its figures at
 path A's and path B's shapes (``aachen_front``, ``aachen_gml``);
 ``launches_superpoint`` (phase 28, by matcher), ``launches_segnet_gm_cli``
-(phase 29) and ``launches_mapping`` (phase 30's localization), and for kernels 9, 7 and 6 their figures on the SuperPoint
+(phase 29), ``launches_mapping`` (phase 30's localization) and ``launches_hloc`` (phase
+31's path), with kernels 1, 2, 5 and 6 wide's figures at the pair matcher's shapes (``hloc``), and for kernels 9, 7
+and 6 their figures on the SuperPoint
 path (``superpoint``: R = 3, 256-d, GM's plan). The row
 ``sinkhorn_wide`` is kernel 6's wide instance, its launches path B's. Any failed
 check raises, so the script exits non-zero and prints no result. It needs a
@@ -3286,6 +3306,84 @@ def compare_builds(np, card_dir: Path, cpu_dir: Path, tag: str, tracks: dict) ->
                 compressed_points=[len(pg), len(pc)], compressed_equal=pg == pc)
 
 
+def localize_built_map(torch, np, dev, bf16, sfd2, landmarks, world, queries, reset_counts, read_counts,
+                       path_kernels, what: str) -> dict:
+    """The KMeans map under ``landmarks``, loaded as a user loads it, localizes
+    ``queries`` (images, qvecs, tvecs): SFD2 at 512 keypoints, GML, the
+    localizer at the image slice's settings, routed by the ground truth;
+    counted once, then timed (median of 3). Requires every kernel of
+    ``path_kernels`` launched and recall@5cm/5deg >= MAP_RECALL_MIN."""
+    from pram_tpu_torch.engine.localizer import LocConfig, Localizer
+    from pram_tpu_torch.engine.matching import make_gml_match_fn
+    from pram_tpu_torch.engine.rendered_guard import GML_W
+    from pram_tpu_torch.geometry.camera import Camera
+    from pram_tpu_torch.geometry.rotations import compute_pose_error
+    from pram_tpu_torch.maps.device import to_device
+    from pram_tpu_torch.maps.loader import load_scene_map
+    from pram_tpu_torch.maps.packed import _qvec2rotmat_np
+    from pram_tpu_torch.models.convert import load_gml
+    from pram_tpu_torch.models.gml import GMLConfig
+    from pram_tpu_torch.models.sfd2 import extract, preprocess_image
+
+    cam = (MAP_FOCAL, MAP_FOCAL, MAP_W / 2, MAP_H / 2)
+    q_imgs, q_qvecs, q_tvecs = queries
+    nq = len(q_imgs)
+    pmap = load_scene_map(str(landmarks), n_cluster=MAP_N_CLUSTER, cluster_mode="xyz", cluster_method="kmeans",
+                          with_compress=True, **MAP_LOAD_CAPS)
+    gml = load_gml(GML_W, GMLConfig(), device=dev, dtype=bf16)
+    cfg = LocConfig(seg_k=1, min_inliers=32, threshold=8.0, num_hypotheses=128, do_refinement=True,
+                    gn_iters=5, lo_rounds=1)
+    loc = Localizer(to_device(pmap, dev, desc_dtype=bf16), make_gml_match_fn(gml, gml.config.match_threshold),
+                    cfg)
+    q_poses = [(_qvec2rotmat_np(q), tv.astype(np.float64)) for q, tv in zip(q_qvecs, q_tvecs)]
+    camera = Camera(torch.tensor([[*cam, 0.0, 0.0, 0.0, 0.0]] * nq, device=dev),
+                    torch.tensor([[float(MAP_W), float(MAP_H)]] * nq, device=dev))
+
+    def localize(route=None):
+        """(features, logits, result, extraction s, localization s)."""
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            f = extract(sfd2, preprocess_image(torch.from_numpy(q_imgs).to(dev)).to(bf16), max_keypoints=512,
+                        conf_th=1e-4)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            k = f["keypoints"]
+            logits = route if route is not None else torch.from_numpy(route_by_lift(
+                np, world, k.xy.cpu().numpy(), k.mask.cpu().numpy(), q_poses, cam, pmap.point_xyz,
+                pmap.point_seg, pmap.n_class)).to(dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            res = loc.localize_batch(torch.Generator().manual_seed(7), camera, k.xy, k.scores.float(),
+                                     f["descriptors"].to(bf16), k.mask, logits)
+            torch.cuda.synchronize()
+            return f, logits, res, t1 - t0, time.perf_counter() - t2
+
+    reset_counts()
+    f, logits, res, _, _ = localize()
+    launches = read_counts()
+    log(f"{what}: localization launches {launches}")
+    for name in path_kernels:
+        require(launches[name] > 0, f"{what}: kernel {name} was not launched on the built map's path")
+    qe, te = compute_pose_error(res.qvec.cpu(), res.tvec.cpu(), torch.from_numpy(q_qvecs).float(),
+                                torch.from_numpy(q_tvecs))
+    ok = res.success.cpu() & (te < 0.05) & (qe < 5.0)
+    runs = [localize(logits) for _ in range(3)]
+    ext_s, loc_s = sorted(r[3] for r in runs)[1], sorted(r[4] for r in runs)[1]
+    out = dict(
+        map_points=pmap.num_points, map_frames=pmap.num_frames, n_class=pmap.n_class,
+        recall=int(ok.sum()) / nq, n_ok=int(ok.sum()), success=int(res.success.sum()),
+        median_t_err=float(te.median()), median_q_err=float(qe.median()),
+        routed_share=float((logits.argmax(-1) > 0)[f["keypoints"].mask].float().mean()),
+        extract_ms=ext_s * 1e3, localize_ms=loc_s * 1e3, queries_per_s=nq / (ext_s + loc_s),
+        launches=launches)
+    log(f"{what}: the KMeans map localized {int(ok.sum())}/{nq} queries within 5 cm / 5 deg "
+        f"{json.dumps({k: v for k, v in out.items() if k != 'launches'})} (median of 3 runs by "
+        f"host clock, synchronized; the ground-truth routing excluded)")
+    require(ok.sum() >= MAP_RECALL_MIN * nq, f"{what}: recall@5cm/5deg below 31/32 on the built map")
+    del gml, loc
+    return out
+
+
 def run_mapping_phase(torch, np, dev, bf16, reset_counts, read_counts, path_kernels) -> dict:
     """Phase 30: the offline landmark pipeline on the card from the port's
     own SFD2 features (triangulation, cli.build_map with KMeans and Birch),
@@ -3295,21 +3393,13 @@ def run_mapping_phase(torch, np, dev, bf16, reset_counts, read_counts, path_kern
     from concurrent.futures import ThreadPoolExecutor
 
     from pram_tpu_torch.cli import build_map as cli_build_map
-    from pram_tpu_torch.engine.localizer import LocConfig, Localizer
-    from pram_tpu_torch.engine.matching import make_gml_match_fn
-    from pram_tpu_torch.engine.rendered_guard import GML_W, SFD2_W, apply_noise, render_views
-    from pram_tpu_torch.geometry.camera import Camera
-    from pram_tpu_torch.geometry.rotations import compute_pose_error
+    from pram_tpu_torch.engine.rendered_guard import SFD2_W, apply_noise, render_views
     from pram_tpu_torch.maps.colmap_io import ColmapCamera, ColmapImage, read_model
-    from pram_tpu_torch.maps.device import to_device
-    from pram_tpu_torch.maps.loader import load_scene_map
-    from pram_tpu_torch.maps.packed import _qvec2rotmat_np
     from pram_tpu_torch.maps.parsers import parse_retrieval
     from pram_tpu_torch.maps.rendered import make_world, ref_poses
     from pram_tpu_torch.maps.synthetic import _rotmat2qvec_np
     from pram_tpu_torch.mapping.triangulate import triangulate_model
-    from pram_tpu_torch.models.convert import load_gml, load_sfd2
-    from pram_tpu_torch.models.gml import GMLConfig
+    from pram_tpu_torch.models.convert import load_sfd2
     from pram_tpu_torch.models.nn_matcher import mutual_nn_match
     from pram_tpu_torch.models.sfd2 import extract, preprocess_image
 
@@ -3432,64 +3522,17 @@ def run_mapping_phase(torch, np, dev, bf16, reset_counts, read_counts, path_kern
                     f"mapping ({m}): compressed models differ card vs CPU from equal VRF seeds")
 
         # 7. the KMeans map, loaded as a user loads it, localizes phase 10's queries, counted
-        pmap = load_scene_map(str(builds[("kmeans", "card")]["dir"]), n_cluster=MAP_N_CLUSTER, cluster_mode="xyz",
-                              cluster_method="kmeans", with_compress=True, **MAP_LOAD_CAPS)
-        gml = load_gml(GML_W, GMLConfig(), device=dev, dtype=bf16)
-        cfg = LocConfig(seg_k=1, min_inliers=32, threshold=8.0, num_hypotheses=128, do_refinement=True,
-                        gn_iters=5, lo_rounds=1)
-        loc = Localizer(to_device(pmap, dev, desc_dtype=bf16), make_gml_match_fn(gml, gml.config.match_threshold),
-                        cfg)
         q_imgs, q_qvecs, q_tvecs = render_views(MAP_QUERIES, 11, world)
         q_imgs = apply_noise(q_imgs, np.random.RandomState(12))
-        q_poses = [(_qvec2rotmat_np(q), tv.astype(np.float64)) for q, tv in zip(q_qvecs, q_tvecs)]
-        camera = Camera(torch.tensor([[*cam, 0.0, 0.0, 0.0, 0.0]] * MAP_QUERIES, device=dev),
-                        torch.tensor([[float(MAP_W), float(MAP_H)]] * MAP_QUERIES, device=dev))
-
-        def localize(route=None):
-            """(features, logits, result, extraction s, localization s)."""
-            with torch.no_grad():
-                t0 = time.perf_counter()
-                f = extract(sfd2, preprocess_image(torch.from_numpy(q_imgs).to(dev)).to(bf16), max_keypoints=512,
-                            conf_th=1e-4)
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                k = f["keypoints"]
-                logits = route if route is not None else torch.from_numpy(route_by_lift(
-                    np, world, k.xy.cpu().numpy(), k.mask.cpu().numpy(), q_poses, cam, pmap.point_xyz,
-                    pmap.point_seg, pmap.n_class)).to(dev)
-                torch.cuda.synchronize()
-                t2 = time.perf_counter()
-                res = loc.localize_batch(torch.Generator().manual_seed(7), camera, k.xy, k.scores.float(),
-                                         f["descriptors"].to(bf16), k.mask, logits)
-                torch.cuda.synchronize()
-                return f, logits, res, t1 - t0, time.perf_counter() - t2
-
-        reset_counts()
-        f, logits, res, _, _ = localize()
-        launches = read_counts()
-        log(f"mapping: localization launches {launches}")
-        for name in path_kernels:
-            require(launches[name] > 0, f"mapping: kernel {name} was not launched on the built map's path")
-        qe, te = compute_pose_error(res.qvec.cpu(), res.tvec.cpu(), torch.from_numpy(q_qvecs).float(),
-                                    torch.from_numpy(q_tvecs))
-        ok = res.success.cpu() & (te < 0.05) & (qe < 5.0)
-        runs = [localize(logits) for _ in range(3)]
-        ext_s, loc_s = sorted(r[3] for r in runs)[1], sorted(r[4] for r in runs)[1]
-        out["localization"] = dict(
-            map_points=pmap.num_points, map_frames=pmap.num_frames, n_class=pmap.n_class,
-            recall=int(ok.sum()) / MAP_QUERIES, n_ok=int(ok.sum()), success=int(res.success.sum()),
-            median_t_err=float(te.median()), median_q_err=float(qe.median()),
-            routed_share=float((logits.argmax(-1) > 0)[f["keypoints"].mask].float().mean()),
-            extract_ms=ext_s * 1e3, localize_ms=loc_s * 1e3, queries_per_s=MAP_QUERIES / (ext_s + loc_s),
-            launches=launches)
-        log(f"mapping: the KMeans map localized {int(ok.sum())}/{MAP_QUERIES} queries within 5 cm / 5 deg "
-            f"{json.dumps({k: v for k, v in out['localization'].items() if k != 'launches'})} (median of 3 runs by "
-            f"host clock, synchronized; the ground-truth routing excluded)")
-        require(ok.sum() >= MAP_RECALL_MIN * MAP_QUERIES, "mapping: recall@5cm/5deg below 31/32 on the built map")
+        queries = (q_imgs, q_qvecs, q_tvecs)
+        out["localization"] = localize_built_map(torch, np, dev, bf16, sfd2, builds[("kmeans", "card")]["dir"], world,
+                                                 queries, reset_counts, read_counts, path_kernels, "mapping")
         out["views"], out["pairs"], out["secs"] = MAP_VIEWS, len(pairs), secs
         out["keypoints"], out["matches_per_pair"] = [min(n_kp), max(n_kp)], float(np.mean(n_matches))
         out["triangulation"] = tri
-        del sfd2, gml, loc
+        # what phase 31 starts from: the world, its reference views and the queries
+        out["world"] = dict(world=world, imgs=imgs, poses=poses, names=names, queries=queries)
+        del sfd2
     return out
 
 
@@ -3532,6 +3575,310 @@ def mapping_scale_timings(torch, dev) -> dict:
     out["kmeans"]["shape"] = dict(points=n, clusters=k, iterations=iters)
     out["best_of"]["shape"] = dict(tracks=b, max_views=tmax, dim=d, views=int(lens.sum()))
     log(f"mapping scale timings: {json.dumps(out)}")
+    return out
+
+
+# ---- phase 31: the hloc file pipeline through the CLIs' main(argv), on
+# phase 30's world: the 64 reference views and the 32 queries as PNGs,
+# cli.extract_features (SFD2 bf16, the sfd2 config's 4096 keypoints, one
+# image at a time) into feats.h5, the 8 nearest views a view, cli.
+# match_features with GML (batches of 8 pairs padded to 4096 a side: kernel
+# 6's wide instance at 4097 x 4097) into matches.h5, cli.triangulate against
+# the known poses, cli.build_map --features feats.h5 (KMeans); the queries
+# localized on the built map by Localizer (phase 30's way) and by the
+# retrieval-driven run_localizer (each query's 10 nearest reference views by
+# camera centre: no retrieval network is in the repo), the latter with
+# mutual NN on the card against the card machine's CPU on the first 4
+HLOC_RETRIEVAL = 10
+HLOC_CPU_QUERIES = 4
+HLOC_RECALL_MIN = 31 / 32  # run_localizer at 0.25 m / 2 deg
+HLOC_T_TOL, HLOC_R_TOL_DEG = 0.005, 0.1  # card vs CPU poses
+
+
+def write_hloc_inputs(np, root: Path, names, imgs, q_names, q_imgs) -> None:
+    """The views as 8-bit RGB PNGs under ``root`` by name."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(item):
+        name, img = item
+        (root / name).parent.mkdir(parents=True, exist_ok=True)
+        write_png(root / name, (np.clip(img, 0.0, 1.0) * 255.0).round().astype(np.uint8))
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, [*zip(names, imgs), *zip(q_names, q_imgs)]))
+
+
+@contextlib.contextmanager
+def recording_h5_writes():
+    """Every dataset ``io/h5.py`` is asked to write, as ``(file, name,
+    array)``, in call order."""
+    import numpy as np
+
+    from pram_tpu_torch.io import h5
+
+    real, written = h5.Group.create_dataset, []
+
+    def create_dataset(self, path, data):
+        ds = real(self, path, data)
+        written.append((self.file.filename, ds.name, np.array(data, copy=True)))
+        return ds
+
+    h5.Group.create_dataset = create_dataset
+    try:
+        yield written
+    finally:
+        h5.Group.create_dataset = real
+
+
+def replaying_triplets(drawn):
+    """A ``_sample_triplets`` that hands out ``drawn`` in order, on the CPU;
+    each call must ask for the recorded shape."""
+    it = iter(drawn)
+
+    def sample(generator, mask, num_hyps):
+        t = next(it)
+        require(tuple(t.shape) == (mask.shape[0], num_hyps, 3), "hloc: the CPU's RANSAC asks for other triplets")
+        return t.cpu()
+
+    return sample
+
+
+def run_hloc_phase(torch, np, dev, bf16, world_inputs, reset_counts, read_counts, path_kernels) -> dict:
+    """Phase 31: the hloc file pipeline through the CLIs' ``main(argv)`` on
+    the card, counted; the h5 files read back; kernels 1, 2, 5 and 6's wide
+    instance held against their plain versions at the pair matcher's
+    shapes; run_localizer with mutual NN, card against CPU."""
+    import tempfile
+
+    from pram_tpu_torch.cli import build_map as cli_build_map
+    from pram_tpu_torch.cli import extract_features as cli_extract
+    from pram_tpu_torch.cli import match_features as cli_match
+    from pram_tpu_torch.cli import triangulate as cli_triangulate
+    from pram_tpu_torch.engine import hloc_localizer
+    from pram_tpu_torch.engine.rendered_guard import GML_W, SFD2_W
+    from pram_tpu_torch.geometry import pnp as gpnp
+    from pram_tpu_torch.geometry.rotations import compute_pose_error
+    from pram_tpu_torch.io import h5
+    from pram_tpu_torch.maps.colmap_io import ColmapCamera, ColmapImage, write_model
+    from pram_tpu_torch.maps.packed import _qvec2rotmat_np
+    from pram_tpu_torch.maps.parsers import names_to_pair
+    from pram_tpu_torch.maps.synthetic import _rotmat2qvec_np
+    from pram_tpu_torch.models import gml as gml_mod
+    from pram_tpu_torch.models.convert import load_sfd2
+    from pram_tpu_torch.ops import attention, cross_attention, mlp, sinkhorn
+
+    world, imgs, poses, names = (world_inputs[k] for k in ("world", "imgs", "poses", "names"))
+    q_imgs, q_qvecs, q_tvecs = world_inputs["queries"]
+    q_names = [f"query/q_{i:03d}.png" for i in range(len(q_imgs))]
+    cam = (MAP_FOCAL, MAP_FOCAL, MAP_W / 2, MAP_H / 2)
+    out, secs, launches = {}, {}, {}
+    total = {}
+
+    def counted(stage):
+        torch.cuda.synchronize()
+        launches[stage] = read_counts()
+        for k, v in launches[stage].items():
+            total[k] = total.get(k, 0) + v
+        reset_counts()
+
+    with tempfile.TemporaryDirectory(prefix="pram_hloc_") as tmp:
+        tmp = Path(tmp)
+        img_dir, feats, matches = tmp / "images", tmp / "feats.h5", tmp / "matches.h5"
+        t = time.perf_counter()
+        write_hloc_inputs(np, img_dir, names, imgs, q_names, q_imgs)
+        secs["png"] = time.perf_counter() - t
+
+        # the path, counted stage by stage: extraction, matching, triangulation, the build
+        patches = [(attention, "self_attention"), (cross_attention, "cross_attention"), (mlp, "residual_mlp"),
+                   (gml_mod, "sinkhorn")]
+        with recording_h5_writes() as written:
+            reset_counts()
+            t = time.perf_counter()
+            run_cli("extract_features", cli_extract.main, [
+                "--image_dir", str(img_dir), "--export_fn", str(feats), "--conf", "sfd2", "--weight_path", SFD2_W,
+                "--device", str(dev)])
+            secs["extract"] = time.perf_counter() - t
+            counted("extract")
+
+            pairs = nearest_view_pairs(np, poses, names, MAP_PAIRS)
+            pairs_txt = tmp / "pairs.txt"
+            pairs_txt.write_text("".join(f"{a} {b}\n" for a, b in pairs))
+            t = time.perf_counter()
+            with recording_first(patches) as seen:
+                run_cli("match_features", cli_match.main, [
+                    "--pairs", str(pairs_txt), "--features", str(feats), "--export_fn", str(matches), "--conf",
+                    "gml", "--weight_path", GML_W, "--device", str(dev)])
+            secs["match"] = time.perf_counter() - t
+            counted("match")
+
+            # the reference model: the known poses, COLMAP's principal point half a pixel on (phase 30)
+            ref_dir, model_dir, landmarks = tmp / "ref_model", tmp / "model", tmp / "landmarks"
+            cameras = {1: ColmapCamera(1, "PINHOLE", MAP_W, MAP_H, np.array([*cam[:2], cam[2] + 0.5, cam[3] + 0.5]))}
+            images = {i + 1: ColmapImage(i + 1, _rotmat2qvec_np(R), t_, 1, names[i], np.zeros((0, 2)),
+                                         np.zeros(0, np.int64)) for i, (R, t_) in enumerate(poses)}
+            write_model(cameras, images, {}, str(ref_dir), ".bin")
+            t = time.perf_counter()
+            tri, _ = run_cli("triangulate", cli_triangulate.main, [
+                "--reference_model", str(ref_dir), "--features", str(feats), "--pairs", str(pairs_txt),
+                "--matches", str(matches), "--output", str(model_dir)])
+            secs["triangulate"] = time.perf_counter() - t
+            t = time.perf_counter()
+            stages, _ = run_cli("build_map (kmeans, h5)", cli_build_map.main, [
+                "--model", str(model_dir), "--features", str(feats), "--output", str(landmarks),
+                "--cluster_method", "kmeans", "--device", str(dev), *MAP_FLAGS])
+            secs["build_map"] = time.perf_counter() - t
+            counted("triangulate_build")
+
+        # every h5 file the phase wrote, read back by io/h5.py, equal to what was written
+        t = time.perf_counter()
+        by_file = {}
+        for fn, name, arr in written:
+            by_file.setdefault(fn, []).append((name, arr))
+        for fn, items in by_file.items():
+            with h5.File(fn, "r") as f:
+                for name, arr in items:
+                    got = f[name][()]
+                    require(np.asarray(got).dtype == arr.dtype and np.array_equal(got, arr),
+                            f"hloc: {Path(fn).name}:{name} reads back other than written")
+        out["h5_read_back"] = {Path(fn).name: len(items) for fn, items in by_file.items()}
+        secs["read_back"] = time.perf_counter() - t
+        with h5.File(str(feats), "r") as f:
+            n_kp = [f[n]["keypoints"].shape[0] for n in names + q_names]
+        with h5.File(str(matches), "r") as f:
+            n_m = [int((f[names_to_pair(a, b)]["matches0"][()] >= 0).sum()) for a, b in pairs]
+        log(f"hloc: {len(names)} + {len(q_names)} PNGs in {secs['png']:.2f} s; cli.extract_features "
+            f"{secs['extract']:.2f} s ({min(n_kp)}-{max(n_kp)} keypoints a view, mean {np.mean(n_kp):.0f}); "
+            f"cli.match_features (GML) {len(pairs)} pairs in {secs['match']:.2f} s ({np.mean(n_m):.0f} matches a "
+            f"pair); cli.triangulate {secs['triangulate']:.2f} s {json.dumps(tri)}; cli.build_map "
+            f"{secs['build_map']:.2f} s {json.dumps({k: round(v, 3) for k, v in stages.items()})}; h5 read back "
+            f"{json.dumps(out['h5_read_back'])} in {secs['read_back']:.2f} s")
+        require(tri["num_points"] > 1000, "hloc: triangulation gave too few points")
+
+        # the built map through Localizer, as phase 30 localizes its map
+        sfd2 = load_sfd2(SFD2_W, device=dev, dtype=bf16)
+        reset_counts()
+        out["localization"] = localize_built_map(torch, np, dev, bf16, sfd2, landmarks, world, (q_imgs, q_qvecs,
+                                                 q_tvecs), reset_counts, read_counts, path_kernels, "hloc")
+        del sfd2
+        for k, v in out["localization"]["launches"].items():
+            total[k] = total.get(k, 0) + v
+        reset_counts()
+
+        # run_localizer: each query's 10 nearest reference views by camera centre
+        centres = np.array([-R.T @ t_ for R, t_ in poses])
+        q_centres = np.array([-_qvec2rotmat_np(np.asarray(q, np.float64)).T @ tv for q, tv in zip(q_qvecs, q_tvecs)])
+        retrieval, queries_txt, queries4 = tmp / "retrieval.txt", tmp / "queries.txt", tmp / "queries4.txt"
+        lines = []
+        for qn, c in zip(q_names, q_centres):
+            near = np.argsort(np.linalg.norm(centres - c, axis=1), kind="stable")[:HLOC_RETRIEVAL]
+            lines += [f"{qn} {names[j]}\n" for j in near]
+        retrieval.write_text("".join(lines))
+        intr = f"PINHOLE {MAP_W} {MAP_H} {cam[0]} {cam[1]} {cam[2] + 0.5} {cam[3] + 0.5}"
+        qlines = [f"{qn} {intr}\n" for qn in q_names]
+        queries_txt.write_text("".join(qlines))
+        queries4.write_text("".join(qlines[:HLOC_CPU_QUERIES]))
+        gt = {qn: {"qvec": q, "tvec": tv} for qn, q, tv in zip(q_names, q_qvecs, q_tvecs)}
+        args = (str(model_dir), str(feats), str(retrieval))
+        gml_fn = cli_match.build_match_fn("gml", GML_W, dev)
+        t = time.perf_counter()
+        res = hloc_localizer.run_localizer(*args, str(queries_txt), gml_fn, str(tmp / "hloc_gml"), gt_poses=gt,
+                                           device=dev)
+        torch.cuda.synchronize()
+        secs["run_localizer"] = time.perf_counter() - t
+        counted("run_localizer")
+        for name in path_kernels:
+            require(total[name] > 0, f"hloc: kernel {name} was not launched on the path")
+        require(total["sinkhorn_wide"] > 0, "hloc: kernel 6's wide instance was not launched on the path")
+        f32 = lambda v: torch.tensor(np.array(v), dtype=torch.float32)
+        errs = [compute_pose_error(*map(f32, (*res["poses"][qn], gt[qn]["qvec"], gt[qn]["tvec"])))
+                for qn in q_names if qn in res["poses"]]
+        n5 = sum(float(qe) <= 5.0 and float(te) <= 0.05 for qe, te in errs)
+        out["run_localizer"] = dict(
+            recall=res["recall"], recall_5cm5deg=n5 / len(q_names), failed=res["failed"],
+            seconds=secs["run_localizer"], queries_per_s=len(q_names) / secs["run_localizer"],
+            mean_query_s=res["mean_time"], median_t_err=float(np.median([float(te) for _, te in errs])),
+            median_q_err=float(np.median([float(qe) for qe, _ in errs])),
+            artifacts=sorted(p.name for p in (tmp / "hloc_gml").iterdir()))
+        log(f"hloc: run_localizer (GML, {HLOC_RETRIEVAL} retrieved) {json.dumps(out['run_localizer'])}; launches "
+            f"{json.dumps(launches['run_localizer'])}")
+        require(res["recall"]["0.25m/2.0deg"] >= HLOC_RECALL_MIN, "hloc: run_localizer recall@0.25m/2deg below 31/32")
+
+        # kernels 1, 5, 2 and 6 wide at the pair matcher's shapes (batch 0), against their plain versions
+        out["kernels"] = {}
+        with torch.no_grad():
+            (a_args, _) = seen["self_attention"]
+            splits = a_args[8]
+            err = check_scaled(f"self_attention (pairs, splits {splits})", attention.self_attention(*a_args),
+                               attention.self_attention_plain(*a_args), ATTN_TOL)
+            out["kernels"]["self_attention"] = at_shape(
+                torch, lambda: attention.self_attention(*a_args), lambda: attention.self_attention_plain(*a_args),
+                err, [a_args[0].shape[0], *splits],
+                bound_ms(*self_attention_cost(a_args[0].shape[0], splits), BF16_TENSOR_FLOPS))
+            c_args, _ = seen["cross_attention"]
+            n0 = c_args[9]
+            n1 = c_args[0].shape[1] - n0
+            err = check_scaled(f"cross_attention (pairs, {n0} x {n1})", cross_attention.cross_attention(*c_args),
+                               cross_attention.cross_attention_plain(*c_args), ATTN_TOL)
+            out["kernels"]["cross_attention"] = at_shape(
+                torch, lambda: cross_attention.cross_attention(*c_args),
+                lambda: cross_attention.cross_attention_plain(*c_args), err, [c_args[0].shape[0], n0, n1],
+                bound_ms(*cross_attention_cost(c_args[0].shape[0], n0, n1), BF16_TENSOR_FLOPS))
+            m_args, m_kw = seen["residual_mlp"]
+            err = check_scaled("residual_mlp (pairs)", mlp.residual_mlp(*m_args, **m_kw),
+                               mlp.residual_mlp_plain(*m_args, **m_kw), MLP_TOL)
+            tok = m_args[0].numel() // 256
+            out["kernels"]["residual_mlp"] = at_shape(
+                torch, lambda: mlp.residual_mlp(*m_args, **m_kw), lambda: mlp.residual_mlp_plain(*m_args, **m_kw),
+                err, [tok], mlp_bound(tok, False))
+            (sim, dustbin, iters, sm0, sm1), _ = seen["sinkhorn"]
+            b, n, m = sim.shape
+            require(sinkhorn.instance(n, m, dev)[0] == sinkhorn.WIDE, "hloc: the pairs' plan did not take the wide "
+                    "instance")
+            plan = sinkhorn.sinkhorn(sim, dustbin, iters, sm0, sm1)
+            controls = {"plain in bf16": sinkhorn.sinkhorn_matching(sim.bfloat16(), dustbin, iters, sm0, sm1).float(),
+                        f"plain, {iters - 1} iterations": sinkhorn.sinkhorn_matching(sim, dustbin, iters - 1, sm0,
+                                                                                     sm1)}
+            chk = check_wide_plan(f"sinkhorn_wide (pairs, {b} x {n + 1} x {m + 1})", plan,
+                                  sinkhorn.sinkhorn_matching(sim, dustbin, iters, sm0, sm1), controls, n, m)
+            del controls, plan
+            out["kernels"]["sinkhorn_wide"] = at_shape(
+                torch, lambda: sinkhorn.sinkhorn(sim, dustbin, iters, sm0, sm1),
+                lambda: sinkhorn.sinkhorn_matching(sim, dustbin, iters, sm0, sm1), chk["max_abs_err"],
+                [b, n + 1, m + 1], bound_ms(*sinkhorn_cost(b, n, m, iters), F32_FLOPS))
+        del seen, a_args, c_args, m_args, sim
+        torch.cuda.empty_cache()
+        for name, k in out["kernels"].items():
+            log(f"hloc: {name} at {k['shape']}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound "
+                f"{k['bound_ms']:.4f} ms ({k['bound_by']}), max abs err {k['max_abs_err']:.3e}")
+
+        # card against CPU: run_localizer with mutual NN on the first queries, the card's triplets replayed
+        nn_fn = cli_match.build_match_fn("NNM", None, dev)
+        t = time.perf_counter()
+        with recording_triplets() as drawn:
+            card = hloc_localizer.run_localizer(*args, str(queries4), nn_fn, str(tmp / "nn_card"), gt_poses=gt,
+                                                device=dev)
+        real = gpnp._sample_triplets
+        gpnp._sample_triplets = replaying_triplets(drawn)
+        try:
+            cpu = hloc_localizer.run_localizer(*args, str(queries4), nn_fn, str(tmp / "nn_cpu"), gt_poses=gt,
+                                               device="cpu")
+        finally:
+            gpnp._sample_triplets = real
+        secs["card_vs_cpu"] = time.perf_counter() - t
+        reset_counts()
+        require(card["failed"] == cpu["failed"] and card["recall"] == cpu["recall"]
+                and list(card["poses"]) == list(cpu["poses"]), "hloc: run_localizer's flags differ card vs CPU")
+        diffs = [compute_pose_error(*map(f32, (*card["poses"][qn], *cpu["poses"][qn]))) for qn in card["poses"]]
+        max_deg, max_m = max(float(d) for d, _ in diffs), max(float(d) for _, d in diffs)
+        out["card_vs_cpu"] = dict(queries=HLOC_CPU_QUERIES, failed=card["failed"], recall=card["recall"],
+                                  max_deg=max_deg, max_m=max_m, triplet_calls=len(drawn),
+                                  seconds=secs["card_vs_cpu"])
+        log(f"hloc: run_localizer (mutual NN) card vs CPU {json.dumps(out['card_vs_cpu'])}")
+        require(max_deg < HLOC_R_TOL_DEG and max_m < HLOC_T_TOL, "hloc: run_localizer's poses differ card vs CPU")
+
+    out.update(secs=secs, launches=total, launches_by_stage=launches, keypoints=[min(n_kp), max(n_kp)],
+               keypoints_mean=float(np.mean(n_kp)), matches_per_pair=float(np.mean(n_m)), pairs=len(pairs),
+               triangulation=tri, build_stages_ms={k: round(v, 3) for k, v in stages.items()})
     return out
 
 
@@ -5863,9 +6210,20 @@ def main() -> int:
     t = time.perf_counter()
     torch.cuda.empty_cache()
     mapping = run_mapping_phase(torch, np, dev, bf16, reset_counts, read_counts, gml_kernels + ("fused_stem", "nms"))
+    world_inputs = mapping.pop("world")
     mapping["scale"] = mapping_scale_timings(torch, dev)
     log(f"mapping: {json.dumps({k: v for k, v in mapping.items() if k != 'localization'})}; card: {smi}")
     phase("mapping", t)
+
+    # ---- 31. the hloc file pipeline through the CLIs' main(argv): features and matches to h5,
+    # triangulation and the map from h5, the queries on the built map and through run_localizer
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    hloc = run_hloc_phase(torch, np, dev, bf16, world_inputs, reset_counts, read_counts,
+                          gml_kernels + ("fused_stem", "nms"))
+    del world_inputs
+    log(f"hloc: {json.dumps({k: v for k, v in hloc.items() if k not in ('localization', 'kernels')})}; card: {smi}")
+    phase("hloc", t)
 
     wide = gml_b["kernels"]["sinkhorn_wide"]
     rows["sinkhorn_wide"] = dict(
@@ -5883,6 +6241,9 @@ def main() -> int:
         r["launches_superpoint"] = {k: run["launches"][name] for k, run in sp_path["paths"].items()}
         r["launches_segnet_gm_cli"] = sg_cli["inference"]["launches"][name]
         r["launches_mapping"] = mapping["localization"]["launches"][name]
+        r["launches_hloc"] = hloc["launches"][name]
+        if name in hloc["kernels"]:
+            r["hloc"] = hloc["kernels"][name]
         if name in sp_path["kernels"]:
             r["superpoint"] = sp_path["kernels"][name]
         for path, got in (("aachen_front", front["kernels"]), ("aachen_gml", gml_b["kernels"])):

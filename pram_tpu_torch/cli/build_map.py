@@ -10,11 +10,11 @@ compression radius 15-64).
 
 KMeans and the descriptor assignment run on ``--device`` (the CUDA card by
 default; ``--device cuda`` without a card raises); the rest is host numpy.
-Features are a directory of per-image ``.npy`` dicts (hloc h5 stores raise
-naming h5py, which the port does not use).
+Features are an hloc h5 file (read by the port's own HDF5 reader,
+``io/h5.py``) or a directory of per-image ``.npy`` dicts.
 
 Usage:
-  python -m pram_tpu_torch.cli.build_map --model M --features FEATS_DIR \
+  python -m pram_tpu_torch.cli.build_map --model M --features FEATS.h5|FEATS_DIR \
       --output OUT --n_cluster 16 [--cluster_mode xz] \
       [--cluster_method birch] [--device cuda]
 """
@@ -30,7 +30,7 @@ def main(argv=None):
     """Build the landmark map; returns each stage's milliseconds."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", required=True, help="triangulated COLMAP model")
-    ap.add_argument("--features", required=True, help="directory of per-image .npy features")
+    ap.add_argument("--features", required=True, help="hloc h5 features or a directory of per-image .npy features")
     ap.add_argument("--output", required=True, help="landmark output dir")
     ap.add_argument("--n_cluster", type=int, default=16)
     ap.add_argument("--cluster_mode", default="xz")

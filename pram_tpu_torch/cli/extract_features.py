@@ -1,16 +1,23 @@
-"""Feature extraction helpers (pram_tpu/cli/extract_features.py).
+"""Feature extraction CLI: images -> hloc-compatible h5
+(pram_tpu/cli/extract_features.py).
 
 Image listing and loading, padding to the stride, the per-config
-extractor (SFD2 or SuperPoint) and the descriptor compressor. Images are
-read without cv2 (``io/image.py``): PNG and ``.npy``; any other format, JPEG
-included, raises naming the file and its format. ``extract_to_h5`` writes
-hloc h5 files, which need h5py: it raises ImportError, and the command line
-that drives it waits with it (ROADMAP queue 1 item 4).
+extractor (SFD2 or SuperPoint, kernels 8 and 9 on the card) and the
+descriptor compressor; ``extract_to_h5`` writes hloc's h5 layout through
+the port's own HDF5 writer (``io/h5.py``). Images are read without cv2
+(``io/image.py``): PNG and ``.npy``; any other format, JPEG included,
+raises naming the file and its format.
+
+Usage:
+  python -m pram_tpu_torch.cli.extract_features --image_dir D --export_fn out.h5 \
+      --conf sfd2 [--weight_path W] [--image_list list.txt] [--device cuda]
 """
 
 from __future__ import annotations
 
+import argparse
 import glob
+import os
 import os.path as osp
 from typing import Dict, List, Optional
 
@@ -174,9 +181,94 @@ def build_compressor(feat_dim: int, weight_path: Optional[str] = None, device="c
     return fn
 
 
-def extract_to_h5(*args, **kwargs):
-    """hloc h5 export: needs h5py, which this port does not use."""
-    raise ImportError(
-        "extract_to_h5 writes hloc h5 files through h5py, which pram_tpu_torch does not "
-        "use (ROADMAP queue 1 item 4: the offline h5 tools)"
+def extract_to_h5(
+    image_dir: str,
+    export_fn: str,
+    conf_name: str = "sfd2",
+    weight_path: Optional[str] = None,
+    image_list: Optional[str] = None,
+    resize_max: Optional[int] = None,
+    feat_dim: int = 128,
+    compressor_weight_path: Optional[str] = None,
+    device="cuda",
+):
+    """Features of every image into an hloc h5 file (``io/h5.py``): a group
+    per image name with ``keypoints [N, 2]`` (scaled back to the original
+    size), ``scores [N]``, ``descriptors [D, N]`` (all f32) and
+    ``image_size`` (the original ``(w, h)``). Images go one at a time through
+    the config's extractor on ``device``."""
+    from pram_tpu_torch.cli.match_features import model_dtype
+    from pram_tpu_torch.io import h5
+
+    conf = CONFS[conf_name]
+    model, extract_fn, preprocess = build_extractor(conf, weight_path, device)
+    compressor = build_compressor(feat_dim, compressor_weight_path, device)
+    dtype = model_dtype(device)
+    names = list_images(image_dir, image_list)
+    os.makedirs(osp.dirname(osp.abspath(export_fn)), exist_ok=True)
+
+    mconf = conf["model"]
+    with h5.File(export_fn, "w") as out:
+        for name in names:
+            img, orig_size, scale = load_image(
+                osp.join(image_dir, name),
+                conf["preprocessing"]["grayscale"],
+                resize_max or conf["preprocessing"]["resize_max"],
+            )
+            img = _pad_to_multiple(img)
+            x = preprocess(torch.from_numpy(img).to(device)[None]).to(dtype)
+            feats = extract_fn(
+                model,
+                x,
+                max_keypoints=mconf["max_keypoints"],
+                conf_th=mconf["conf_th"],
+                nms_radius=mconf["nms_radius"],
+                min_keypoints=mconf["min_keypoints"],
+            )
+            kps = feats["keypoints"]
+            mask = kps.mask[0].cpu().numpy()
+            kpts = kps.xy[0].float().cpu().numpy()[mask] / scale  # scale back
+            scores = kps.scores[0].float().cpu().numpy()[mask]
+            descs = feats["descriptors"][0][torch.from_numpy(mask).to(device)]
+            if compressor is not None:
+                descs = compressor(descs)
+            descs = descs.float().cpu().numpy()
+            g = out.create_group(name)
+            g.create_dataset("keypoints", data=kpts.astype(np.float32))
+            g.create_dataset("scores", data=scores.astype(np.float32))
+            # hloc layout: descriptors [D, N]
+            g.create_dataset("descriptors", data=descs.T.astype(np.float32))
+            g.create_dataset("image_size", data=orig_size)
+    return export_fn
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--image_dir", required=True)
+    ap.add_argument("--export_fn", required=True)
+    ap.add_argument("--conf", default="sfd2", choices=list(CONFS))
+    ap.add_argument("--weight_path", default=None)
+    ap.add_argument("--image_list", default=None)
+    ap.add_argument("--resize_max", type=int, default=None)
+    ap.add_argument(
+        "--feat_dim", type=int, default=128,
+        help="64/32 compress descriptors through DescriptorCompressor",
     )
+    ap.add_argument("--compressor_weight_path", default=None)
+    ap.add_argument("--device", default="cuda", help="cuda (the card) or cpu")
+    args = ap.parse_args(argv)
+    return extract_to_h5(
+        args.image_dir,
+        args.export_fn,
+        args.conf,
+        args.weight_path,
+        args.image_list,
+        args.resize_max,
+        args.feat_dim,
+        args.compressor_weight_path,
+        args.device,
+    )
+
+
+if __name__ == "__main__":
+    main()

@@ -30,6 +30,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from pram_tpu_torch.io import h5
 from pram_tpu_torch.maps.colmap_io import (
     ColmapImage,
     read_model,
@@ -40,24 +41,42 @@ from pram_tpu_torch.mapping.outliers import statistical_outlier_removal
 
 
 class FeatureSource:
-    """Reader over npy feature directories (``<name with / as +>.npy``, a
-    dict of keypoints, scores, descriptors [N, D] and image_size). The
-    hloc h5 stores raise ImportError naming h5py, which the port does not
-    use."""
+    """Uniform reader over hloc-style h5 feature files (through the port's
+    own HDF5 reader, ``io/h5.py``) or npy directories (``<name with / as
+    +>.npy``, a dict of keypoints, scores, descriptors [N, D] and
+    image_size)."""
 
     def __init__(self, path: str):
-        if path.endswith(".h5") or path.endswith(".hdf5"):
-            raise ImportError(
-                f"{path}: hloc h5 feature stores need h5py, which this port does not use; "
-                "give a directory of per-image .npy feature dicts"
-            )
         self.path = path
+        self._h5 = None
+        if path.endswith(".h5") or path.endswith(".hdf5"):
+            self._h5 = h5.File(path, "r")
 
     def get(self, image_name: str) -> Dict[str, np.ndarray]:
+        if self._h5 is not None:
+            g = self._h5[image_name]
+            return {
+                "keypoints": g["keypoints"][()],
+                "scores": g["scores"][()],
+                # hloc stores descriptors [D, N]
+                "descriptors": g["descriptors"][()].T,
+                "image_size": g["image_size"][()]
+                if "image_size" in g
+                else None,
+            }
         fn = osp.join(self.path, image_name.replace("/", "+") + ".npy")
         return np.load(fn, allow_pickle=True)[()]
 
     def names(self) -> List[str]:
+        if self._h5 is not None:
+            out = []
+
+            def visit(name, obj):
+                if isinstance(obj, h5.Group) and "keypoints" in obj:
+                    out.append(name)
+
+            self._h5.visititems(visit)
+            return out
         return [
             f[:-4].replace("+", "/")
             for f in os.listdir(self.path)

@@ -18,8 +18,8 @@ geometry to pycolmap (COLMAP C++); here the full path is native:
 Features and matches come as arrays: keypoints by image name, ``(index
 pairs, scores)`` by image pair, as the JAX package's h5 reads give them
 (:func:`triangulate_model`). :func:`run_triangulation` reads them from hloc
-h5 files through ``maps/parsers.py``, which raises ImportError naming h5py,
-which the port does not use.
+h5 files through ``maps/parsers.py``'s getters (the port's own HDF5 reader,
+``io/h5.py``).
 """
 
 from __future__ import annotations

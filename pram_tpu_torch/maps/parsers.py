@@ -1,8 +1,9 @@
-"""Query/retrieval list parsers (pram_tpu/maps/parsers.py).
+"""Query/retrieval list parsers + h5 feature/match store helpers
+(pram_tpu/maps/parsers.py).
 
 hloc-compatible query-with-intrinsics lists, retrieval pair files, pair
-naming and the epipolar helpers. The h5 keypoint and match getters raise
-ImportError naming h5py: nothing on the port's paths reads h5.
+naming, the epipolar helpers and the h5 keypoint and match getters, which
+read hloc's files through the port's own HDF5 reader (``io/h5.py``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from collections import defaultdict
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+from pram_tpu_torch.io import h5
 
 
 def parse_image_list_with_intrinsics(path: str) -> List[Tuple[str, tuple]]:
@@ -55,15 +58,47 @@ def names_to_pair_old(name0: str, name1: str) -> str:
     return "_".join((name0.replace("/", "-"), name1.replace("/", "-")))
 
 
-def _needs_h5py(*_, **__):
-    raise ImportError(
-        "the hloc h5 feature and match stores need h5py, which this port does "
-        "not use; the port's command-line tools read .npy feature caches"
-    )
+def list_h5_names(path: str) -> List[str]:
+    """All image names stored in an hloc-style h5 file."""
+    names = []
+    with h5.File(path, "r") as f:
+
+        def visit(_, obj):
+            if isinstance(obj, h5.Dataset):
+                names.append(obj.parent.name.strip("/"))
+
+        f.visititems(visit)
+    return sorted(set(names))
 
 
-# the h5 readers of pram_tpu/maps/parsers.py:60-106
-list_h5_names = get_keypoints = find_pair = get_matches = _needs_h5py
+def get_keypoints(path: str, name: str) -> np.ndarray:
+    with h5.File(path, "r") as f:
+        return f[name]["keypoints"][()]
+
+
+def find_pair(hfile, name0: str, name1: str) -> Tuple[str, bool]:
+    for pair, rev in (
+        (names_to_pair(name0, name1), False),
+        (names_to_pair(name1, name0), True),
+        (names_to_pair_old(name0, name1), False),
+        (names_to_pair_old(name1, name0), True),
+    ):
+        if pair in hfile:
+            return pair, rev
+    raise ValueError(f"pair {(name0, name1)} not found in match file")
+
+
+def get_matches(path: str, name0: str, name1: str):
+    """Return ([K, 2] index pairs, [K] scores) from a match h5."""
+    with h5.File(path, "r") as f:
+        pair, reverse = find_pair(f, name0, name1)
+        matches = f[pair]["matches0"][()]
+        scores = f[pair]["matching_scores0"][()]
+    idx = np.where(matches != -1)[0]
+    out = np.stack([idx, matches[idx]], -1)
+    if reverse:
+        out = np.flip(out, -1)
+    return out, scores[idx]
 
 
 def to_homogeneous(p: np.ndarray) -> np.ndarray:

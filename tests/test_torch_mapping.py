@@ -12,6 +12,8 @@ medians tie within the rounding of the self-similarities, and there the
 choice is held by the medians (within 1e-5 in f64).
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -330,12 +332,27 @@ def test_products_run_with_tf32_off(monkeypatch, fn):
     assert torch.backends.cuda.matmul.allow_tf32 is True
 
 
-def test_feature_source_reads_npy_and_refuses_h5(tmp_path):
+def test_feature_source_reads_npy_and_refuses_h5(tmp_path, monkeypatch):
+    """npy directories as pram_tpu reads them; h5 stores, which the port
+    refused (naming h5py) before it had its own HDF5 reader, now read as
+    pram_tpu reads them, with h5py unimportable on the port's side."""
     feats = {"keypoints": np.ones((3, 2), np.float32), "scores": np.ones(3, np.float32),
              "descriptors": np.eye(3, dtype=np.float32), "image_size": np.array([4, 4])}
     np.save(tmp_path / "db+a.png", feats)
     got, want = trm.FeatureSource(str(tmp_path)), jrm.FeatureSource(str(tmp_path))
     assert got.names() == want.names() == ["db/a.png"]
     assert_same_tree(got.get("db/a.png"), want.get("db/a.png"))
-    with pytest.raises(ImportError, match="h5py"):
-        trm.FeatureSource(str(tmp_path / "feats.h5"))
+    from pram_tpu_torch.io import h5
+
+    with h5.File(str(tmp_path / "feats.h5"), "w") as f:
+        g = f.create_group("db/a.png")
+        g.create_dataset("keypoints", data=feats["keypoints"])
+        g.create_dataset("scores", data=feats["scores"])
+        g.create_dataset("descriptors", data=feats["descriptors"][:, :2].T.copy())
+    want = jrm.FeatureSource(str(tmp_path / "feats.h5"))
+    ref = (want.names(), want.get("db/a.png"))
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    got = trm.FeatureSource(str(tmp_path / "feats.h5"))
+    assert got.names() == ref[0] == ["db/a.png"]
+    assert_same_tree(got.get("db/a.png"), ref[1])
+    assert got.get("db/a.png")["image_size"] is None

@@ -8,6 +8,7 @@ and the same database rows. The numpy copies are held exactly.
 """
 
 import sqlite3
+import sys
 
 import numpy as np
 import pytest
@@ -193,11 +194,19 @@ def test_triangulate_model_matches_run_triangulation(mapping_inputs):
     _assert_same_points(points, j_points)
 
 
-def test_run_triangulation_raises_naming_h5py(mapping_inputs, tmp_path):
-    _, paths, _ = mapping_inputs
-    with pytest.raises(ImportError, match="h5py"):
-        ttri.run_triangulation(paths["ref"], paths["feats_h5"], paths["pairs"], paths["matches_h5"],
-                               str(tmp_path / "out"))
+def test_run_triangulation_raises_naming_h5py(mapping_inputs, tmp_path, monkeypatch):
+    """run_triangulation, which raised ImportError naming h5py before the
+    port had its own HDF5 reader, now reads the hloc files with h5py
+    unimportable and writes pram_tpu's model byte for byte."""
+    _, paths, root = mapping_inputs
+    jax_dir = str(tmp_path / "jax")
+    want = jtri.run_triangulation(paths["ref"], paths["feats_h5"], paths["pairs"], paths["matches_h5"], jax_dir)
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    got = ttri.run_triangulation(paths["ref"], paths["feats_h5"], paths["pairs"], paths["matches_h5"],
+                                 str(tmp_path / "out"))
+    assert got == want
+    for fn in ("cameras.bin", "images.bin", "points3D.bin"):
+        assert (tmp_path / "out" / fn).read_bytes() == (tmp_path / "jax" / fn).read_bytes(), fn
 
 
 def test_pairs_in_both_orders_are_verified_once(mapping_inputs, tmp_path):
