@@ -273,15 +273,18 @@ Phases, each printed with its elapsed seconds:
                 4096-keypoint caches, counted, and its first 4 queries one
                 at a time on the card and with --device cpu (the child
                 started in phase 11), the same success flags.
-27. shapes      every padded forward wrapper at token counts off its tile
-                against its plain version on the card, one counted launch a
-                call: kernels 1 and 17 (self) at 1000, 1000 + 1024 and 4000
-                + 2000 tokens, 10 and 12 in bf16 and f32 there, 5, 17
-                (cross) and 11 at 1000 x 1024 and 4000 x 2000, 2 and 16 at
-                1000 and 12008 tokens, both projection passes at 1000, 7 at
-                1000 queries x 2000 points (no padded point chosen); AdaGML
-                at 4000 x 2000 tokens in f32 with its masks and stop layers
-                equal to its plain path's.
+27. shapes      every padded wrapper, forward and backward, at token
+                counts off its tile against its plain version on the card,
+                one counted launch a call: kernels 1 and 17 (self) at 1000,
+                1000 + 1024 and 4000 + 2000 tokens, 10 and 12 in bf16 and f32
+                there, 5, 17 (cross) and 11 at 1000 x 1024 and 4000 x 2000, 2
+                and 16 at 1000 and 12008 tokens, both projection passes at
+                1000, 7 at 1000 queries x 2000 points (no padded point
+                chosen), 13 and 14 at 2 x (1000 + 600) and 15 at 1000 rows
+                (within the on-tile card tests' 2% / 1%), and 15 on rows of
+                zeros alone (exactly zero weight gradients); AdaGML at 4000 x
+                2000 tokens in f32 with its masks and stop layers equal to
+                its plain path's.
 
 28. superpoint the second model family's path at full width, its models from
                 their seeded inits: the rendered world's map built on the card
@@ -355,6 +358,29 @@ Phases, each printed with its elapsed seconds:
                 card against CPU on the card's triplets (equal flags, poses
                 within 5 mm / 0.1 deg); stage seconds, every kernel counted
                 over the path.
+32. runtime     the runtime remainder: (a) the JPEG fixtures of
+                tests/jpeg_fixtures/ decoded by io/jpeg.py equal to the
+                digests of cv2.imread's arrays, and a decode's host ms at
+                640 x 480 and 1024 x 768; (b) phase 22's 32 online frames
+                written as JPEG by write_jpeg (q95, 4:2:0) through
+                cli.online_localization.main with --viewer_port 0 at
+                --max_keypoints 512, held to phase 22's gates (32/32 within
+                5 cm / 5 deg, frame 11 falling back to relocalization, the
+                launches of every frame), and at 1024, the CLI's default,
+                held to the JAX CLI's outcome on the same frames (frames
+                11-15 lost, every other within 5 cm / 5 deg, frame 11
+                falling back); at both the viewer's /map parsed and /state
+                holding 32 updates whose last is the CLI's last result;
+                decode and frame ms beside phase 22's PNG run, the viewer's
+                update ms; (c)
+                scripts/reconstruct_scene_torch.sh in a subprocess on phase
+                30's 64 reference views written as JPEG: exit 0, its h5 files
+                read back, its KMeans map localizing the 32 queries (written
+                as JPEG, decoded by the port) at recall@5cm/5deg >= 31/32 with
+                kernels 1-9 launched; (d) cli.train (SegNetViT 15 layers) at
+                1000 tokens a view and a batch of 6, and two GML matcher steps
+                at 4 x (500 + 1000) tokens: kernels 13, 14 and 15 off their
+                tiles, counted, the losses finite.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Each
@@ -365,8 +391,10 @@ float), ``launches_aachen_gml``, ``launches_aachen_cli``, ``launches_shapes``
 and ``launches_online_1000``, and where the kernel ran there, its figures at
 path A's and path B's shapes (``aachen_front``, ``aachen_gml``);
 ``launches_superpoint`` (phase 28, by matcher), ``launches_segnet_gm_cli``
-(phase 29), ``launches_mapping`` (phase 30's localization) and ``launches_hloc`` (phase
-31's path), with kernels 1, 2, 5 and 6 wide's figures at the pair matcher's shapes (``hloc``), and for kernels 9, 7
+(phase 29), ``launches_mapping`` (phase 30's localization), ``launches_runtime``
+(phase 32's counted runs: the two online runs, the script's map localized,
+the training steps; the script's own CLIs run in a subprocess and are not
+counted) and ``launches_hloc`` (phase 31's path), with kernels 1, 2, 5 and 6 wide's figures at the pair matcher's shapes (``hloc``), and for kernels 9, 7
 and 6 their figures on the SuperPoint
 path (``superpoint``: R = 3, 256-d, GM's plan). The row
 ``sinkhorn_wide`` is kernel 6's wide instance, its launches path B's. Any failed
@@ -383,6 +411,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -868,39 +897,20 @@ def mlp_bound(tokens: int, int8: bool):
 
 # ---- the serving CLIs' inputs on disk: the reference's landmark and dataset
 # layout (pram_tpu_torch/maps/loader.py, data/scenes.py), written with the
-# port's COLMAP writers, numpy and a stdlib PNG writer
-
-
-def yaml_lines(obj, indent: int = 0) -> list:
-    """Block-style YAML of nested dicts, lists of scalars and scalars (the
-    subset pram_tpu_torch/core/config.py reads)."""
-
-    def scalar(v):
-        if v is None:
-            return "null"
-        if isinstance(v, bool):
-            return "true" if v else "false"
-        if isinstance(v, float):  # YAML 1.1 floats carry a dot, and a signed exponent
-            r = repr(v)
-            return r.replace("e", ".0e") if "e" in r and "." not in r else r
-        if isinstance(v, str) and (v == "" or v.strip() != v or ": " in v or v[0] in "-[{&*!|>'\"%@`#"):
-            return "'" + v.replace("'", "''") + "'"
-        return str(v)
-
-    pad = " " * indent
-    out = []
-    for key, value in obj.items():
-        if isinstance(value, dict):
-            out += [f"{pad}{key}:"] + yaml_lines(value, indent + 2)
-        elif isinstance(value, (list, tuple)):
-            out += [f"{pad}{key}:"] + [f"{pad}- {scalar(v)}" for v in value]
-        else:
-            out.append(f"{pad}{key}: {scalar(value)}")
-    return out
+# port's COLMAP and YAML writers, numpy, and stdlib PNG and JPEG writers
 
 
 def write_yaml(path, obj) -> None:
+    """Block YAML that pram_tpu_torch/core/config.py reads (the port's
+    ``utils/common.py:yaml_lines``, as ``save_args_yaml`` writes it)."""
+    from pram_tpu_torch.utils.common import yaml_lines
+
     Path(path).write_text("\n".join(yaml_lines(obj)) + "\n")
+
+
+def uint8_image(np, img):
+    """A float view in [0, 1] -> uint8, rounded to the nearest level."""
+    return np.clip(np.round(np.asarray(img) * 255.0), 0, 255).astype(np.uint8)
 
 
 def write_png(path, img) -> None:
@@ -925,6 +935,161 @@ def write_png(path, img) -> None:
     header = struct.pack(">IIBBBBB", w, h, 8, {1: 0, 3: 2}[ch], 0, 0, 0)
     Path(path).write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
                            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+# the JPEG standard's example tables (ITU T.81 Annex K), quantization in
+# zig-zag order at quality 50, Huffman as (counts by length, symbols)
+JPEG_QUANT = (
+    bytes((16, 11, 12, 14, 12, 10, 16, 14, 13, 14, 18, 17, 16, 19, 24, 40, 26, 24, 22, 22, 24, 49, 35, 37,
+           29, 40, 58, 51, 61, 60, 57, 51, 56, 55, 64, 72, 92, 78, 64, 68, 87, 69, 55, 56, 80, 109, 81, 87,
+           95, 98, 103, 104, 103, 62, 77, 113, 121, 112, 100, 120, 92, 101, 103, 99)),
+    bytes((17, 18, 18, 24, 21, 24, 47, 26, 26, 47, 99, 66, 56, 66) + (99,) * 50),
+)
+JPEG_HUFFMAN = {  # (class, id): luminance 0, chrominance 1
+    (0, 0): ("00010501010101010100000000000000", "000102030405060708090a0b"),
+    (0, 1): ("00030101010101010101010000000000", "000102030405060708090a0b"),
+    (1, 0): ("0002010303020403050504040000017d",
+             "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a161718191a25"
+             "262728292a3435363738393a434445464748494a535455565758595a636465666768696a737475767778797a8384"
+             "85868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5"
+             "d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa"),
+    (1, 1): ("00020102040403040705040400010277",
+             "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434e125f117181"
+             "91a262728292a35363738393a434445464748494a535455565758595a636465666768696a737475767778797a82"
+             "838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3"
+             "d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa"),
+}
+JPEG_ZIGZAG = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34, 27,
+               20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58,
+               59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63)
+
+
+def jpeg_bytes(img, quality: int = 95) -> bytes:
+    """A baseline JFIF stream of uint8 RGB ``[H, W, 3]`` (4:2:0) or gray
+    ``[H, W]``: the standard's tables scaled to ``quality`` as libjpeg scales
+    them, a float DCT, and every Huffman code packed with numpy (test
+    tooling: the card's machine has no image library)."""
+    import struct
+
+    import numpy as np
+
+    img = np.asarray(img, dtype=np.uint8)
+    h, w = img.shape[:2]
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    quant = [np.clip((np.frombuffer(q, np.uint8).astype(np.int64) * scale + 50) // 100, 1, 255)
+             for q in JPEG_QUANT]
+    zz = np.array(JPEG_ZIGZAG)
+    f = img.astype(np.float64)
+    if img.ndim == 2:
+        planes, samp, mcu = [f], [(1, 1)], 8
+    else:
+        r, g, b = f[..., 0], f[..., 1], f[..., 2]
+        planes = [0.299 * r + 0.587 * g + 0.114 * b,
+                  -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0,
+                  0.5 * r - 0.418688 * g - 0.081312 * b + 128.0]
+        samp, mcu = [(2, 2), (1, 1), (1, 1)], 16
+    mh, mw = -(-h // mcu), -(-w // mcu)
+    u = np.arange(8)
+    dct = np.sqrt(np.where(u == 0, 1.0, 2.0) / 8.0)[:, None] * np.cos((2 * u[None] + 1) * u[:, None] * np.pi / 16)
+    blocks = []  # per component: [mh, mw, v * h blocks, 64] zig-zag coefficients
+    for ci, (p, (sh, sv)) in enumerate(zip(planes, samp)):
+        p = np.pad(p, ((0, mh * mcu - h), (0, mw * mcu - w)), mode="edge")
+        if sh == 1 and mcu == 16:
+            p = p.reshape(mh * 8, 2, mw * 8, 2).mean(axis=(1, 3))
+        bl = (p - 128.0).reshape(mh, sv, 8, mw, sh, 8).transpose(0, 3, 1, 4, 2, 5)
+        coef = np.einsum("ux,...xy,vy->...uv", dct, bl, dct).reshape(mh, mw, sv * sh, 64)[..., zz]
+        q = quant[min(ci, 1)][None, None, None]
+        blocks.append(np.round(coef / q).astype(np.int64))
+    # blocks in coding order, each with its component
+    per_mcu = [b.shape[2] for b in blocks]
+    order = np.concatenate([b.reshape(mh * mw, -1, 64) for b in blocks], axis=1).reshape(-1, 64)
+    comp = np.tile(np.repeat(np.arange(len(blocks)), per_mcu), mh * mw)
+    n = order.shape[0]
+
+    def table(cls, tid):
+        counts, symbols = (bytes.fromhex(x) for x in JPEG_HUFFMAN[(cls, tid)])
+        codes, lengths, code, k = np.zeros(256, np.int64), np.zeros(256, np.int64), 0, 0
+        for bits in range(1, 17):
+            for _ in range(counts[bits - 1]):
+                codes[symbols[k]], lengths[symbols[k]] = code, bits
+                code, k = code + 1, k + 1
+            code <<= 1
+        return counts, symbols, codes, lengths
+
+    tabs = {key: table(*key) for key in JPEG_HUFFMAN}
+    tid = np.minimum(comp, 1)
+
+    def size_of(v):
+        a = np.abs(v)
+        return np.where(a == 0, 0, np.floor(np.log2(np.maximum(a, 1))).astype(np.int64) + 1)
+
+    def bits_of(v, s):
+        return np.where(v < 0, v + (1 << s) - 1, v)
+
+    dc = order[:, 0]
+    diff = dc.copy()
+    for c in range(len(blocks)):  # each component predicts from its previous block
+        sel = np.flatnonzero(comp == c)
+        diff[sel[1:]] = dc[sel[1:]] - dc[sel[:-1]]
+    s = size_of(diff)
+    dc_code = np.choose(tid, [tabs[(0, t)][2][s] for t in (0, 1)])
+    dc_len = np.choose(tid, [tabs[(0, t)][3][s] for t in (0, 1)])
+    pieces = [(np.arange(n), np.zeros(n, np.int64), (dc_code << s) | bits_of(diff, s), dc_len + s)]
+    blk, k = np.nonzero(order[:, 1:])
+    k = k + 1
+    v = order[blk, k]
+    first = np.r_[True, blk[1:] != blk[:-1]]
+    prev = np.where(first, 0, np.r_[0, k[:-1]])
+    run = k - prev - 1
+    s = size_of(v)
+    t = tid[blk]
+    rs = (run % 16) * 16 + s
+    code = np.choose(t, [tabs[(1, x)][2][rs] for x in (0, 1)])
+    ln = np.choose(t, [tabs[(1, x)][3][rs] for x in (0, 1)])
+    pieces.append((blk, 2 * k, (code << s) | bits_of(v, s), ln + s))
+    zrl = run // 16
+    if zrl.any():
+        zb = np.repeat(np.arange(len(blk)), zrl)
+        zt = t[zb]
+        pieces.append((blk[zb], 2 * k[zb] - 1, np.choose(zt, [np.full(len(zb), tabs[(1, x)][2][0xF0]) for x in (0, 1)]),
+                       np.choose(zt, [np.full(len(zb), tabs[(1, x)][3][0xF0]) for x in (0, 1)])))
+    last = np.zeros(n, np.int64)
+    np.maximum.at(last, blk, k)
+    eob = np.flatnonzero(last < 63)
+    et = tid[eob]
+    pieces.append((eob, np.full(len(eob), 200), np.choose(et, [np.full(len(eob), tabs[(1, x)][2][0]) for x in (0, 1)]),
+                   np.choose(et, [np.full(len(eob), tabs[(1, x)][3][0]) for x in (0, 1)])))
+    blk_i, sub, codes, lens = (np.concatenate(x) for x in zip(*pieces))
+    sort = np.lexsort((sub, blk_i))
+    codes, lens = codes[sort], lens[sort]
+    start = np.cumsum(lens) - lens
+    total = int(lens.sum())
+    idx = np.repeat(np.arange(len(lens)), lens)
+    bits = (codes[idx] >> (lens[idx] - 1 - (np.arange(total) - start[idx]))) & 1
+    bits = np.concatenate([bits, np.ones(-total % 8, np.int64)]).astype(np.uint8)
+    data = np.packbits(bits)
+    data = np.insert(data, np.flatnonzero(data == 0xFF) + 1, 0).tobytes()
+
+    def seg(marker, body):
+        return bytes((0xFF, marker)) + struct.pack(">H", len(body) + 2) + body
+
+    ids = range(1, len(blocks) + 1)
+    out = [b"\xff\xd8", seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    out += [seg(0xDB, bytes([t]) + bytes(quant[t].astype(np.uint8))) for t in range(min(len(blocks), 2))]
+    out.append(seg(0xC0, struct.pack(">BHHB", 8, h, w, len(blocks))
+                   + b"".join(bytes((i, sh * 16 + sv, min(i - 1, 1))) for i, (sh, sv) in zip(ids, samp))))
+    for (cls, t), (counts, symbols, _, _) in tabs.items():
+        if t < min(len(blocks), 2):
+            out.append(seg(0xC4, bytes([cls * 16 + t]) + counts + symbols))
+    out.append(seg(0xDA, bytes([len(blocks)]) + b"".join(bytes((i, min(i - 1, 1) * 17)) for i in ids)
+                   + b"\x00\x3f\x00"))
+    return b"".join(out) + data + b"\xff\xd9"
+
+
+def write_jpeg(path, img, quality: int = 95) -> None:
+    """uint8 RGB ``[H, W, 3]`` or gray ``[H, W]`` -> a baseline JPEG file
+    (:func:`jpeg_bytes`)."""
+    Path(path).write_bytes(jpeg_bytes(img, quality))
 
 
 def write_landmarks(scene_dir, cameras, images, points3D, p3d_desc, p3d_seg, seg_vrf, n_cluster: int,
@@ -1199,22 +1364,76 @@ def same_tables(name: str, built, loaded, n_seg: int) -> None:
             and bool((loaded.seg_vrf_slot[n_seg:] == -1).all()), f"{name}: seg_vrf_slot read back differs")
 
 
-def run_cli_phase(torch, np, dev, bf16, scene, queries, grecall, rec_w, gml_w, reset_counts, read_counts) -> dict:
-    """Phase 22: both serving CLIs through ``main(argv)`` on the card, on
-    their inputs written to a temporary directory; returns each path's
-    launches and figures."""
-    import tempfile
-
-    from pram_tpu_torch.cli import inference as cli_inference
-    from pram_tpu_torch.cli import online_localization as cli_online
-    from pram_tpu_torch.engine.rendered_guard import (
-        FOCAL, GML_W, HEIGHT, MAP_KPTS, REC_W, SFD2_W, WIDTH,
-    )
-    from pram_tpu_torch.geometry.rotations import compute_pose_error
+def write_online_inputs(torch, np, dev, bf16, online_root: Path, loc_top: dict, n_frames: int = 32) -> dict:
+    """Phase 22's online inputs under ``online_root``: the rendered world's
+    map, built by SFD2 in bf16 on the card, written in the reference layout
+    and read back equal, and ``n_frames`` frames along ONLINE_JUMPS' path as
+    PNG with their queries files (``images/``); ``loc_top`` is the config's
+    localization section. Returns the config's path, the image directory,
+    the frames (f32 in [0, 1]), their poses and file names."""
+    from pram_tpu_torch.engine.rendered_guard import FOCAL, HEIGHT, MAP_KPTS, SFD2_W, WIDTH
     from pram_tpu_torch.maps.loader import load_scene_map
     from pram_tpu_torch.maps.rendered import build_rendered_scene
     from pram_tpu_torch.models.convert import load_sfd2
     from pram_tpu_torch.models.sfd2 import extract, preprocess_image
+
+    t_w = time.perf_counter()
+    sfd2 = load_sfd2(SFD2_W, device=dev, dtype=bf16)
+
+    def extract_np(images):
+        kp, sc, de, mk = [], [], [], []
+        for i in range(0, images.shape[0], 12):
+            x = preprocess_image(torch.as_tensor(images[i:i + 12]).to(dev)).to(bf16)
+            with torch.no_grad():
+                f = extract(sfd2, x, max_keypoints=MAP_KPTS, conf_th=1e-4)
+            k = f["keypoints"]
+            kp.append(k.xy.cpu().numpy())
+            sc.append(k.scores.float().cpu().numpy())
+            de.append(f["descriptors"].float().cpu().numpy())
+            mk.append(k.mask.cpu().numpy())
+        return tuple(np.concatenate(a) for a in (kp, sc, de, mk))
+
+    rscene = build_rendered_scene(extract_np, np.random.RandomState(0), width=WIDTH, height=HEIGHT,
+                                  n_ref=12, kp_per_ref=MAP_KPTS, max_ref_points=2048)
+    del sfd2
+    top = {"network": "segnetvit", "use_mid_feature": True, "layers": 15,
+           "localization": {**loc_top, "with_compress": False}}
+    cfg = rendered_layout(online_root, rscene, 112, top)
+    loaded = load_scene_map(str(online_root / "landmarks" / "Rendered" / "scene"), n_cluster=112,
+                            with_compress=False, covisibility_frame=4, max_kp_per_frame=MAP_KPTS,
+                            max_ref_points=2048)
+    n_seg = int(rscene.map.seg_vrf_slot.shape[0])
+    same_tables("online map", rscene.map, loaded, n_seg)
+    for f in ("vrf_covis", "vrf_ref_point_idx"):
+        require(np.array_equal(getattr(rscene.map, f), getattr(loaded, f)), f"online map: {f} read back differs")
+    imgs, qvecs, tvecs = rendered_path(rscene.world, n_frames, ONLINE_JUMPS, starts=ONLINE_STARTS,
+                                       looks=ONLINE_LOOKS)
+    img_dir = online_root / "images"
+    img_dir.mkdir()
+    fnames = [f"frame_{i:03d}.png" for i in range(n_frames)]
+    for name, img in zip(fnames, imgs):
+        write_png(img_dir / name, uint8_image(np, img))
+    write_queries(img_dir, fnames, qvecs, tvecs, ("PINHOLE", WIDTH, HEIGHT, (FOCAL, FOCAL, WIDTH / 2, HEIGHT / 2)))
+    log(f"online inputs: the rendered map ({loaded.num_points} points, {loaded.num_frames} frames) built on "
+        f"the card, written and read back equal, and {n_frames} frames rendered and written as PNG in "
+        f"{time.perf_counter() - t_w:.1f} s")
+    return dict(cfg=cfg, img_dir=img_dir, imgs=imgs, qvecs=qvecs, tvecs=tvecs, fnames=fnames)
+
+
+def run_cli_phase(torch, np, dev, bf16, scene, queries, grecall, rec_w, gml_w, reset_counts, read_counts,
+                  online_root: Path) -> dict:
+    """Phase 22: both serving CLIs through ``main(argv)`` on the card, on
+    their inputs written to a temporary directory (the online CLI's under
+    ``online_root``, which phase 32 reads again); returns each path's
+    launches and figures, and under ``online_inputs`` what phase 32 needs
+    (``main`` pops it)."""
+    import tempfile
+
+    from pram_tpu_torch.cli import inference as cli_inference
+    from pram_tpu_torch.cli import online_localization as cli_online
+    from pram_tpu_torch.engine.rendered_guard import GML_W, REC_W, SFD2_W
+    from pram_tpu_torch.geometry.rotations import compute_pose_error
+    from pram_tpu_torch.maps.loader import load_scene_map
 
     n_q = len(queries)
     names_all = set(read_counts())
@@ -1279,47 +1498,10 @@ def run_cli_phase(torch, np, dev, bf16, scene, queries, grecall, rec_w, gml_w, r
             f"queries/s over the last 3 of 4 batches, fps {report8.fps():.1f}, {out['inference']['batch8']['stage_times']}")
 
         # -- online: the rendered world's map from disk and 32 frames as PNG
-        t_w = time.perf_counter()
-        sfd2 = load_sfd2(SFD2_W, device=dev, dtype=bf16)
-
-        def extract_np(images):
-            kp, sc, de, mk = [], [], [], []
-            for i in range(0, images.shape[0], 12):
-                x = preprocess_image(torch.as_tensor(images[i:i + 12]).to(dev)).to(bf16)
-                with torch.no_grad():
-                    f = extract(sfd2, x, max_keypoints=MAP_KPTS, conf_th=1e-4)
-                k = f["keypoints"]
-                kp.append(k.xy.cpu().numpy())
-                sc.append(k.scores.float().cpu().numpy())
-                de.append(f["descriptors"].float().cpu().numpy())
-                mk.append(k.mask.cpu().numpy())
-            return tuple(np.concatenate(a) for a in (kp, sc, de, mk))
-
-        rscene = build_rendered_scene(extract_np, np.random.RandomState(0), width=WIDTH, height=HEIGHT,
-                                      n_ref=12, kp_per_ref=MAP_KPTS, max_ref_points=2048)
-        del sfd2
-        top = {"network": "segnetvit", "use_mid_feature": True, "layers": 15,
-               "localization": {**loc_top, "with_compress": False}}
-        cfg = rendered_layout(tmp / "online", rscene, 112, top)
-        loaded = load_scene_map(str(tmp / "online" / "landmarks" / "Rendered" / "scene"), n_cluster=112,
-                                with_compress=False, covisibility_frame=4, max_kp_per_frame=MAP_KPTS,
-                                max_ref_points=2048)
-        n_seg = int(rscene.map.seg_vrf_slot.shape[0])
-        same_tables("online map", rscene.map, loaded, n_seg)
-        for f in ("vrf_covis", "vrf_ref_point_idx"):
-            require(np.array_equal(getattr(rscene.map, f), getattr(loaded, f)), f"online map: {f} read back differs")
-        n_frames = 32
-        imgs, qvecs, tvecs = rendered_path(rscene.world, n_frames, ONLINE_JUMPS, starts=ONLINE_STARTS,
-                                           looks=ONLINE_LOOKS)
-        img_dir = tmp / "online" / "images"
-        img_dir.mkdir()
-        fnames = [f"frame_{i:03d}.png" for i in range(n_frames)]
-        for name, img in zip(fnames, imgs):
-            write_png(img_dir / name, np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8))
-        write_queries(img_dir, fnames, qvecs, tvecs, ("PINHOLE", WIDTH, HEIGHT, (FOCAL, FOCAL, WIDTH / 2, HEIGHT / 2)))
-        log(f"online inputs: the rendered map ({loaded.num_points} points, {loaded.num_frames} frames) built on "
-            f"the card, written and read back equal, and {n_frames} frames rendered and written as PNG in "
-            f"{time.perf_counter() - t_w:.1f} s")
+        online = write_online_inputs(torch, np, dev, bf16, online_root, loc_top)
+        cfg, img_dir, imgs, qvecs, tvecs, fnames = (online[k] for k in ("cfg", "img_dir", "imgs", "qvecs", "tvecs",
+                                                                        "fnames"))
+        n_frames = len(fnames)
         argv = ["--config", str(cfg), "--image_dir", str(img_dir), "--rec_weight_path", REC_W,
                 "--feat_weight_path", SFD2_W, "--matcher_weight_path", GML_W, "--max_keypoints", "512"]
         reset_counts()
@@ -1403,6 +1585,8 @@ def run_cli_phase(torch, np, dev, bf16, scene, queries, grecall, rec_w, gml_w, r
                 f"online CLI at 1000 keypoints: launches {got}, expected {want} and no other")
         out["online_1000"] = dict(launches=got, modes=modes1k, max_err=[float(q1k.max()), float(e1k.max())],
                                   summary=lines1k[-1])
+        out["online_inputs"] = dict(cfg=cfg, argv=argv, imgs=imgs, qvecs=qvecs, tvecs=tvecs, fnames=fnames,
+                                    img_dir=img_dir)
     return out
 
 
@@ -2534,13 +2718,16 @@ def run_aachen_gml_phase(torch, np, dev, bf16, gml, gml_w, a_scene, a_queries, a
 
 
 def run_shapes_phase(torch, np, dev, bf16, ada_w, ada_inputs, reset_counts, read_counts) -> dict:
-    """Phase 27: every padded forward wrapper at a token count off its
-    kernel's tile against its plain version on the card, one counted launch
-    a call; AdaGML at off-tile counts in f32, masks and stop layers equal to
-    its plain path."""
+    """Phase 27: every padded wrapper, forward and backward, at a token count
+    off its kernel's tile against its plain version on the card, one counted
+    launch a call (rows of zeros alone give kernel 15 zero weight gradients:
+    one more launch); AdaGML at off-tile counts in f32, masks and stop
+    layers equal to its plain path."""
     from pram_tpu_torch.models.adagml import AdaGMLConfig, adagml_batched_adaptive_apply
     from pram_tpu_torch.models.convert import load_adagml
-    from pram_tpu_torch.ops import attention, attention_qkv, cross_attention, mlp, quant, refine
+    from pram_tpu_torch.ops import (
+        attention, attention_bwd, attention_qkv, cross_attention, mlp, mlp_bwd, padding, quant, refine,
+    )
 
     g = torch.Generator().manual_seed(27)
 
@@ -2645,13 +2832,59 @@ def run_shapes_phase(torch, np, dev, bf16, ada_w, ada_inputs, reset_counts, read
             f"{(d1 - rd1).abs().max().item():.3e}, largest index {int(idx.max())} of {npt} points, kept {int(keep.sum())}")
         require(agree >= REFINE_AGREE and (d1 - rd1).abs().max().item() <= REFINE_D1_ATOL and int(idx.max()) < npt,
                 "refine_nn at off-tile counts disagrees with its plain version or chose a padded point")
+        # kernels 13, 14 and 15: sides of 1000 and 600 tokens (64-token tiles), 1000 MLP rows (32-row tiles)
+        b, n0, n1 = 2, 1000, 600
+        n = n0 + n1
+        (cos, sin), kb = rot(b, n), bias(b, n)
+        sa = (rnd(b, n, 768), cos, sin, kb, rnd(b, n, 256), 64**-0.5, 4, (n0, n1))
+        ca = (rnd(b, n, 256), rnd(b, n, 256), bias(b, n0), bias(b, n1, 0.6), rnd(b, n, 256), 64**-0.5, 4, n0)
+        ma = (rnd(2, 500, 256), rnd(2, 500, 256), rnd(2, 500, 256), rnd(512, 512, scale=1 / 23),
+              rnd(512, scale=0.1), 1 + rnd(512, scale=0.1), rnd(512, scale=0.1), rnd(256, 512, scale=1 / 23))
+        for name, fn, plain, args, n_bf16, shape in (
+                ("self_attention_bwd", attention_bwd.self_attention_bwd, attention_bwd.self_attention_bwd_plain,
+                 sa, 1, f"{b} x ({n0}, {n1})"),
+                ("cross_attention_bwd", attention_bwd.cross_attention_bwd, attention_bwd.cross_attention_bwd_plain,
+                 ca, 2, f"{b} x {n0} x {n1}"),
+                ("residual_mlp_bwd", mlp_bwd.residual_mlp_bwd, mlp_bwd.residual_mlp_bwd_plain, ma, 2, "1000 rows")):
+            got, ref = fn(*args), plain(*args)
+            for i, (a_, r_) in enumerate(zip(got, ref)):
+                require(a_.shape == r_.shape, f"{name} at {shape}: output {i} of shape {tuple(a_.shape)}")
+                checks[f"{name} {i} {shape}"] = check_scaled(f"{name} {shape} (output {i})", a_, r_,
+                                                             BWD_TOL if i < n_bf16 else BWD_F32_TOL)
+        z = torch.zeros(32, 256, device=dev, dtype=bf16)
+        zero = mlp_bwd._residual_mlp_bwd_cuda(z, z, z, *ma[3:])
+        require(all(bool(torch.isfinite(t_).all()) and not bool(t_.any()) for t_ in zero[2:]),
+                "residual_mlp_bwd: rows of zeros (the padding) add to a weight gradient")
     torch.cuda.synchronize()
     launches = read_counts()
     want = {"self_attention": 3, "self_attention_int8": 3, "projection_int8": 3 + 2 + 1, "self_attention_qkv": 2,
             "self_attention_qkv_blocked": 4, "cross_attention": 2, "cross_attention_int8": 2,
-            "cross_attention_packed": 2, "residual_mlp": 2, "residual_mlp_int8": 2, "projection": 1, "refine_nn": 1}
+            "cross_attention_packed": 2, "residual_mlp": 2, "residual_mlp_int8": 2, "projection": 1, "refine_nn": 1,
+            "self_attention_bwd": 1, "cross_attention_bwd": 1, "residual_mlp_bwd": 1 + 1}
     log(f"shapes launches: {launches}")
     require(launches == {k: want.get(k, 0) for k in launches}, f"shapes: launches {launches}, expected {want}")
+    # kernels 13-15 off their tiles (the wrapper's padding and slicing
+    # included) against the same kernels at the padded shapes, on the tile
+    bwd_ms = {}
+    with torch.no_grad():
+        pn0, pn1 = padding.round_up(n0, 64), padding.round_up(n1, 64)
+        pn = pn0 + pn1
+        (pcos, psin), pkb = rot(b, pn), bias(b, pn)
+        on_tile = {
+            "self_attention_bwd": (attention_bwd.self_attention_bwd, sa,
+                                   (rnd(b, pn, 768), pcos, psin, pkb, rnd(b, pn, 256), 64**-0.5, 4, (pn0, pn1))),
+            "cross_attention_bwd": (attention_bwd.cross_attention_bwd, ca,
+                                    (rnd(b, pn, 256), rnd(b, pn, 256), bias(b, pn0), bias(b, pn1, 0.6),
+                                     rnd(b, pn, 256), 64**-0.5, 4, pn0)),
+            "residual_mlp_bwd": (mlp_bwd.residual_mlp_bwd, ma,
+                                 (rnd(2, 512, 256), rnd(2, 512, 256), rnd(2, 512, 256), *ma[3:])),
+        }
+        for name, (fn, off, on) in on_tile.items():
+            bwd_ms[name] = dict(off_tile_ms=cuda_ms(torch, lambda: fn(*off)),
+                                on_tile_ms=cuda_ms(torch, lambda: fn(*on)))
+    log(f"backward kernels off their tiles (2 x ({n0} + {n1}) tokens, 1000 MLP rows; the padding included) "
+        f"against the padded shapes on the tile (2 x ({pn0} + {pn1}), 1024 rows), ms a call by CUDA events: "
+        + json.dumps({k: {kk: round(vv, 4) for kk, vv in v.items()} for k, v in bwd_ms.items()}))
     # AdaGML at off-tile counts in f32: its statistics decide masks and stop
     # layers, which the padded routes must leave as the plain path's
     d0, nk0, _, m0, d1, nk1, _, m1 = ada_inputs
@@ -2669,7 +2902,7 @@ def run_shapes_phase(torch, np, dev, bf16, ada_w, ada_inputs, reset_counts, read
     require(torch.equal(o32["stop_layer"], p32["stop_layer"]) and diff == 0,
             "AdaGML at off-tile counts prunes or stops otherwise than its plain path")
     return dict(launches=launches, max_rel_err={k: v for k, v in checks.items()}, adagml_mask_diff=diff,
-                adagml_shape=[n0, n1])
+                adagml_shape=[n0, n1], bwd_ms=bwd_ms)
 
 
 # ---- phases 28-29: the second model family (SuperPoint, SegNet, GM) through
@@ -3085,7 +3318,7 @@ def run_segnet_gm_cli_phase(torch, np, dev, bf16, scene, queries, reset_counts, 
         paths = []
         for i, img in enumerate(imgs):
             paths.append(tmp / f"frame_{i:03d}.png")
-            write_png(paths[-1], np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8))
+            write_png(paths[-1], uint8_image(np, img))
         conf = cli_extract.CONFS["superpoint-n4096"]
         gray = np.stack([cli_extract.load_image(str(p), conf["preprocessing"]["grayscale"], None)[0] for p in paths])
         kw = {k: conf["model"][k] for k in ("max_keypoints", "conf_th", "min_keypoints", "nms_radius")}
@@ -3879,6 +4112,394 @@ def run_hloc_phase(torch, np, dev, bf16, world_inputs, reset_counts, read_counts
     out.update(secs=secs, launches=total, launches_by_stage=launches, keypoints=[min(n_kp), max(n_kp)],
                keypoints_mean=float(np.mean(n_kp)), matches_per_pair=float(np.mean(n_m)), pairs=len(pairs),
                triangulation=tri, build_stages_ms={k: round(v, 3) for k, v in stages.items()})
+    return out
+
+
+# ---- phase 32: the runtime remainder. (a) the JPEG fixtures of
+# tests/jpeg_fixtures/ decoded by io/jpeg.py on the card's host against the
+# digests of cv2.imread's arrays, and a decode's host ms at 640 x 480 and
+# 1024 x 768; (b) phase 22's 32 online frames written as JPEG (write_jpeg,
+# q95 4:2:0) through cli.online_localization.main with the viewer on
+# loopback at each of RUNTIME_ONLINE_KPTS;
+# (c) scripts/reconstruct_scene_torch.sh on phase 30's world written as
+# JPEG (a subprocess: its CLIs' launches are their own processes' and not
+# counted here), its map localizing the 32 queries, decoded from JPEG, at
+# phase 30's gate; (d) cli.train and GML matcher steps at token counts off
+# the backward kernels' tiles, counted
+JPEG_FIXTURES = Path(__file__).resolve().parent / "tests" / "jpeg_fixtures"
+# the online CLI on the JPEG frames at 512 keypoints (phase 22's operating
+# point), held to phase 22's gates, and at 1024 (the CLI's default), held to
+# the JAX CLI's outcome on the same JPEG frames: it loses
+# RUNTIME_1024_LOST and localizes every other frame within 5 cm / 5 deg
+# (scripts/online_keypoints_witness.py). At 1024 the recognizer gives the
+# landmark it ranks first 128 votes or more on those frames, which turns on
+# the semantic gate (LocConfig.min_kpts), and matching the keypoints that
+# vote for it against its own points finds at most 4 inliers: in pram_tpu
+# as in the port, on the card as on the CPU (scripts/online_keypoints.py;
+# PERF.md)
+RUNTIME_ONLINE_KPTS = (512, 1024)
+RUNTIME_1024_LOST = (11, 12, 13, 14, 15)
+RUNTIME_TRAIN_KPTS, RUNTIME_TRAIN_BATCH, RUNTIME_TRAIN_ITS = 1000, 6, 3  # 6000 MLP rows: off the 32-row tile
+RUNTIME_GML_BATCH, RUNTIME_GML_SIDES, RUNTIME_GML_STEPS = 4, (500, 1000), 2
+RUNTIME_SCRIPT_TIMEOUT_S = 400
+
+
+def host_ms(fn, n: int = 5) -> float:
+    """Median host milliseconds of ``fn()`` over ``n`` calls."""
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return sorted(times)[n // 2]
+
+
+def jpeg_checks(np, world_inputs) -> dict:
+    """(a): the fixtures against their digests; decode ms of a rendered view
+    at 640 x 480 and 1024 x 768 (baseline q95 4:2:0, median of 5)."""
+    import hashlib
+
+    from pram_tpu_torch.io.image import read_image
+    from pram_tpu_torch.io.jpeg import decode_jpeg
+
+    table = json.loads((JPEG_FIXTURES / "digests.json").read_text())
+    t = time.perf_counter()
+    for name, want in table.items():
+        color = read_image(str(JPEG_FIXTURES / name))
+        gray = read_image(str(JPEG_FIXTURES / name), grayscale=True)
+        same = (list(color.shape) == want["shape"] and hashlib.sha256(color.tobytes()).hexdigest() == want["color"]
+                and hashlib.sha256(gray.tobytes()).hexdigest() == want["gray"])
+        require(same, f"runtime: tests/jpeg_fixtures/{name} decodes other than cv2.imread (its digest)")
+    out = dict(fixtures=len(table), fixtures_s=time.perf_counter() - t)
+    world, (R, t_) = world_inputs["world"], world_inputs["poses"][0]
+    for w, h, f in ((640, 480, 500.0), (1024, 768, 800.0)):
+        view = uint8_image(np, world.render(R, t_, (f, f, w / 2, h / 2), w, h))
+        data = jpeg_bytes(view, 95)
+        out[f"decode_ms_{w}x{h}"] = host_ms(lambda: decode_jpeg(data))
+        out[f"bytes_{w}x{h}"] = len(data)
+    log(f"runtime: {len(table)} JPEG fixtures decoded equal to cv2.imread's digests in {out['fixtures_s']:.3f} s; "
+        f"decode (host ms, median of 5, baseline q95 4:2:0): 640 x 480 {out['decode_ms_640x480']:.1f} ms "
+        f"({out['bytes_640x480']} bytes), 1024 x 768 {out['decode_ms_1024x768']:.1f} ms "
+        f"({out['bytes_1024x768']} bytes)")
+    return out
+
+
+@contextlib.contextmanager
+def recording_viewers():
+    """Every ``viz.ViewerServer`` the port makes, its updates timed."""
+    from pram_tpu_torch import viz
+
+    real, made = viz.ViewerServer, []
+
+    class Timed(real):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.update_ms = []
+            made.append(self)
+
+        def update(self, *a, **k):
+            t = time.perf_counter()
+            super().update(*a, **k)
+            self.update_ms.append((time.perf_counter() - t) * 1e3)
+
+    viz.ViewerServer = Timed
+    try:
+        yield made
+    finally:
+        viz.ViewerServer = real
+        for v in made:
+            v.close()
+
+
+def runtime_online(torch, np, oi, png_512_ms, reset_counts, read_counts) -> dict:
+    """(b): the online CLI on the JPEG frames with the viewer at each of
+    RUNTIME_ONLINE_KPTS, counted; ``oi`` is what phase 22 left (its online
+    inputs), ``png_512_ms`` its PNG run's frame ms."""
+    from pram_tpu_torch.cli import online_localization as cli_online
+    from pram_tpu_torch.engine.rendered_guard import FOCAL, HEIGHT, WIDTH
+    from pram_tpu_torch.io.image import read_image
+
+    png_dir, n = oi["img_dir"], len(oi["fnames"])
+    jpg_dir = png_dir.parent / "images_jpeg"
+    jpg_dir.mkdir()
+    jnames = [f.replace(".png", ".jpg") for f in oi["fnames"]]
+    t = time.perf_counter()
+    for name, img in zip(jnames, oi["imgs"]):
+        write_jpeg(jpg_dir / name, uint8_image(np, img), 95)
+    enc_s = time.perf_counter() - t
+    write_queries(jpg_dir, jnames, oi["qvecs"], oi["tvecs"],
+                  ("PINHOLE", WIDTH, HEIGHT, (FOCAL, FOCAL, WIDTH / 2, HEIGHT / 2)))
+    dec = {"jpeg": [host_ms(lambda p=jpg_dir / j: read_image(str(p)), 3) for j in jnames],
+           "png": [host_ms(lambda p=png_dir / f: read_image(str(p)), 3) for f in oi["fnames"]]}
+    argv = oi["argv"][:-2]  # its --max_keypoints goes
+    at = argv.index("--image_dir") + 1
+    argv[at] = str(jpg_dir)
+    names_all = set(read_counts())
+    out = dict(encode_s=enc_s, decode_ms={k: float(np.mean(v)) for k, v in dec.items()},
+               jpeg_bytes=int(np.mean([(jpg_dir / j).stat().st_size for j in jnames])))
+    runs = {}
+    for kpts, lost in zip(RUNTIME_ONLINE_KPTS, ((), RUNTIME_1024_LOST)):
+        key = f"jpeg_{kpts}"
+        with recording_viewers() as viewers:
+            reset_counts()
+            recs, lines = run_cli(f"online (jpeg, {kpts} keypoints)", cli_online.main, [
+                *argv, "--max_keypoints", str(kpts), "--queries", str(jpg_dir / "queries_with_intrinsics.txt"),
+                "--viewer_port", "0"])
+            torch.cuda.synchronize()
+            runs[key] = online_run(torch, np, oi, recs, lines, read_counts(), names_all, key, lost)
+            runs[key]["viewer"] = viewer_check(torch, np, viewers, lines, recs, jnames[-1])
+    out.update(runs=runs)
+    log(f"runtime online: {n} frames written as JPEG in {enc_s:.2f} s ({out['jpeg_bytes']} bytes a frame); decode "
+        f"{out['decode_ms']['jpeg']:.1f} ms (JPEG) vs {out['decode_ms']['png']:.1f} ms (PNG) a frame (host, median "
+        f"of 3); frame ms after the first: "
+        + "; ".join(f"{k} " + ", ".join(f"{kk}={vv:.2f}" for kk, vv in r["mean_ms_after_first"].items())
+                    for k, r in runs.items())
+        + "; the viewer's update " + ", ".join(f"{k} {r['viewer']['update_ms']:.3f}" for k, r in runs.items())
+        + " ms a frame; phase 22's PNG run at "
+        f"512 keypoints: " + ", ".join(f"{k}={v:.2f}" for k, v in png_512_ms.items()))
+    return out
+
+
+def online_run(torch, np, oi, recs, lines, got, names_all, key: str, lost: tuple) -> dict:
+    """One online CLI run's figures, held to phase 22's gates but for the
+    frames in ``lost``, which must fail: every other frame localized within
+    5 cm / 5 deg, frame ONLINE_JUMPS[0] falling back from tracking to
+    relocalization; its launches as its frames need them."""
+    from pram_tpu_torch.geometry.rotations import compute_pose_error
+
+    n = len(oi["fnames"])
+    q_err, t_err = compute_pose_error(torch.tensor(np.stack([r["qvec"] for r in recs])).double(),
+                                      torch.tensor(np.stack([r["tvec"] for r in recs])).double(),
+                                      torch.tensor(oi["qvecs"]), torch.tensor(oi["tvecs"]).double())
+    modes = [r["mode"] for r in recs]
+    fallback = [i for i in range(1, n) if modes[i] == "relocalized" and recs[i - 1]["success"]]
+    ok = [bool(r["success"]) and float(te) < 0.05 and float(qe) < 5.0 for r, qe, te in zip(recs, q_err, t_err)]
+    failed = [i for i, o in enumerate(ok) if not o]
+    log(f"online ({key}): {sum(ok)}/{n} frames within 5 cm / 5 deg, failed {failed} (the JAX CLI's: "
+        f"{list(lost)}), fallback frames {fallback}")
+    require(len(recs) == n and failed == list(lost),
+            f"online CLI ({key}): frames {failed} failed or lie outside 5 cm / 5 deg, where the JAX CLI loses "
+            f"{list(lost)}")
+    require(ONLINE_JUMPS[0] in fallback, f"online CLI ({key}): frame {ONLINE_JUMPS[0]} did not fall back "
+            f"from tracking to relocalization (fallback frames {fallback})")
+    tried = sum(1 for i in range(1, n) if recs[i - 1]["success"])
+    matched = tried + modes.count("relocalized")
+    want = add_launches({"fused_stem": n, "nms": n}, SEGNETVIT_LAUNCHES, n)
+    want = add_launches(add_launches(want, {**GML_LAUNCHES, "sinkhorn": 0}, matched), PNP_LAUNCHES, matched)
+    plans = got["sinkhorn"] + got["sinkhorn_wide"]
+    require({k: v for k, v in got.items() if k not in ("sinkhorn", "sinkhorn_wide")}
+            == {k: want.get(k, 0) for k in names_all if k not in ("sinkhorn", "sinkhorn_wide")}
+            and plans == matched, f"online CLI ({key}): launches {got}, expected {want} and {matched} Sinkhorn plans")
+    ms = {k: float(np.mean([r["ms"][k] for r in recs[1:]])) for k in ("feat", "rec", "loc", "total")}
+    return dict(launches=got, modes=modes, fallback_frames=fallback, localized=sum(ok), failed=failed,
+                max_err=[float(q_err.max()), float(t_err.max())], mean_ms_after_first=ms, summary=lines[-1])
+
+
+def viewer_check(torch, np, viewers, lines, recs, last_name: str) -> dict:
+    """The CLI's one viewer: its ``viewer:`` line, ``/map`` parsed, ``/state``
+    holding an update a frame, the last one the CLI's last result."""
+    import urllib.request
+
+    from pram_tpu_torch.geometry.rotations import qvec2rotmat
+
+    require(len(viewers) == 1 and any(ln.startswith(f"viewer: http://127.0.0.1:{viewers[0].port}/")
+                                      for ln in lines), "online CLI: no viewer line")
+    v = viewers[0]
+    loopback = urllib.request.build_opener(urllib.request.ProxyHandler({}))  # past any proxy in the environment
+    t = time.perf_counter()
+    with loopback.open(f"http://127.0.0.1:{v.port}/map", timeout=30) as r:
+        vmap = json.loads(r.read())
+    with loopback.open(f"http://127.0.0.1:{v.port}/state", timeout=30) as r:
+        state = json.loads(r.read())
+    get_ms = (time.perf_counter() - t) * 1e3
+    last = recs[-1]
+    rot = qvec2rotmat(torch.from_numpy(last["qvec"]).float()).numpy()
+    centre = -(rot.T @ last["tvec"])
+    frame = state["frames"][-1] if state["frames"] else {}
+    same = (state["seq"] == len(recs) and len(state["frames"]) == len(recs) and frame.get("name") == last_name
+            and frame.get("num_inliers") == last["inliers"]
+            and np.allclose(frame.get("center", [np.inf] * 3), centre, atol=1e-4))
+    log(f"viewer: /map {len(vmap['points'])} points, {len(vmap['frames'])} frames, {len(vmap['vrfs'])} VRFs; /state "
+        f"{state['seq']} updates, last "
+        f"{json.dumps({k: frame.get(k) for k in ('name', 'success', 'tracking', 'matched_sid', 'num_inliers', 'center')})}; "
+        f"the CLI's last centre {np.round(centre, 5).tolist()}; both GETs {get_ms:.1f} ms")
+    require(bool(vmap["points"]) and same, "viewer: /state's updates are not the CLI's frames")
+    return dict(points=len(vmap["points"]), updates=state["seq"], update_ms=float(np.mean(v.update_ms)),
+                get_ms=get_ms)
+
+
+def runtime_script(torch, np, dev, bf16, root, world_inputs, reset_counts, read_counts, path_kernels) -> dict:
+    """(c): scripts/reconstruct_scene_torch.sh on the 64 reference views
+    written as JPEG; its h5 files read back; the 32 queries, written as JPEG
+    and decoded by the port, localized on the map it built."""
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pram_tpu_torch.engine.rendered_guard import GML_W, SFD2_W
+    from pram_tpu_torch.io import h5
+    from pram_tpu_torch.io.image import read_image
+    from pram_tpu_torch.maps.colmap_io import ColmapCamera, ColmapImage, write_model
+    from pram_tpu_torch.maps.parsers import names_to_pair
+    from pram_tpu_torch.maps.synthetic import _rotmat2qvec_np
+    from pram_tpu_torch.models.convert import load_sfd2
+
+    world, imgs, poses, names = (world_inputs[k] for k in ("world", "imgs", "poses", "names"))
+    q_imgs, q_qvecs, q_tvecs = world_inputs["queries"]
+    jnames = [n_.replace(".png", ".jpg") for n_ in names]
+    cam = (MAP_FOCAL, MAP_FOCAL, MAP_W / 2, MAP_H / 2)
+    out, secs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="pram_recon_") as tmp:
+        tmp = Path(tmp)
+        data_dir, lm, q_dir = tmp / "dataset", tmp / "landmarks", tmp / "queries"
+
+        def one(item):
+            path, img = item
+            path.parent.mkdir(parents=True, exist_ok=True)
+            write_jpeg(path, uint8_image(np, img), 95)
+
+        t = time.perf_counter()
+        q_paths = [q_dir / f"q_{i:03d}.jpg" for i in range(len(q_imgs))]
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(one, [*((data_dir / j, im) for j, im in zip(jnames, imgs)), *zip(q_paths, q_imgs)]))
+        secs["write_jpeg"] = time.perf_counter() - t
+        pairs = nearest_view_pairs(np, poses, jnames, MAP_PAIRS)
+        pairs_txt = tmp / "pairs.txt"
+        pairs_txt.write_text("".join(f"{a} {b}\n" for a, b in pairs))
+        ref_dir = tmp / "ref_model"  # the known poses, COLMAP's principal point half a pixel on (phase 30)
+        cameras = {1: ColmapCamera(1, "PINHOLE", MAP_W, MAP_H, np.array([*cam[:2], cam[2] + 0.5, cam[3] + 0.5]))}
+        images = {i + 1: ColmapImage(i + 1, _rotmat2qvec_np(R), t_, 1, jnames[i], np.zeros((0, 2)),
+                                     np.zeros(0, np.int64)) for i, (R, t_) in enumerate(poses)}
+        write_model(cameras, images, {}, str(ref_dir), ".bin")
+        shim = tmp / "bin"  # the script calls `python`: this interpreter
+        shim.mkdir()
+        (shim / "python").write_text(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+        (shim / "python").chmod(0o755)
+        env = {**os.environ, "PATH": f"{shim}{os.pathsep}{os.environ.get('PATH', '')}", "SFD2_WEIGHTS": SFD2_W,
+               "GML_WEIGHTS": GML_W}
+        env.pop("DEVICE", None)  # the card, the script's default
+        cmd = ["bash", str(root / "scripts" / "reconstruct_scene_torch.sh"), str(data_dir), str(lm), str(ref_dir),
+               str(pairs_txt), str(MAP_N_CLUSTER), "xyz", "kmeans"]
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=str(root), env=env, capture_output=True, text=True,
+                              timeout=RUNTIME_SCRIPT_TIMEOUT_S)
+        secs["script"] = time.perf_counter() - t
+        for line in (proc.stdout + proc.stderr).splitlines()[-40:]:
+            log(f"  reconstruct_scene_torch.sh | {line}")
+        require(proc.returncode == 0, f"reconstruct_scene_torch.sh exited {proc.returncode}")
+        t = time.perf_counter()
+        with h5.File(str(lm / "feats-sfd2.h5"), "r") as f:
+            n_kp = [f[j]["keypoints"].shape[0] for j in jnames]
+            ok = all(f[j]["descriptors"].shape[1] == n_kp[i] for i, j in enumerate(jnames))
+        with h5.File(str(lm / "matches-gml.h5"), "r") as f:
+            n_m = [int((f[names_to_pair(a, b)]["matches0"][()] >= 0).sum()) for a, b in pairs]
+        secs["read_back"] = time.perf_counter() - t
+        require(ok and min(n_kp) > 0 and len(n_m) == len(pairs) and min(n_m) > 0,
+                "reconstruct_scene_torch.sh: its h5 files do not read back whole")
+        require((lm / "model" / "points3D.bin").exists() and (lm / "compress_model_kmeans" / "points3D.bin").exists(),
+                "reconstruct_scene_torch.sh: no triangulated model or built map")
+        t = time.perf_counter()
+        q_dec = np.stack([read_image(str(p)) for p in q_paths]).astype(np.float32) / 255.0
+        secs["decode_queries"] = time.perf_counter() - t
+        sfd2 = load_sfd2(SFD2_W, device=dev, dtype=bf16)
+        reset_counts()
+        out["localization"] = localize_built_map(torch, np, dev, bf16, sfd2, lm, world, (q_dec, q_qvecs, q_tvecs),
+                                                 reset_counts, read_counts, path_kernels, "runtime (script's map)")
+        del sfd2
+    out.update(secs=secs, keypoints=[min(n_kp), max(n_kp)], matches_per_pair=float(np.mean(n_m)), pairs=len(pairs))
+    log(f"runtime script: {len(jnames)} + {len(q_paths)} views written as JPEG in {secs['write_jpeg']:.2f} s; "
+        f"reconstruct_scene_torch.sh {secs['script']:.1f} s ({min(n_kp)}-{max(n_kp)} keypoints a view, "
+        f"{np.mean(n_m):.0f} matches a pair); h5 read back in {secs['read_back']:.2f} s; queries decoded in "
+        f"{secs['decode_queries']:.2f} s")
+    return out
+
+
+def runtime_train(torch, np, dev, scene, reset_counts, read_counts, root) -> dict:
+    """(d): cli.train at RUNTIME_TRAIN_KPTS tokens a view and a batch of
+    RUNTIME_TRAIN_BATCH (SegNetViT 15 layers: kernels 13 and 15 off their
+    tiles), and GML matcher steps at RUNTIME_GML_SIDES (9 layers: 13, 14
+    and 15 off their tiles), counted; the losses finite."""
+    import tempfile
+
+    from pram_tpu_torch.cli import train as cli_train
+    from pram_tpu_torch.core.config import load_yaml
+    from pram_tpu_torch.models.gml import GML, GMLConfig
+    from pram_tpu_torch.train.matcher import make_matcher_train_step
+
+    names_all = set(read_counts())
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="pram_train_tiles_") as tmp:
+        tmp = Path(tmp)
+        top = load_yaml(str(root / TRAIN_CONFIG))
+        for k in ("dataset", "landmark_path", "dataset_path", "config_path"):
+            top.pop(k)
+        top.update(epochs=1, its_per_epoch=RUNTIME_TRAIN_ITS, max_keypoints=RUNTIME_TRAIN_KPTS,
+                   batch_size=RUNTIME_TRAIN_BATCH, save_path=str(tmp / "exp"))
+        cfg = training_layout(tmp, scene, 24, 112, top)
+        reset_counts()
+        t = time.perf_counter()
+        trainer, lines = run_cli(f"train at {RUNTIME_TRAIN_KPTS} keypoints", cli_train.main,
+                                 ["--config", str(cfg), "--save_dir", str(tmp / "ck")])
+        torch.cuda.synchronize()
+        got = read_counts()
+        per_step = {"self_attention": 15, "residual_mlp": 15, "self_attention_bwd": 15, "residual_mlp_bwd": 15}
+        want = {k: RUNTIME_TRAIN_ITS * per_step.get(k, 0) for k in names_all}
+        losses = [float(line.split(" loss ")[1].split()[0]) for line in lines if line.startswith("Epoch [")]
+        log(f"train at {RUNTIME_TRAIN_KPTS} keypoints, batch {RUNTIME_TRAIN_BATCH}: launches {got}, epoch losses "
+            f"{losses}, {time.perf_counter() - t:.1f} s")
+        require(got == want, f"train at {RUNTIME_TRAIN_KPTS} keypoints: launches {got}, expected {want}")
+        require(trainer.state.iteration == RUNTIME_TRAIN_ITS and len(losses) == 1 and bool(np.isfinite(losses).all()),
+                f"train at {RUNTIME_TRAIN_KPTS} keypoints: iteration {trainer.state.iteration}, losses {losses}")
+        out["train"] = dict(launches=got, losses=losses)
+
+    torch.manual_seed(0)
+    gml = GML(GMLConfig()).to(dev)
+    step = make_matcher_train_step(gml, 1e-4, torch.bfloat16)
+    g = torch.Generator().manual_seed(32)
+    b, (n0, n1) = RUNTIME_GML_BATCH, RUNTIME_GML_SIDES
+    dd = gml.config.descriptor_dim
+    d0, d1 = (torch.nn.functional.normalize(torch.randn(b, k, dd, generator=g), dim=-1).to(dev) for k in (n0, n1))
+    nk0, nk1 = ((torch.rand(b, k, 2, generator=g) - 0.5).to(dev) for k in (n0, n1))
+    m0, m1 = torch.rand(b, n0, generator=g) > 0.1, torch.ones(b, n1, dtype=torch.bool)
+    gt = torch.randint(0, n1 + 1, (b, n0), generator=g)
+    gt[~m0] = -1
+    args = [t_.to(dev) for t_ in (m0, m1, gt)]
+    reset_counts()
+    losses = [float(step(d0, d1, nk0, nk1, *args)["loss"]) for _ in range(RUNTIME_GML_STEPS)]
+    torch.cuda.synchronize()
+    got = read_counts()
+    per_step = {"self_attention": 9, "cross_attention": 9, "residual_mlp": 18, "self_attention_bwd": 9,
+                "cross_attention_bwd": 9, "residual_mlp_bwd": 18}
+    want = {k: RUNTIME_GML_STEPS * per_step.get(k, 0) for k in names_all}
+    plans = got["sinkhorn"] + got["sinkhorn_wide"]
+    log(f"GML matcher steps at {b} x ({n0} + {n1}): launches {got}, losses {losses}")
+    require({k: v for k, v in got.items() if k not in ("sinkhorn", "sinkhorn_wide")}
+            == {k: v for k, v in want.items() if k not in ("sinkhorn", "sinkhorn_wide")}
+            and plans == RUNTIME_GML_STEPS, f"GML matcher steps: launches {got}, expected {want}")
+    require(bool(np.isfinite(losses).all()), f"GML matcher steps: losses {losses}")
+    out["gml"] = dict(launches=got, losses=losses, sides=[b, n0, n1])
+    del gml, step
+    return out
+
+
+def run_runtime_phase(torch, np, dev, bf16, root, online_inputs, png_512_ms, world_inputs, scene, reset_counts,
+                      read_counts, path_kernels) -> dict:
+    """Phase 32 (a)-(d); the launches of its counted runs summed by kernel."""
+    out = dict(jpeg=jpeg_checks(np, world_inputs))
+    t = time.perf_counter()
+    out["online"] = runtime_online(torch, np, online_inputs, png_512_ms, reset_counts, read_counts)
+    out["online_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["script"] = runtime_script(torch, np, dev, bf16, root, world_inputs, reset_counts, read_counts, path_kernels)
+    out["script_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["train"] = runtime_train(torch, np, dev, scene, reset_counts, read_counts, root)
+    out["train_s"] = time.perf_counter() - t
+    total = {}
+    for part in (*out["online"]["runs"].values(), out["script"]["localization"], *out["train"].values()):
+        for k, v in part["launches"].items():
+            total[k] = total.get(k, 0) + v
+    out["launches"] = total
     return out
 
 
@@ -6126,11 +6747,14 @@ def main() -> int:
                                                    seg_k1=k1_s * 1e3, seg_k10=k10_s * 1e3))
     phase("matching", t)
 
-    # ---- 22. the two serving CLIs through main(argv), counted
+    # ---- 22. the two serving CLIs through main(argv), counted; the online CLI's inputs stay for phase 32
     t = time.perf_counter()
+    online_root = tempfile.TemporaryDirectory(prefix="pram_online_")
     cli_runs = run_cli_phase(
         torch, np, dev, bf16, scene, queries, grecall_gpu, weights, gml_weights, reset_counts, read_counts,
+        Path(online_root.name),
     )
+    online_inputs = cli_runs.pop("online_inputs")
     for r in rows.values():
         r["launches_cli"] = {path: run["launches"][r["name"]] for path, run in cli_runs.items()}
     log(f"cli: {json.dumps({k: {kk: vv for kk, vv in v.items() if kk != 'launches'} for k, v in cli_runs.items()})}")
@@ -6138,8 +6762,6 @@ def main() -> int:
 
     # ---- 23. GML matcher training through cli.train_synthetic_gml.main, counted
     t = time.perf_counter()
-    import tempfile
-
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="pram_gml_") as tmp:
         gml_train = run_gml_train_phase(torch, np, dev, bf16, reset_counts, read_counts,
@@ -6221,9 +6843,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     hloc = run_hloc_phase(torch, np, dev, bf16, world_inputs, reset_counts, read_counts,
                           gml_kernels + ("fused_stem", "nms"))
-    del world_inputs
     log(f"hloc: {json.dumps({k: v for k, v in hloc.items() if k not in ('localization', 'kernels')})}; card: {smi}")
     phase("hloc", t)
+
+    # ---- 32. the runtime remainder: JPEG input, the online CLI's viewer, the torch reconstruction
+    # script, the backward kernels off their tiles inside training
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    runtime = run_runtime_phase(torch, np, dev, bf16, root, online_inputs, cli_runs["online"]["mean_ms_after_first"],
+                                world_inputs, scene, reset_counts, read_counts, gml_kernels + ("fused_stem", "nms"))
+    del world_inputs
+    online_root.cleanup()
+    log(f"runtime: {json.dumps({k: v for k, v in runtime.items() if k not in ('online', 'script', 'train')})}; "
+        f"online {json.dumps({k: v for k, v in runtime['online'].items() if k != 'runs'})}; script "
+        f"{json.dumps({k: v for k, v in runtime['script'].items() if k != 'localization'})}; card: {smi}")
+    for name in gml_kernels + ("fused_stem", "nms", "self_attention_bwd", "cross_attention_bwd", "residual_mlp_bwd"):
+        require(runtime["launches"].get(name, 0) > 0, f"runtime: kernel {name} was not launched in phase 32")
+    phase("runtime", t)
 
     wide = gml_b["kernels"]["sinkhorn_wide"]
     rows["sinkhorn_wide"] = dict(
@@ -6242,6 +6878,7 @@ def main() -> int:
         r["launches_segnet_gm_cli"] = sg_cli["inference"]["launches"][name]
         r["launches_mapping"] = mapping["localization"]["launches"][name]
         r["launches_hloc"] = hloc["launches"][name]
+        r["launches_runtime"] = runtime["launches"][name]
         if name in hloc["kernels"]:
             r["hloc"] = hloc["kernels"][name]
         if name in sp_path["kernels"]:

@@ -5,8 +5,8 @@ Image listing and loading, padding to the stride, the per-config
 extractor (SFD2 or SuperPoint, kernels 8 and 9 on the card) and the
 descriptor compressor; ``extract_to_h5`` writes hloc's h5 layout through
 the port's own HDF5 writer (``io/h5.py``). Images are read without cv2
-(``io/image.py``): PNG and ``.npy``; any other format, JPEG included,
-raises naming the file and its format.
+(``io/image.py``): JPEG (bit-equal to ``cv2.imread``, ``io/jpeg.py``), PNG
+and ``.npy``; any other format raises naming the file and its format.
 
 Usage:
   python -m pram_tpu_torch.cli.extract_features --image_dir D --export_fn out.h5 \
@@ -66,7 +66,7 @@ def list_images(root: str, image_list: Optional[str] = None) -> List[str]:
 def load_image(path: str, grayscale: bool, resize_max: Optional[int]):
     """Read an image -> float [H, W, C] in [0,1] + scale back factor.
 
-    PNG and ``.npy`` (uint8, or float in [0, 1]) through ``io/image.py``;
+    JPEG, PNG and ``.npy`` (uint8, or float in [0, 1]) through ``io/image.py``;
     ``resize_max`` resizes as ``cv2.resize``'s ``INTER_LINEAR`` does."""
     img = read_image(path, grayscale)
     size = np.array(img.shape[:2][::-1])  # (w, h)

@@ -9,9 +9,14 @@ fall back to full relocalization whenever tracking is lost
 
 Usage:
   python -m pram_tpu_torch.cli.online_localization --config C --image_dir D \\
-      --queries queries_with_intrinsics.txt [--device cpu]
+      --queries queries_with_intrinsics.txt [--viewer_port 0] [--device cpu]
 
-Images are PNG or ``.npy`` (``io/image.py``; JPEG raises). Weights are
+``--viewer_port`` serves the browser 3D viewer (``viz/server.py``) as the
+JAX CLI serves it: a ``viewer:`` line with its address, then one update a
+frame. Like the JAX CLI's, the viewer serves until the process exits.
+``--save_vis`` is parsed and not used, as in the JAX CLI.
+
+Images are JPEG, PNG or ``.npy`` (``io/image.py``). Weights are
 reference torch checkpoints, as for the JAX CLI, or the repo's flax
 ``.msgpack`` files. It runs on the CUDA card, in bf16, unless ``--device
 cpu`` is given (f32, as the JAX CLI). ``main`` returns one record a frame.
@@ -37,7 +42,7 @@ def _clock(device) -> float:
 
 @torch.no_grad()
 def main(argv=None):
-    from pram_tpu_torch.cli.inference import WEIGHT_HELP, load_recognizer, not_ported, scene_configs
+    from pram_tpu_torch.cli.inference import WEIGHT_HELP, load_recognizer, scene_configs
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", required=True)
@@ -49,17 +54,21 @@ def main(argv=None):
     ap.add_argument("--matcher_weight_path", default=None, help=WEIGHT_HELP)
     ap.add_argument("--max_keypoints", type=int, default=1024)
     ap.add_argument("--save_vis", default=None,
-                    help="frame dumps (not ported: utils/visualization.py, ROADMAP queue 1 item 4)")
+                    help="accepted and unused, as in the JAX CLI (nothing reads it in either package)")
     ap.add_argument("--no_tracking", action="store_true")
-    ap.add_argument("--viewer_port", type=int, default=None,
-                    help="the 3D viewer (not ported: viz/server.py, ROADMAP queue 1 item 4)")
-    ap.add_argument("--viewer_host", default="127.0.0.1")
+    ap.add_argument(
+        "--viewer_port", type=int, default=None,
+        help="serve the interactive 3D viewer (pram_tpu_torch/viz) on this port "
+        "(0 = ephemeral); the browser replacement for the reference's "
+        "pangolin window (localization/viewer.py)",
+    )
+    ap.add_argument(
+        "--viewer_host", default="127.0.0.1",
+        help="viewer bind address (default loopback; 0.0.0.0 exposes the "
+        "map + pose stream to the network)",
+    )
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.save_vis is not None:
-        not_ported("--save_vis", "utils/visualization.py (ROADMAP queue 1 item 4)")
-    if args.viewer_port is not None:
-        not_ported("--viewer_port", "viz/server.py (ROADMAP queue 1 item 4)")
 
     from pram_tpu_torch.cli.extract_features import CONFS, _pad_to_multiple, build_extractor, load_image
     from pram_tpu_torch.cli.match_features import build_match_fn, model_dtype
@@ -67,6 +76,7 @@ def main(argv=None):
     from pram_tpu_torch.engine.localizer import Localizer, LocResult
     from pram_tpu_torch.engine.tracker import Tracker
     from pram_tpu_torch.geometry.camera import Camera, make_camera
+    from pram_tpu_torch.geometry.rotations import qvec2rotmat
     from pram_tpu_torch.maps.device import to_device
     from pram_tpu_torch.maps.loader import load_multi_map
     from pram_tpu_torch.maps.parsers import parse_image_list_with_intrinsics
@@ -91,6 +101,13 @@ def main(argv=None):
     localizer = Localizer(dmap, match_fn, cfg.localization)
     tracker = Tracker(dmap, match_fn, cfg.localization)
     seg_vrf_slot = pmap.seg_vrf_slot
+
+    viewer = None
+    if args.viewer_port is not None:
+        from pram_tpu_torch import viz
+
+        viewer = viz.ViewerServer(pmap, port=args.viewer_port, host=args.viewer_host)
+        print(f"viewer: http://{args.viewer_host}:{viewer.port}/")
 
     queries = parse_image_list_with_intrinsics(args.queries)
     times = {"feat": [], "rec": [], "loc": [], "total": []}
@@ -142,6 +159,14 @@ def main(argv=None):
         dts = {"feat": t1 - t0, "rec": t2 - t1, "loc": t3 - t2, "total": t3 - t0}
         for k, v in dts.items():
             times[k].append(v)
+        if viewer is not None:
+            # -1 as the JAX CLI sends it: its records carry no matched_sid
+            viewer.update(
+                R=qvec2rotmat(res.qvec.float()).cpu().numpy(), tvec=res.tvec.cpu().numpy(),
+                success=ok, tracking=bool(not args.no_tracking and not tracker.lost),
+                matched_sid=-1,
+                num_inliers=int(res.num_inliers), times=dts, name=qname,
+            )
         records.append({
             "name": qname, "success": ok, "qvec": res.qvec.cpu().numpy(),
             "tvec": res.tvec.cpu().numpy(), "inliers": int(res.num_inliers), "mode": mode,

@@ -9,9 +9,10 @@ LocConfig, and keys such as ``covisibility_frame`` go to ``extras``.
 
 The card's machine has no ``yaml``, so :func:`safe_load` reads the subset
 of YAML that ``configs/*.yaml`` and ``configs/datasets/*.yaml`` use: block
-maps, block lists of scalars, and plain or quoted one-line scalars resolved
-as ``yaml.safe_load`` resolves them (int, float, bool, null, string). It
-raises, naming the line, on anything else.
+maps, block lists of scalars, plain or quoted one-line scalars resolved
+as ``yaml.safe_load`` resolves them (int, float, bool, null, string),
+single-quoted keys, and the empty ``[]`` and ``{}``. It raises, naming the
+line, on anything else.
 """
 
 from __future__ import annotations
@@ -58,6 +59,8 @@ def _scalar(text: str, lineno: int, line: str):
         if len(text) < 2 or not text.endswith('"') or '"' in text[1:-1] or "\\" in text:
             _fail(lineno, "a multi-line or escaped double-quoted string", line)
         return text[1:-1]
+    if text in ("[]", "{}"):  # the empty flow collections, as yaml.safe_dump writes them
+        return [] if text == "[]" else {}
     if text[:1] in ("[", "{"):
         _fail(lineno, "flow style", line)
     if text[:1] in ("&", "*", "!"):
@@ -112,10 +115,21 @@ def _lines(text: str):
     return out
 
 
+_QUOTED_KEY = re.compile(r"('(?:[^']|'')*'):(?: (.*))?$")
+
+
 def _split_key(content: str, lineno: int, line: str):
-    """``key: value`` / ``key:`` -> (key, value text or None); None if no key."""
-    if content.startswith(("'", '"', "?")):
-        _fail(lineno, "a quoted or complex key", line)
+    """``key: value`` / ``key:`` -> (key, value text or None); None if no
+    key. A key may be single-quoted (``'off': 1``, as yaml.safe_dump quotes
+    a key that would resolve to another type)."""
+    if content.startswith("'"):
+        m = _QUOTED_KEY.match(content)
+        if m is None:
+            _fail(lineno, "a malformed quoted key", line)
+        value = (m.group(2) or "").strip()
+        return m.group(1), value or None
+    if content.startswith(('"', "?")):
+        _fail(lineno, "a double-quoted or complex key", line)
     if content.endswith(":") and ": " not in content:
         return content[:-1], None
     if ": " in content:

@@ -1,13 +1,16 @@
-"""Image reading without cv2: a stdlib PNG decoder, ``.npy`` images and
-cv2's bilinear resize.
+"""Image reading without cv2: a stdlib PNG decoder, the port's JPEG
+decoder, ``.npy`` images and cv2's bilinear resize.
 
 The card's machine has no cv2 and no image library, so the port reads its
 images itself:
 
+- JPEG through ``io/jpeg.py``, bit-equal to ``cv2.imread`` (libjpeg-turbo's
+  integer IDCT, fancy upsampling and colour conversion; EXIF orientation
+  applied); a grayscale read is the stream's Y plane, as cv2 reads it;
 - PNG through ``zlib`` and ``struct``: 8-bit gray, RGB and RGBA,
   non-interlaced, filter types 0-4 (decoded bytes equal libpng's);
 - ``.npy``: ``[H, W]`` or ``[H, W, 1 | 3]``, uint8 or float in [0, 1];
-- anything else (JPEG included) raises, naming the file and its format.
+- anything else raises, naming the file and its format.
 
 :func:`resize_linear` is ``cv2.resize``'s ``INTER_LINEAR``: pixel centres
 map by ``(x + 0.5) * scale - 0.5``, clamped at the borders.
@@ -21,6 +24,8 @@ import zlib
 from typing import Tuple
 
 import numpy as np
+
+from pram_tpu_torch.io.jpeg import read_jpeg
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}  # PNG colour type -> samples a pixel
@@ -122,7 +127,7 @@ def rgb_to_gray(img: np.ndarray) -> np.ndarray:
 
 def read_image(path: str, grayscale: bool = False) -> np.ndarray:
     """An image file -> ``[H, W]`` (grayscale) or ``[H, W, 3]`` RGB, uint8 for
-    PNG and uint8 ``.npy``, the stored float type for float ``.npy``.
+    JPEG, PNG and uint8 ``.npy``, the stored float type for float ``.npy``.
 
     An RGBA PNG drops its alpha; a gray image read in colour repeats its
     channel three times, as ``cv2.imread`` reads them.
@@ -136,6 +141,8 @@ def read_image(path: str, grayscale: bool = False) -> np.ndarray:
         if img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[-1] != 3):
             raise ValueError(f"{path}: .npy image of shape {img.shape}; expected [H, W] or [H, W, 1 | 3]")
     else:
+        if _format_of(path) == "JPEG":  # a stream of its own: gray is its Y plane, not a conversion
+            return read_jpeg(path, grayscale)
         if not _is_png(path):
             raise ValueError(
                 f"{path}: {_format_of(path)} images are not read by this port (it has "

@@ -11,6 +11,13 @@ rotated q, k and v into a scratch, a statistics pass, a gradient pass) or
 ``csrc/cross_attention_bwd.cu`` (a statistics pass, a gradient pass), or
 raises. Each call counts one launch.
 
+Token counts off the kernels' 64-token tile are padded inside the CUDA
+wrappers (:func:`self_bwd_on_tile`, :func:`cross_bwd_on_tile`), each side
+at its end: a padded token is zero in the projections and the upstream
+gradient and its key sits at ``padding.PAD_BIAS``, so its softmax weight
+and its gradient row are exactly zero and it adds nothing to a real
+token's gradients; its rows of the outputs are sliced off.
+
 ``qkv`` is in the port's layout, the torch ``Linear`` output of the flax
 kernel: column ``(head * head_dim + i) * 3 + c`` for c in (q, k, v), and
 ``dqkv`` comes out the same way, so ``dqkv^T x`` is the gradient of the
@@ -25,6 +32,7 @@ import torch
 
 from pram_tpu_torch._build import check_status, check_tensor, library, ptr, stream_of
 from pram_tpu_torch.ops.attention import rotate_half, split_edges
+from pram_tpu_torch.ops.padding import pad_sides, unpad
 
 LAUNCHES = {"self_attention_bwd": 0, "cross_attention_bwd": 0}
 
@@ -86,9 +94,26 @@ def self_attention_bwd_plain(qkv, cos, sin, key_bias, g, scale, heads, splits=No
 
 
 def self_attention_bwd(qkv, cos, sin, key_bias, g, scale, heads, splits=None):
-    """:func:`self_attention_bwd_plain` on the CPU; ``csrc/attention_bwd.cu`` on CUDA."""
+    """:func:`self_attention_bwd_plain` on the CPU; ``csrc/attention_bwd.cu`` on
+    CUDA, sides off the tile padded (:func:`self_bwd_on_tile`)."""
     if qkv.device.type == "cpu":
         return self_attention_bwd_plain(qkv, cos, sin, key_bias, g, scale, heads, splits)
+    return self_bwd_on_tile(_self_attention_bwd_cuda, qkv, cos, sin, key_bias, g, scale, heads, splits)
+
+
+def self_bwd_on_tile(launch, qkv, cos, sin, key_bias, g, scale, heads, splits=None):
+    """``launch(qkv, cos, sin, key_bias, g, scale, heads, splits)`` on each
+    side padded at its end to the 64-token tile (zero qkv, g, cos and sin,
+    keys at ``padding.PAD_BIAS``), and the real tokens' ``(dqkv, dcos, dsin,
+    dbias)``: the route of :func:`self_attention_bwd` on CUDA (the CPU tests
+    give the plain version as ``launch``)."""
+    sides = [hi - lo for lo, hi in split_edges(splits, qkv.shape[1])]
+    (qp, cp, sp, gp), kb, padded, index = pad_sides((qkv, cos, sin, g), key_bias, sides, KERNEL_TILE)
+    out = launch(qp, cp, sp, kb, gp, scale, heads, None if splits is None else padded)
+    return tuple(None if t is None else unpad(t, index) for t in out)
+
+
+def _self_attention_bwd_cuda(qkv, cos, sin, key_bias, g, scale, heads, splits=None):
     b, n, d3 = qkv.shape
     dev = qkv.device
     f32 = torch.float32
@@ -102,8 +127,8 @@ def self_attention_bwd(qkv, cos, sin, key_bias, g, scale, heads, splits=None):
     sides = [hi - lo for lo, hi in split_edges(splits, n)]
     if any(s % KERNEL_TILE for s in sides) or len(sides) > KERNEL_MAX_SPLITS:
         raise ValueError(
-            f"CUDA self-attention backward needs N % {KERNEL_TILE} == 0 on each of at "
-            f"most {KERNEL_MAX_SPLITS} sides; got sides {tuple(sides)}"
+            f"CUDA self-attention backward takes sides padded to {KERNEL_TILE} tokens, at "
+            f"most {KERNEL_MAX_SPLITS} of them; got sides {tuple(sides)}"
         )
     check_tensor(qkv, "qkv", (b, n, d3), torch.bfloat16, dev)
     check_tensor(g, "g", (b, n, KERNEL_D), torch.bfloat16, dev)
@@ -171,9 +196,30 @@ def cross_attention_bwd_plain(qk, v, bias0, bias1, g, scale, heads, n0):
 
 
 def cross_attention_bwd(qk, v, bias0, bias1, g, scale, heads, n0):
-    """:func:`cross_attention_bwd_plain` on the CPU; ``csrc/cross_attention_bwd.cu`` on CUDA."""
+    """:func:`cross_attention_bwd_plain` on the CPU; ``csrc/cross_attention_bwd.cu``
+    on CUDA, sides off the tile padded (:func:`cross_bwd_on_tile`)."""
     if qk.device.type == "cpu":
         return cross_attention_bwd_plain(qk, v, bias0, bias1, g, scale, heads, n0)
+    return cross_bwd_on_tile(_cross_attention_bwd_cuda, qk, v, bias0, bias1, g, scale, heads, n0)
+
+
+def cross_bwd_on_tile(launch, qk, v, bias0, bias1, g, scale, heads, n0):
+    """``launch(qk, v, bias0, bias1, g, scale, heads, n0)`` on the two sides
+    each padded at its end to the 64-token tile (zero qk, v and g, keys at
+    ``padding.PAD_BIAS``), and the real tokens' ``(dqk, dv, db0, db1)``: the
+    route of :func:`cross_attention_bwd` on CUDA (the CPU tests give the
+    plain version as ``launch``)."""
+    n1 = qk.shape[1] - n0
+    if n0 <= 0 or n1 <= 0:
+        raise ValueError(f"cross-attention backward needs both sides non-empty; got {n0} and {n1}")
+    (qkp, vp, gp), kb, (p0, _), index = pad_sides((qk, v, g), torch.cat([bias0, bias1], 1), (n0, n1), KERNEL_TILE)
+    if index is None:
+        return launch(qk, v, bias0, bias1, g, scale, heads, n0)
+    dqk, dv, db0, db1 = launch(qkp, vp, kb[:, :p0].contiguous(), kb[:, p0:].contiguous(), gp, scale, heads, p0)
+    return unpad(dqk, index), unpad(dv, index), db0[:, :n0], db1[:, :n1]
+
+
+def _cross_attention_bwd_cuda(qk, v, bias0, bias1, g, scale, heads, n0):
     b, n, d = qk.shape
     n1 = n - n0
     dev = qk.device
@@ -183,10 +229,10 @@ def cross_attention_bwd(qk, v, bias0, bias1, g, scale, heads, n0):
             f"CUDA cross-attention backward is built for d={KERNEL_D} and head_dim="
             f"{KERNEL_HEAD_DIM}; got d={d}, heads={heads}"
         )
-    if n0 <= 0 or n1 <= 0 or n0 % KERNEL_TILE or n1 % KERNEL_TILE:
+    if n0 % KERNEL_TILE or n1 % KERNEL_TILE:  # cross_bwd_on_tile refuses an empty side
         raise ValueError(
-            f"CUDA cross-attention backward needs both sides a positive multiple of "
-            f"{KERNEL_TILE} tokens; got {n0} and {n1}"
+            f"CUDA cross-attention backward takes both sides padded to a multiple "
+            f"of {KERNEL_TILE} tokens; got {n0} and {n1}"
         )
     for name, t in (("qk", qk), ("v", v), ("g", g)):
         check_tensor(t, name, (b, n, d), torch.bfloat16, dev)

@@ -11,6 +11,12 @@ or raises. Weights are in torch ``Linear`` layout (``[out, in]``), and so
 are their gradients. The kernel reads b0, ln_w and ln_b as the caller holds
 them (all bf16, as the training step's casts leave them, or f32) and widens
 them exactly as it loads them.
+
+Token counts off the kernel's 32-token tile are padded inside the CUDA
+wrapper (:func:`mlp_bwd_on_token_tile`) with zero rows of x, pm and ct. A
+zero row's LayerNorm input is b0, so its statistics stay finite, and its
+zero cotangent makes dz, dh and every product it feeds exactly zero: it
+adds 0 to each weight gradient. Its rows of dx and dpm are sliced off.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import math
 import torch
 
 from pram_tpu_torch._build import check_status, check_tensor, library, ptr, stream_of
+from pram_tpu_torch.ops.padding import on_row_tile
 
 LAUNCHES = {"residual_mlp_bwd": 0}
 
@@ -69,9 +76,24 @@ def residual_mlp_bwd_plain(x, pm, ct, w0, b0, ln_w, ln_b, w3, eps=1e-6):
 
 
 def residual_mlp_bwd(x, pm, ct, w0, b0, ln_w, ln_b, w3, eps=1e-6):
-    """:func:`residual_mlp_bwd_plain` on the CPU; ``csrc/mlp_bwd.cu`` on CUDA."""
+    """:func:`residual_mlp_bwd_plain` on the CPU; ``csrc/mlp_bwd.cu`` on CUDA,
+    token counts off the tile padded (:func:`mlp_bwd_on_token_tile`)."""
     if x.device.type == "cpu":
         return residual_mlp_bwd_plain(x, pm, ct, w0, b0, ln_w, ln_b, w3, eps)
+    return mlp_bwd_on_token_tile(_residual_mlp_bwd_cuda, x, pm, ct, w0, b0, ln_w, ln_b, w3, eps)
+
+
+def mlp_bwd_on_token_tile(launch, x, pm, ct, w0, b0, ln_w, ln_b, w3, eps=1e-6):
+    """``launch(x, pm, ct, w0, b0, ln_w, ln_b, w3, eps)`` on the tokens
+    flattened to rows and padded with zero rows to a multiple of 32
+    (``padding.on_row_tile``); dx and dpm cut back to x's shape, the weight
+    gradients as they come: the route of :func:`residual_mlp_bwd` on CUDA
+    (the CPU tests give the plain version as ``launch``)."""
+    return on_row_tile(lambda x2, p2, c2: launch(x2, p2, c2, w0, b0, ln_w, ln_b, w3, eps), KERNEL_TOKEN_TILE,
+                       x, pm, ct, row_outputs=2)
+
+
+def _residual_mlp_bwd_cuda(x, pm, ct, w0, b0, ln_w, ln_b, w3, eps=1e-6):
     dev = x.device
     d = x.shape[-1]
     tokens = x.numel() // d
@@ -82,7 +104,7 @@ def residual_mlp_bwd(x, pm, ct, w0, b0, ln_w, ln_b, w3, eps=1e-6):
             f"{KERNEL_HIDDEN}; got d={d}, hidden={w0.shape[0]}"
         )
     if tokens % KERNEL_TOKEN_TILE:
-        raise ValueError(f"CUDA residual MLP backward needs tokens % {KERNEL_TOKEN_TILE} == 0")
+        raise ValueError(f"CUDA residual MLP backward takes tokens padded to a multiple of {KERNEL_TOKEN_TILE}")
     # the vectors go in as the caller holds them: all bf16, or else f32
     vdt = torch.bfloat16 if all(t.dtype == torch.bfloat16 for t in (b0, ln_w, ln_b)) else f32
     if any(t.dtype != vdt for t in (b0, ln_w, ln_b)):

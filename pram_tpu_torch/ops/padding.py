@@ -82,12 +82,13 @@ def pad_rows(t: Optional[torch.Tensor], rows: int, fill: float = 0.0) -> Optiona
     return out
 
 
-def on_row_tile(fn, tile: int, x: torch.Tensor, *token_args: Optional[torch.Tensor]):
+def on_row_tile(fn, tile: int, x: torch.Tensor, *token_args: Optional[torch.Tensor], row_outputs: Optional[int] = None):
     """``fn(x2, *args2)`` on the tokens of ``x [..., d]`` (and of each
     ``[..., k]`` tensor in ``token_args``, the same leading shape) flattened
     to rows and padded with zero rows to a multiple of ``tile``; each output
     ``[rows, k]`` is cut back to ``x``'s leading shape. ``fn`` returns a
-    tensor or a tuple of them."""
+    tensor or a tuple of them; with ``row_outputs``, only the tuple's first
+    ``row_outputs`` are rows, and the rest come back as they are."""
     lead = x.shape[:-1]
     rows = x.numel() // x.shape[-1]
     total = round_up(rows, tile)
@@ -97,4 +98,7 @@ def on_row_tile(fn, tile: int, x: torch.Tensor, *token_args: Optional[torch.Tens
     def back(y):
         return y[:rows].reshape(*lead, y.shape[-1])
 
-    return tuple(back(y) for y in out) if isinstance(out, tuple) else back(out)
+    if not isinstance(out, tuple):
+        return back(out)
+    n = len(out) if row_outputs is None else row_outputs
+    return tuple(back(y) if i < n else y for i, y in enumerate(out))

@@ -19,8 +19,8 @@
 - The PNG reader against ``cv2.imread``, bit for bit, on gray / RGB / RGBA
   PNGs of every filter type and on cv2's own; ``resize_linear`` against
   ``cv2.resize`` within one grey level (uint8) and 1e-6 (float); JPEG input
-  raises naming its format; the unported flags raise naming their queue
-  item.
+  read as cv2 reads it, another format raising naming it; the unported
+  flags raise naming their queue item.
 """
 
 import os
@@ -128,16 +128,15 @@ def test_inference_main_matches_pram_tpu(tmp_path, jax_matches_only, monkeypatch
     assert ours.bucket_counts[0] == len(names) - 1
 
 
-def test_online_main_matches_pram_tpu(tmp_path, jax_matches_only, monkeypatch):
-    """A rendered world at 160 x 120, its map built by the JAX CLI's SFD2
-    init (read by the port from msgpack), four frames with a jump after the
-    second, the NN matcher, the port's RANSAC fed the JAX CLI's Gumbel
-    noise: both CLIs localize every frame the same way (relocalizing the
-    first frame and the one after the jump, where tracking fails), with
-    equal inlier counts and poses within 0.25 deg / 2 cm."""
+def run_online_against_jax(tmp_path, monkeypatch, extra=()):
+    """Both online CLIs on a rendered world at 160 x 120 (its map built by
+    the JAX CLI's SFD2 init, read by the port from msgpack), four frames
+    with a jump after the second, the NN matcher, ``extra`` flags given to
+    both, the port's RANSAC fed the JAX CLI's Gumbel noise. Returns the
+    port's records and the JAX CLI's frames: (printed line, last tracking
+    or relocalization event). Needs ``jax_matches_only``."""
     from pram_tpu.models.segnetvit import SegNetViT, SegNetViTConfig
     from pram_tpu.models.sfd2 import ResNet4x
-    from pram_tpu_torch.geometry.rotations import compute_pose_error
     from pram_tpu_torch.maps.rendered import build_rendered_scene
     from pram_tpu_torch.models.convert import load_sfd2
     from pram_tpu_torch.models.sfd2 import extract, preprocess_image
@@ -170,7 +169,7 @@ def test_online_main_matches_pram_tpu(tmp_path, jax_matches_only, monkeypatch):
         chip_smoke.write_png(img_dir / name, np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8))
     chip_smoke.write_queries(img_dir, names, qvecs, tvecs, ("PINHOLE", w, h, (f, f, w / 2, h / 2)))
     argv = ["--config", str(cfg), "--image_dir", str(img_dir), "--max_keypoints", "128",
-            "--queries", str(img_dir / "queries_with_intrinsics.txt")]
+            "--queries", str(img_dir / "queries_with_intrinsics.txt"), *extra]
     # pram_tpu's poses: the last tracking or relocalization result of each
     # frame, cut at the frame's printed line
     from pram_tpu.engine.localizer import Localizer as JLocalizer
@@ -222,6 +221,17 @@ def test_online_main_matches_pram_tpu(tmp_path, jax_matches_only, monkeypatch):
     monkeypatch.setattr(Localizer, "localize_batch", localize)
     recs = online_localization.main(argv + ["--rec_weight_path", rec_w, "--feat_weight_path", sfd2_w,
                                             "--device", "cpu"])
+    assert not queue
+    return recs, frames
+
+
+def test_online_main_matches_pram_tpu(tmp_path, jax_matches_only, monkeypatch):
+    """Both CLIs localize every frame the same way (relocalizing the first
+    frame and the one after the jump, where tracking fails), with equal
+    inlier counts and poses within 0.25 deg / 2 cm."""
+    from pram_tpu_torch.geometry.rotations import compute_pose_error
+
+    recs, frames = run_online_against_jax(tmp_path, monkeypatch)
     assert [r["success"] for r in recs] == [" ok " in line for line, _ in frames] == [True] * 4
     assert [r["mode"] for r in recs] == [e[0] for _, e in frames]
     assert [r["mode"] for r in recs] == ["relocalized", "tracked", "relocalized", "tracked"]
@@ -230,7 +240,6 @@ def test_online_main_matches_pram_tpu(tmp_path, jax_matches_only, monkeypatch):
                                 torch.tensor(np.stack([r["tvec"] for r in recs])).double(),
                                 torch.tensor(np.stack([e[1] for _, e in frames])).double(),
                                 torch.tensor(np.stack([e[2] for _, e in frames])).double())
-    assert not queue
     # equal inlier sets of random-init features at 160 x 120 leave a
     # tracked pose in a shallow valley: its polish lands up to ~1.3 cm /
     # 0.1 deg apart on the two sides, the other frames within 1e-4
@@ -248,15 +257,13 @@ def test_inference_main_runs_gml_from_msgpack(tmp_path):
 
 
 def test_unported_flags_raise_naming_their_queue_item(tmp_path):
+    """The parallel flags name queue 1 item 9. The online CLI's
+    --viewer_port and --save_vis work now
+    (tests/test_torch_runtime.py::test_online_viewer_and_save_vis_as_the_jax_cli)."""
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         inference.main(["--config", "unused.yaml", "--mesh"])
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         inference.main(["--config", "unused.yaml", "--shard_map"])
-    base = ["--config", "c.yaml", "--image_dir", ".", "--queries", "q.txt"]
-    with pytest.raises(NotImplementedError, match="viz/server.py.*queue 1 item 4"):
-        online_localization.main(base + ["--viewer_port", "0"])
-    with pytest.raises(NotImplementedError, match="visualization.py.*queue 1 item 4"):
-        online_localization.main(base + ["--save_vis", str(tmp_path)])
 
 
 def test_h5_tools_run_without_h5py(tmp_path, monkeypatch):
@@ -444,9 +451,22 @@ def test_resize_linear_as_cv2(size):
 
 
 def test_jpeg_raises_naming_its_format(tmp_path):
+    """JPEG is read now (io/jpeg.py, tests/test_torch_jpeg.py): a JPEG reads
+    as cv2 reads it, through read_image and load_image as pram_tpu's
+    load_image; a format the port does not read (BMP) raises naming its
+    format; a missing file raises FileNotFoundError."""
+    rng = np.random.RandomState(2)
+    img = rng.randint(0, 256, (21, 35, 3)).astype(np.uint8)
     path = str(tmp_path / "x.jpg")
-    cv2.imwrite(path, np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(ValueError, match="JPEG"):
-        read_image(path)
+    cv2.imwrite(path, img)
+    np.testing.assert_array_equal(read_image(path), cv2.imread(path)[..., ::-1])
+    np.testing.assert_array_equal(read_image(path, grayscale=True), cv2.imread(path, cv2.IMREAD_GRAYSCALE))
+    for gray in (False, True):
+        ours, theirs = extract_features.load_image(path, gray, None), j_extract_features.load_image(path, gray, None)
+        assert np.array_equal(ours[0], theirs[0]) and np.array_equal(ours[1], theirs[1]) and ours[2] == theirs[2]
+    bmp = str(tmp_path / "x.bmp")
+    cv2.imwrite(bmp, img)
+    with pytest.raises(ValueError, match="BMP"):
+        read_image(bmp)
     with pytest.raises(FileNotFoundError):
         read_image(str(tmp_path / "missing.png"))

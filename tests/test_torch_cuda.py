@@ -35,7 +35,8 @@ statistics for masked keys and frames without valid queries, and the mean
 of v for queries with no valid key (within 0.02: bf16 inputs of scale 1).
 The f32 residual MLP within 1e-4 of its scale. Backward
 kernels 13-15: bf16 outputs within 2% of their scale, f32 reductions
-within 1%; a training step's f32 master gradients, kernel path against
+within 1%, also at token counts off their tiles (padded in the wrappers),
+where kernel 15 on rows of zeros alone gives exactly zero weight gradients; a training step's f32 master gradients, kernel path against
 plain path, within 3% of each tensor's scale. Kernels 16-19 (int8 MLP,
 int8 projections, int8 conv, conv pair): bf16 outputs within 2% of their
 scale, the int8 conv equal on >= 99.9% of its elements (also on inputs on
@@ -932,22 +933,88 @@ def test_residual_mlp_bwd_kernel(dev, tokens, vec_dtype):
 
 
 def test_backward_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """Token counts off the tiles are padded now
+    (test_backward_kernels_off_their_tiles); what stays refused: no rotary
+    tables, another head width, more than 8 sides, an empty side, inputs
+    off the 16-byte grid."""
     bf = torch.bfloat16
-    qkv = torch.zeros(1, 96, 768, device=dev, dtype=bf)
-    cs = torch.zeros(1, 96, 64, device=dev)
-    kb = torch.zeros(1, 96, device=dev)
-    gg = torch.zeros(1, 96, 256, device=dev, dtype=bf)
-    with pytest.raises(ValueError, match="N %"):
-        attention_bwd.self_attention_bwd(qkv, cs, cs, kb, gg, 0.125, 4)
+    qkv = torch.zeros(1, 64, 768, device=dev, dtype=bf)
+    cs = torch.zeros(1, 64, 64, device=dev)
+    kb = torch.zeros(1, 64, device=dev)
+    gg = torch.zeros(1, 64, 256, device=dev, dtype=bf)
     with pytest.raises(ValueError, match="cos/sin"):
-        attention_bwd.self_attention_bwd(qkv[:, :64], None, None, kb[:, :64], gg[:, :64], 0.125, 4)
-    with pytest.raises(ValueError, match="multiple"):
-        attention_bwd.cross_attention_bwd(gg, gg, kb[:, :32], kb[:, 32:], gg, 0.125, 4, 32)
-    with pytest.raises(ValueError, match="tokens %"):
-        x = torch.zeros(1, 40, 256, device=dev, dtype=bf)
-        w0 = torch.zeros(512, 512, device=dev, dtype=bf)
-        v = torch.zeros(512, device=dev)
-        mlp_bwd.residual_mlp_bwd(x, x, x, w0, v, v, v, torch.zeros(256, 512, device=dev, dtype=bf))
+        attention_bwd.self_attention_bwd(qkv, None, None, kb, gg, 0.125, 4)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention_bwd.self_attention_bwd(qkv, cs, cs, kb, gg, 0.125, 8)
+    with pytest.raises(ValueError, match="at most 8"):
+        attention_bwd.self_attention_bwd(qkv, cs, cs, kb, gg, 0.125, 4, splits=(8,) * 7 + (4, 4))
+    off = torch.zeros(1, 64 * 768 + 1, device=dev, dtype=bf)[:, 1:].view(1, 64, 768)
+    with pytest.raises(ValueError, match="aligned"):
+        attention_bwd.self_attention_bwd(off, cs, cs, kb, gg, 0.125, 4)
+    with pytest.raises(ValueError, match="non-empty"):
+        attention_bwd.cross_attention_bwd(gg, gg, kb[:, :0], kb, gg, 0.125, 4, 0)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention_bwd.cross_attention_bwd(qkv, qkv, kb[:, :32], kb[:, 32:], qkv[..., :768], 0.125, 4, 32)
+    x = torch.zeros(1, 64, 256, device=dev, dtype=bf)
+    w0 = torch.zeros(512, 512, device=dev, dtype=bf)
+    v = torch.zeros(512, device=dev)
+    with pytest.raises(ValueError, match="hidden"):
+        mlp_bwd.residual_mlp_bwd(x, x, x, w0[:256], v[:256], v[:256], v[:256],
+                                 torch.zeros(256, 256, device=dev, dtype=bf))
+    xo = torch.zeros(64 * 256 + 1, device=dev, dtype=bf)[1:].view(1, 64, 256)
+    with pytest.raises(ValueError, match="aligned"):
+        mlp_bwd.residual_mlp_bwd(xo, x, x, w0, v, v, v, torch.zeros(256, 512, device=dev, dtype=bf))
+
+
+@pytest.mark.parametrize("kernel,shape", [("self", (2, (100,))), ("self", (2, (1000, 600))),
+                                          ("self", (3, (37, 128, 300))), ("cross", (2, 100, 156)),
+                                          ("cross", (2, 1000, 600)), ("mlp", (1000,)), ("mlp", (3, 333))])
+def test_backward_kernels_off_their_tiles(dev, kernel, shape):
+    """Kernels 13, 14 and 15 at token counts off their tiles, padded in the
+    wrappers: one counted launch, within the on-tile tests' tolerances of
+    the unpadded plain versions; rows of zeros alone (what the padding
+    adds) give kernel 15 exactly zero weight gradients."""
+    g = torch.Generator().manual_seed(sum(shape[1]) if kernel == "self" else sum(shape))
+    bf = torch.bfloat16
+    if kernel == "self":
+        b, splits = shape
+        n = sum(splits)
+        ang = _rand(g, b, n, 32)
+        mask = torch.rand(b, n, generator=g) > 0.2
+        args = (_rand(g, b, n, 768).to(dev, bf), torch.cos(ang).repeat_interleave(2, -1).to(dev),
+                torch.sin(ang).repeat_interleave(2, -1).to(dev), attention.mask_to_bias(mask, b, n, "cpu").to(dev),
+                _rand(g, b, n, 256).to(dev, bf), 64**-0.5, 4, None if len(splits) == 1 else splits)
+        fn, plain, key, n_bf16 = (attention_bwd.self_attention_bwd, attention_bwd.self_attention_bwd_plain,
+                                  "self_attention_bwd", 1)
+    elif kernel == "cross":
+        b, n0, n1 = shape
+        n = n0 + n1
+        m1 = torch.rand(b, n1, generator=g) > 0.3
+        m1[1] = False
+        args = (*(_rand(g, b, n, 256).to(dev, bf) for _ in range(2)),
+                attention.mask_to_bias(torch.rand(b, n0, generator=g) > 0.1, b, n0, "cpu").to(dev),
+                attention.mask_to_bias(m1, b, n1, "cpu").to(dev), _rand(g, b, n, 256).to(dev, bf), 64**-0.5, 4, n0)
+        fn, plain, key, n_bf16 = (attention_bwd.cross_attention_bwd, attention_bwd.cross_attention_bwd_plain,
+                                  "cross_attention_bwd", 2)
+    else:
+        d = 256
+        args = (*(_rand(g, *shape, d).to(dev, bf) for _ in range(3)),
+                _rand(g, 2 * d, 2 * d, scale=(2 * d) ** -0.5).to(dev, bf), _rand(g, 2 * d, scale=0.1).to(dev, bf),
+                (1 + _rand(g, 2 * d, scale=0.1)).to(dev, bf), _rand(g, 2 * d, scale=0.1).to(dev, bf),
+                _rand(g, d, 2 * d, scale=(2 * d) ** -0.5).to(dev, bf))
+        fn, plain, key, n_bf16 = mlp_bwd.residual_mlp_bwd, mlp_bwd.residual_mlp_bwd_plain, "residual_mlp_bwd", 2
+    launches = attention_bwd.LAUNCHES if kernel != "mlp" else mlp_bwd.LAUNCHES
+    before = launches[key]
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert launches[key] == before + 1
+    ref = plain(*args)
+    assert all(a.shape == r.shape for a, r in zip(got, ref))
+    _check_bwd(got, ref, n_bf16)
+    if kernel == "mlp":
+        z = torch.zeros(32, 256, device=dev, dtype=bf)
+        zero = mlp_bwd.residual_mlp_bwd(z, z, z, *args[3:])
+        assert all(torch.isfinite(t).all() and not t.any() for t in zero[2:])
 
 
 def test_training_gradients_kernels_vs_plain(dev):

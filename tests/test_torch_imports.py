@@ -1,8 +1,9 @@
 """Dependency fence: the port runs with only torch, numpy and the stdlib.
 
 The card's machine has torch, triton, numpy, scipy and einops, but no jax,
-flax, msgpack, ml_dtypes, yaml or ninja. A fresh interpreter refuses those
-(and the JAX package itself) through a ``sys.meta_path`` finder, then
+flax, msgpack, ml_dtypes, yaml, ninja, cv2, matplotlib or tensorboard. A
+fresh interpreter refuses those (and the JAX package itself) through a
+``sys.meta_path`` finder, then
 imports every module of ``pram_tpu_torch`` and ``chip_smoke``, reads the
 flax weights, and runs the four slices on the CPU: a 2-layer SegNetViT
 with the NN matcher, then a 2-layer GML with projection refinement, the
@@ -16,9 +17,12 @@ projections and MLPs; SuperPoint, SegNet and GM at one layer on the view,
 RetNet and the descriptor compressor on SFD2's outputs; then both serving
 CLIs' ``main`` on the CPU with
 2-layer recognizers, on the synthetic scene's map and features and on a
-160 x 120 rendered map with two PNG frames, written by chip_smoke.py's
-writers (the config, COLMAP, feature, image and weight readers of their
-paths); then both training CLIs' ``main`` on the CPU: the GML fit at one
+160 x 120 rendered map with a PNG and a JPEG frame, written by
+chip_smoke.py's writers (the config, COLMAP, feature, image and weight
+readers of their paths; the online CLI with its viewer); the runtime remainder (the JPEG fixtures against
+their digests, MetricsLogger without TensorBoard, the YAML snapshot, the
+viewer over loopback, a drawing, and plot_landmarks_3d raising without
+matplotlib); then both training CLIs' ``main`` on the CPU: the GML fit at one
 layer, and cli.train at two layers on a tiny layout written by
 chip_smoke.training_layout; then map building: the mapping scene of
 tests/torch_mapping_scene.py triangulated through the port's
@@ -39,6 +43,10 @@ BLOCKED = (
     "jax", "jaxlib", "flax", "msgpack", "ml_dtypes", "yaml", "optax", "orbax",
     "cv2", "h5py", "sklearn", "triton", "pram_tpu",
 )
+# optional packages the card's machine lacks: fenced in the run as well, but
+# a function may import them lazily and raise without them, as the JAX
+# package's do (utils/visualization.py:plot_landmarks_3d, core/logging.py)
+OPTIONAL = ("matplotlib", "tensorboard")
 
 SCRIPT = textwrap.dedent(
     """
@@ -230,12 +238,54 @@ SCRIPT = textwrap.dedent(
         for i, im in enumerate(imgs):
             chip_smoke.write_png(tmp / f"f{i}.png", np.clip(np.round(im * 255), 0, 255).astype(np.uint8))
         chip_smoke.write_queries(tmp, ["f0.png", "f1.png"], qv, tv, ("PINHOLE", 160, 120, (125.0, 125.0, 80.0, 60.0)))
+        chip_smoke.write_jpeg(tmp / "f1.jpg", np.clip(np.round(imgs[1] * 255), 0, 255).astype(np.uint8))
+        chip_smoke.write_queries(tmp, ["f0.png", "f1.jpg"], qv, tv, ("PINHOLE", 160, 120, (125.0, 125.0, 80.0, 60.0)))
         recs = cli_online.main(["--config", str(cfg), "--image_dir", str(tmp), "--queries",
                                 str(tmp / "queries_with_intrinsics.txt"), "--max_keypoints", "128",
                                 "--rec_weight_path", "weights/segnetvit_rendered.msgpack",
                                 "--feat_weight_path", "weights/sfd2_rendered.msgpack",
-                                "--matcher_weight_path", "weights/gml_rendered.msgpack", "--device", "cpu"])
+                                "--matcher_weight_path", "weights/gml_rendered.msgpack", "--device", "cpu",
+                                "--viewer_port", "0", "--save_vis", str(tmp / "vis")])
         assert len(recs) == 2 and all(np.isfinite(r["tvec"]).all() for r in recs)
+
+        # the runtime remainder: the JPEG fixtures against their digests, the
+        # logger without TensorBoard, the YAML snapshot read back, the viewer
+        # over loopback, a drawing; matplotlib is fenced, so the 3D plot raises
+        import hashlib
+        import json
+        import urllib.request
+
+        from pram_tpu_torch.core.config import load_yaml
+        from pram_tpu_torch.core.logging import MetricsLogger
+        from pram_tpu_torch.io.image import read_image
+        from pram_tpu_torch.utils.common import save_args_yaml
+        from pram_tpu_torch.utils.visualization import plot_landmarks_3d, vis_inlier
+        from pram_tpu_torch.viz import ViewerServer
+
+        table = json.loads(Path("tests/jpeg_fixtures/digests.json").read_text())
+        for name, want in table.items():
+            got = read_image(f"tests/jpeg_fixtures/{name}")
+            assert hashlib.sha256(got.tobytes()).hexdigest() == want["color"], name
+        logger = MetricsLogger(str(tmp / "log"))
+        assert logger._tb is None
+        logger.log_scalars({"loss": 1.5}, 3)
+        logger.close()
+        assert json.loads((tmp / "log" / "metrics.jsonl").read_text())["loss"] == 1.5
+        save_args_yaml({"a": [1, "x"], "b": None, "c": "off"}, str(tmp / "args"))
+        assert load_yaml(str(tmp / "args" / "args.yaml")) == {"a": [1, "x"], "b": None, "c": "off"}
+        viewer = ViewerServer(rscene.map, port=0)
+        viewer.update(R=np.eye(3), tvec=np.zeros(3), success=True, name="f0")
+        state = json.loads(urllib.request.build_opener(urllib.request.ProxyHandler({})).open(
+            f"http://127.0.0.1:{viewer.port}/state", timeout=10).read())
+        viewer.close()
+        assert state["seq"] == 1 and state["frames"][0]["center"] == [0.0, 0.0, 0.0]
+        drawn = vis_inlier(np.zeros((20, 20, 3), np.uint8), np.array([[10.0, 10.0]]), [True])
+        assert (drawn[..., 1] == 255).sum() > 20
+        try:
+            plot_landmarks_3d(np.zeros((4, 3)), np.zeros(4, int))
+            raise AssertionError("plot_landmarks_3d ran without matplotlib")
+        except ImportError:
+            pass
 
         # the two training CLIs, through main(argv) on the CPU: the GML fit
         # at one layer (its config cut here; one step, its checkpoint and
@@ -287,7 +337,7 @@ SCRIPT = textwrap.dedent(
     assert not leaked, leaked
     print("FENCE OK", len(names))
     """
-) % (BLOCKED,)
+) % (BLOCKED + OPTIONAL,)
 
 
 def test_port_runs_without_jax_flax_msgpack_yaml():
